@@ -1,0 +1,47 @@
+"""physicsbasedbayesianinference_tpu_torch — ensemble HMC in PyTorch with
+hand-written CUDA transition kernels for NVIDIA Hopper.
+
+The port of ``physicsbasedbayesianinference_tpu`` (JAX on a TPU, kept in the
+repository as the reference). It imports torch and never JAX. This slice
+covers fixed-length ensemble HMC through :func:`run_hmc`: constants, the
+ensemble state, the analytic potentials, the splitting integrators, warmup
+adaptation, the fused transition kernels and the diagnostics.
+"""
+
+from . import adaptation, constants, diagnostics, ensemble, hmc, ops, utils
+from .constants import NATURAL, SI, Constants, solar_system_units
+from .ensemble import (
+    EnsembleState,
+    kinetic_energy,
+    new_ensemble,
+    sample_momenta,
+    sample_positions,
+)
+from .hmc import (HMCInfo, HMCKernel, HMCRunResult, HMCState,
+                  build_fused_hmc_kernel, build_hmc_kernel, run_hmc)
+
+__all__ = [
+    "adaptation",
+    "constants",
+    "diagnostics",
+    "ensemble",
+    "hmc",
+    "ops",
+    "utils",
+    "Constants",
+    "NATURAL",
+    "SI",
+    "solar_system_units",
+    "EnsembleState",
+    "new_ensemble",
+    "sample_positions",
+    "sample_momenta",
+    "kinetic_energy",
+    "HMCState",
+    "HMCInfo",
+    "HMCKernel",
+    "HMCRunResult",
+    "build_fused_hmc_kernel",
+    "build_hmc_kernel",
+    "run_hmc",
+]

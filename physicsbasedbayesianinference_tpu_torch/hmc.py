@@ -1,0 +1,493 @@
+"""Ensemble Hamiltonian Monte Carlo over ``[W, D]`` tensors (port of the JAX
+package's ``hmc.py``, ``metric="diag"`` only).
+
+A transition is ``step(key, state, step_size) -> (state', info)`` with
+``key = (seed, transition index)``. Two engines implement it:
+
+* the composed engine (:func:`build_hmc_kernel`): torch ops per leapfrog
+  step, momenta and uniforms from a ``torch.Generator`` seeded from the
+  key. It runs on any device and is the CPU oracle, as the JAX package's
+  ``kernel="xla"`` is;
+* the fused engine (:func:`build_fused_hmc_kernel`): one hand-written CUDA
+  kernel per transition, its draws from the Philox counter stream keyed by
+  (seed, transition index, walker, dim-group), so no host RNG runs per
+  transition.
+
+``run_hmc(kernel="auto")`` picks the engine from the state's device and the
+potential's attributes when it builds the kernel, never after a failure:
+
+    CPU            any potential        composed
+    CUDA           diag_quadratic       fused, variant "diag"    (kernel A)
+    CUDA           device_form          fused, variant "generic" (kernel B)
+    CUDA           anything else        composed
+
+``kernel="fused"`` raises where it cannot be honoured (unlike the JAX
+package, which degrades to its XLA engine with a warning).
+
+At temperature T the target is ``exp(-U / (k_B T))``: momenta have std
+``sqrt(m k_B T)`` and the Metropolis ratio is ``exp(-beta (H1 - H0))``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time as _time
+from typing import Callable, Optional, Union
+
+import torch
+
+from .adaptation import (
+    build_warmup_schedule,
+    da_init,
+    da_update,
+    regularized_mass,
+    variance_init,
+    variance_update,
+)
+from .constants import Constants, NATURAL
+from .ensemble import EnsembleState, kinetic_energy, thermal_momentum_std
+from .ops import kernels
+from .ops.integrators import get_integrator
+from .ops.potentials import batched_value_and_grad
+
+Tensor = torch.Tensor
+StepKey = tuple  # (run seed: int, transition index: int)
+
+FUSED_INTEGRATORS = ("leapfrog", "velocity_verlet")
+
+
+@dataclasses.dataclass
+class HMCState:
+    """Sampler state: ensemble + cached potential energy and gradient."""
+
+    ensemble: EnsembleState
+    potential_energy: Tensor  # [W]
+    grad: Tensor  # [W, D]
+
+    def replace(self, **changes) -> "HMCState":
+        return dataclasses.replace(self, **changes)
+
+
+@dataclasses.dataclass
+class HMCInfo:
+    """Per-transition diagnostics."""
+
+    accept_prob: Tensor  # [W]
+    accepted: Tensor  # [W] bool
+    energy_error: Tensor  # [W] beta * (H_new - H_old), non-finite -> +inf
+    divergent: Tensor  # [W] bool
+    potential_energy: Tensor  # [W]
+    step_size: Tensor  # scalar
+
+
+@dataclasses.dataclass(frozen=True)
+class HMCKernel:
+    """A built HMC transition kernel."""
+
+    init: Callable[..., HMCState]
+    step: Callable[..., tuple[HMCState, HMCInfo]]
+    num_steps: int
+    grad_evals_per_step: int
+    kind: str = "composed"  # "composed" | "fused"
+    # (num_walkers, num_dims, mass_ndim) -> "diag" | "generic" | "composed"
+    variant_for: Optional[Callable[..., str]] = None
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    return x ^ (x >> 31)
+
+
+def _step_generator(key: StepKey, device) -> torch.Generator:
+    """The composed engine's generator for transition ``key``."""
+    seed, counter = key
+    gen = torch.Generator(device=device)
+    gen.manual_seed(_splitmix64(_splitmix64(seed) ^ counter) >> 1)
+    return gen
+
+
+def build_hmc_kernel(
+    potential_fn: Callable[[Tensor], Tensor],
+    *,
+    num_steps: int,
+    integrator: str = "leapfrog",
+    temperature: float = 1.0,
+    constants: Constants = NATURAL,
+    divergence_threshold: float = 1000.0,
+    use_analytic_grad: bool = True,
+) -> HMCKernel:
+    """The composed transition: thermal momentum refresh, ``num_steps``
+    integrator steps, momentum flip, per-walker Metropolis select."""
+    integ = get_integrator(integrator)
+    vg = batched_value_and_grad(potential_fn, use_analytic=use_analytic_grad)
+    beta = constants.beta(temperature)
+
+    def init(q, *, mass: Union[float, Tensor] = 1.0) -> HMCState:
+        q = torch.as_tensor(q)
+        if q.ndim != 2:
+            raise ValueError(
+                f"init positions must be [num_walkers, num_dims]; got shape "
+                f"{tuple(q.shape)}. For a single walker pass q[None, :].")
+        u, g = vg(q)
+        ens = EnsembleState(
+            q=q, p=torch.zeros_like(q),
+            mass=torch.as_tensor(mass, dtype=q.dtype, device=q.device),
+            log_weight=torch.zeros(q.shape[:1], dtype=q.dtype,
+                                   device=q.device))
+        return HMCState(ensemble=ens, potential_energy=u, grad=g)
+
+    def step(key: StepKey, state: HMCState, step_size,
+             mass: Optional[Tensor] = None) -> tuple[HMCState, HMCInfo]:
+        ens = state.ensemble
+        if mass is None:
+            mass = ens.mass
+        q = ens.q
+        gen = _step_generator(key, q.device)
+        p_std = thermal_momentum_std(mass, temperature, constants)
+        p0 = p_std * torch.randn(q.shape, generator=gen, dtype=q.dtype,
+                                 device=q.device)
+        q1, p1, u1, g1 = integ(
+            vg, q, p0, step_size=step_size, num_steps=num_steps,
+            inv_mass=1.0 / mass, grad=state.grad,
+            potential_energy=state.potential_energy)
+        p1 = -p1  # momentum flip: the proposal is its own inverse
+
+        h0 = kinetic_energy(p0, mass) + state.potential_energy
+        h1 = kinetic_energy(p1, mass) + u1
+        energy_error = beta * (h1 - h0)
+        energy_error = torch.where(torch.isfinite(energy_error),
+                                   energy_error, torch.inf)
+        divergent = energy_error > divergence_threshold
+
+        uniform = torch.rand(q.shape[:1], generator=gen, dtype=q.dtype,
+                             device=q.device)
+        log_u = torch.log(torch.clamp_min(uniform, torch.finfo(q.dtype).tiny))
+        accepted = (log_u < -energy_error) & ~divergent
+        accept_prob = torch.where(
+            divergent, 0.0, torch.exp(torch.clamp_max(-energy_error, 0.0)))
+
+        sel = accepted[:, None]
+        new_state = HMCState(
+            ensemble=ens.replace(q=torch.where(sel, q1, q),
+                                 p=torch.where(sel, p1, p0), mass=mass),
+            potential_energy=torch.where(accepted, u1,
+                                         state.potential_energy),
+            grad=torch.where(sel, g1, state.grad))
+        info = HMCInfo(accept_prob=accept_prob, accepted=accepted,
+                       energy_error=energy_error, divergent=divergent,
+                       potential_energy=new_state.potential_energy,
+                       step_size=torch.as_tensor(step_size))
+        return new_state, info
+
+    return HMCKernel(init=init, step=step, num_steps=num_steps,
+                     grad_evals_per_step=getattr(
+                         integ, "grad_evals_per_step", 1))
+
+
+def build_fused_hmc_kernel(
+    potential_fn: Callable[[Tensor], Tensor],
+    *,
+    num_steps: int,
+    temperature: float = 1.0,
+    constants: Constants = NATURAL,
+    divergence_threshold: float = 1000.0,
+) -> HMCKernel:
+    """Single-kernel HMC: the whole transition (momentum refresh, merged-kick
+    leapfrog, Metropolis select) is one CUDA launch on CUDA tensors; on CPU
+    tensors the kernels' plain versions run the same function.
+
+    ``variant_for`` names what a step runs: ``"diag"`` (kernel A) for a
+    potential with ``diag_quadratic``, ``"generic"`` (kernel B) for one
+    with a ``device_form`` the kernel takes at this D
+    (``kernels.generic_unsupported``), else
+    ``"composed"`` (the :func:`build_hmc_kernel` step). A per-walker mass
+    (``mass.ndim > 1``) is also ``"composed"``: the kernels take a [D]
+    metric.
+    """
+    base = build_hmc_kernel(
+        potential_fn, num_steps=num_steps, temperature=temperature,
+        constants=constants, divergence_threshold=divergence_threshold)
+    beta = constants.beta(temperature)
+    diag = getattr(potential_fn, "diag_quadratic", None)
+    form = getattr(potential_fn, "device_form", None)
+
+    def variant_for(num_walkers: int, num_dims: int,
+                    mass_ndim: int = 1) -> str:
+        if mass_ndim > 1:
+            return "composed"
+        if diag is not None:
+            return "diag"
+        if (form is not None
+                and kernels.generic_unsupported(form, num_dims) is None):
+            return "generic"
+        return "composed"
+
+    # Potential parameters and the metric, prepared on the state's device
+    # once (per device and D; the metric again only when its tensor
+    # changes), so a step issues no host-to-device copy.
+    prepared: dict = {}
+
+    def _params(device, d: int):
+        key = (str(device), d)
+        if key not in prepared:
+            def vec(v):
+                return torch.broadcast_to(
+                    torch.as_tensor(v, dtype=torch.float32).to(device),
+                    (d,)).contiguous()
+            if diag is not None:
+                prepared[key] = (vec(diag[0]), vec(diag[1]))
+            else:
+                name, params = form
+                prepared[key] = (name, tuple(
+                    p.to(device=device, dtype=torch.float32).contiguous()
+                    for p in params))
+        return prepared[key]
+
+    metric_cache: dict = {}
+    beta_scale: dict = {}
+
+    def _scalars(step_size, device) -> Tensor:
+        """(step size, beta, potential scale = 1) as a device tensor [3].
+        Writing a Python number into a CUDA tensor is a blocking
+        host-to-device copy, so (beta, 1) is made once per device and a
+        float step size is filled on the device."""
+        key = str(device)
+        if key not in beta_scale:
+            beta_scale[key] = torch.tensor([beta, 1.0], dtype=torch.float32,
+                                           device=device)
+        if isinstance(step_size, Tensor):
+            step = step_size.reshape(1).to(device=device, dtype=torch.float32)
+        else:
+            step = torch.full((1,), float(step_size), dtype=torch.float32,
+                              device=device)
+        return torch.cat((step, beta_scale[key]))
+
+    def _metric(mass: Tensor, d: int):
+        if metric_cache.get("mass") is not mass:
+            p_std = thermal_momentum_std(mass, temperature, constants)
+            metric_cache.update(
+                mass=mass,
+                p_std=torch.broadcast_to(p_std, (d,)).contiguous(),
+                inv_mass=torch.broadcast_to(1.0 / mass, (d,)).contiguous())
+        return metric_cache["p_std"], metric_cache["inv_mass"]
+
+    def step(key: StepKey, state: HMCState, step_size,
+             mass: Optional[Tensor] = None) -> tuple[HMCState, HMCInfo]:
+        ens = state.ensemble
+        if mass is None:
+            mass = ens.mass
+        w, d = ens.q.shape
+        variant = variant_for(w, d, mass.ndim)
+        if variant == "composed":
+            return base.step(key, state, step_size, mass=mass)
+        seed, counter = key
+        q = ens.q.contiguous()
+        device = q.device
+        p_std, inv_mass = _metric(mass, d)
+        common = dict(scalars=_scalars(step_size, device),
+                      p_std=p_std, inv_mass=inv_mass,
+                      num_steps=num_steps,
+                      divergence_threshold=divergence_threshold)
+        if variant == "diag":
+            k_diag, mean = _params(device, d)
+            q1, g1, u1, accept_prob, accepted, energy_error = \
+                kernels.fused_hmc_diag_quadratic(
+                    seed, counter, q, k_diag=k_diag, mean=mean, **common)
+        else:
+            q1, u1, g1, accept_prob, accepted, energy_error = \
+                kernels.fused_hmc_transition(
+                    _params(device, d), seed, counter, q,
+                    state.potential_energy.contiguous(),
+                    state.grad.contiguous(), **common)
+        new_state = HMCState(ensemble=ens.replace(q=q1, mass=mass),
+                             potential_energy=u1, grad=g1)
+        info = HMCInfo(
+            accept_prob=accept_prob, accepted=accepted,
+            energy_error=energy_error,
+            divergent=torch.isinf(energy_error)
+            | (energy_error > divergence_threshold),
+            potential_energy=u1, step_size=torch.as_tensor(step_size))
+        return new_state, info
+
+    return HMCKernel(init=base.init, step=step, num_steps=num_steps,
+                     grad_evals_per_step=1, kind="fused",
+                     variant_for=variant_for)
+
+
+@dataclasses.dataclass
+class HMCRunResult:
+    """Output of :func:`run_hmc`."""
+
+    state: HMCState
+    samples: Optional[Tensor]  # [S, W, D] if collect="samples"
+    mean: Optional[Tensor]  # [D] streaming posterior mean (collect="moments")
+    var: Optional[Tensor]  # [D] streaming posterior variance
+    accept_rate: Tensor  # scalar, post-warmup mean (NaN if num_samples=0)
+    divergence_rate: Tensor  # scalar
+    step_size: Tensor  # adapted step size
+    mass: Tensor  # adapted diagonal mass [D]
+    num_grad_evals: int  # potential-gradient evaluations, all walkers
+    kernel_used: str = "composed"  # "fused" | "composed"
+    kernel_variant: str = "composed"  # "diag" | "generic" | "composed"
+    sampling_seconds: float = 0.0  # wall time of sampling, device-synced
+
+
+def resolve_engine(kernel: str, potential_fn, q: Tensor, *,
+                   integrator: str = "leapfrog") -> str:
+    """``kernel="auto"|"fused"|"composed"`` -> the engine that will run
+    ("fused" | "composed"), decided from the state tensor and the
+    potential's attributes. ``"fused"`` raises where it cannot run."""
+    if kernel not in ("auto", "fused", "composed"):
+        raise ValueError(f"bad kernel={kernel!r} (want auto|fused|composed)")
+    if kernel == "composed":
+        return "composed"
+    form = getattr(potential_fn, "device_form", None)
+    has_form = (getattr(potential_fn, "diag_quadratic", None) is not None
+                or (form is not None and kernels.generic_unsupported(
+                    form, q.shape[-1]) is None))
+    if q.device.type != "cuda":
+        why = f"the state tensors are on {q.device}, not on a CUDA device"
+    elif q.dtype != torch.float32:
+        why = f"the fused kernels take float32, the state is {q.dtype}"
+    elif integrator not in FUSED_INTEGRATORS:
+        why = f"integrator {integrator!r} has no fused kernel"
+    elif not has_form:
+        why = ("the potential has no diag_quadratic and no device_form "
+               f"for D={q.shape[-1]}")
+    else:
+        return "fused"
+    if kernel == "fused":
+        raise ValueError(f"kernel='fused' cannot run: {why}")
+    return "composed"
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_hmc(
+    seed: int,
+    potential_fn: Callable[[Tensor], Tensor],
+    init_q,
+    *,
+    num_warmup: int,
+    num_samples: int,
+    num_steps: int,
+    init_step_size: float = 0.1,
+    target_accept: float = 0.8,
+    adapt_step_size: bool = True,
+    adapt_mass: bool = True,
+    mass: Union[float, Tensor] = 1.0,
+    integrator: str = "leapfrog",
+    temperature: float = 1.0,
+    constants: Constants = NATURAL,
+    collect: str = "samples",
+    thin: int = 1,
+    kernel: str = "auto",
+) -> HMCRunResult:
+    """Warmup-adapt and sample with ensemble HMC.
+
+    Warmup: dual averaging of the step size on the ensemble-mean acceptance
+    and a cross-walker variance estimate for the diagonal metric (mass =
+    1/var), refreshed at the window boundaries of
+    :func:`~.adaptation.build_warmup_schedule`. Transition ``t`` of the run
+    (warmup first, then sampling) uses key ``(seed, t)``. All adaptation
+    state stays on the device; the loop never reads a value back.
+
+    ``collect``: "samples" stacks every ``thin``-th position ``[S, W, D]``;
+    "moments" streams the posterior mean/variance; "none" keeps only the
+    diagnostics. ``kernel``: see :func:`resolve_engine`.
+    """
+    if collect not in ("samples", "moments", "none"):
+        raise ValueError(f"bad collect={collect!r}")
+    q = torch.as_tensor(init_q)
+    engine = resolve_engine(kernel, potential_fn, q, integrator=integrator)
+    if engine == "fused":
+        hk = build_fused_hmc_kernel(
+            potential_fn, num_steps=num_steps, temperature=temperature,
+            constants=constants)
+    else:
+        hk = build_hmc_kernel(
+            potential_fn, num_steps=num_steps, integrator=integrator,
+            temperature=temperature, constants=constants)
+    state = hk.init(q, mass=mass)
+    num_walkers, num_dims = state.ensemble.q.shape
+    dtype, device = q.dtype, q.device
+
+    # ---- warmup -----------------------------------------------------------
+    step_size = torch.full((), init_step_size, dtype=dtype, device=device)
+    mass_arr = torch.broadcast_to(
+        torch.as_tensor(mass, dtype=dtype, device=device), (num_dims,))
+    t = 0
+    for seg in build_warmup_schedule(num_warmup, adapt_mass=adapt_mass):
+        da = da_init(step_size)
+        track_var = seg.update_mass and adapt_mass
+        varst = variance_init(num_dims, dtype, device)
+        for _ in range(seg.length):
+            state, info = hk.step((seed, t), state, torch.exp(da.log_step))
+            t += 1
+            da = da_update(da, torch.mean(info.accept_prob),
+                           target=target_accept, enabled=adapt_step_size)
+            if track_var:
+                varst = variance_update(varst, state.ensemble.q)
+        if adapt_step_size:
+            step_size = torch.exp(da.log_avg_step)
+        if track_var:
+            mass_arr = 1.0 / regularized_mass(varst)
+            state = state.replace(
+                ensemble=state.ensemble.replace(mass=mass_arr))
+
+    # ---- sampling ---------------------------------------------------------
+    mean = torch.zeros((num_dims,), dtype=dtype, device=device)
+    m2 = torch.zeros((num_dims,), dtype=dtype, device=device)
+    n = 0
+    accepts, divs, samples = [], [], []
+    _synchronize(device)
+    t0 = _time.perf_counter()
+    for i in range(num_samples):
+        state, info = hk.step((seed, t), state, step_size)
+        t += 1
+        accepts.append(torch.mean(info.accept_prob))
+        divs.append(torch.mean(info.divergent.to(dtype)))
+        qs = state.ensemble.q
+        if collect == "samples" and i % thin == 0:
+            samples.append(qs)
+        elif collect == "moments":
+            n_new = n + num_walkers
+            batch_var, batch_mean = torch.var_mean(qs, dim=0, correction=0)
+            delta = batch_mean - mean
+            mean = mean + delta * (num_walkers / n_new)
+            m2 = (m2 + batch_var * num_walkers
+                  + delta**2 * (n * num_walkers / n_new))
+            n = n_new
+    if num_samples:
+        accept_rate = torch.mean(torch.stack(accepts))
+        divergence_rate = torch.mean(torch.stack(divs))
+    else:  # as the JAX package: the mean of no transitions is NaN
+        accept_rate = torch.full((), math.nan, dtype=dtype, device=device)
+        divergence_rate = accept_rate.clone()
+    _synchronize(device)
+    sampling_seconds = _time.perf_counter() - t0
+
+    out_samples = post_mean = post_var = None
+    if collect == "samples":
+        out_samples = (torch.stack(samples) if samples else torch.empty(
+            (0, num_walkers, num_dims), dtype=dtype, device=device))
+    elif collect == "moments":
+        post_mean = mean
+        post_var = m2 / max(n - 1.0, 1.0)
+
+    total_grads = ((num_warmup + num_samples) * num_walkers
+                   * (hk.num_steps * hk.grad_evals_per_step + 1))
+    variant = ("composed" if hk.kind != "fused"
+               else hk.variant_for(num_walkers, num_dims, 1))
+    return HMCRunResult(
+        state=state, samples=out_samples, mean=post_mean, var=post_var,
+        accept_rate=accept_rate, divergence_rate=divergence_rate,
+        step_size=step_size, mass=mass_arr, num_grad_evals=total_grads,
+        kernel_used=hk.kind, kernel_variant=variant,
+        sampling_seconds=sampling_seconds)

@@ -21,3 +21,8 @@ import jax  # noqa: E402
 # hardware:  PBBI_TEST_TPU=1 pytest tests/test_pallas.py -k tpu
 if os.environ.get("PBBI_TEST_TPU") != "1":
     jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")

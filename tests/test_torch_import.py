@@ -1,0 +1,52 @@
+"""The port imports and runs without JAX, and ``chip_smoke.py`` refuses to
+run (printing no result) where there is no CUDA device."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+
+BLOCK_JAX = ("import sys\n"
+             "for name in ('jax', 'jaxlib', 'flax', 'orbax'):\n"
+             "    sys.modules[name] = None\n")
+
+
+def _run(code, timeout=120):
+    return subprocess.run([sys.executable, "-c", BLOCK_JAX + code],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+def test_port_imports_and_samples_without_jax():
+    proc = _run(
+        "import torch\n"
+        "import physicsbasedbayesianinference_tpu_torch as pt\n"
+        "from physicsbasedbayesianinference_tpu_torch import (adaptation,\n"
+        "    constants, diagnostics, ensemble, hmc)\n"
+        "from physicsbasedbayesianinference_tpu_torch.ops import (kernels,\n"
+        "    philox, potentials, integrators, _build)\n"
+        "from physicsbasedbayesianinference_tpu_torch.utils import convert\n"
+        "r = pt.run_hmc(0, potentials.make_standard_normal(2),\n"
+        "               torch.zeros(64, 2), num_warmup=5, num_samples=5,\n"
+        "               num_steps=2)\n"
+        "assert r.samples.shape == (5, 64, 2)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'flax', 'orbax') and sys.modules[m]]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_chip_smoke_refuses_without_a_gpu():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py would run")
+    proc = _run("import runpy\n"
+                "runpy.run_path('chip_smoke.py', run_name='__main__')\n")
+    assert proc.returncode != 0
+    assert proc.stdout == ""
+    assert "torch.cuda.is_available() is false" in proc.stderr

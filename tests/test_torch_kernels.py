@@ -1,0 +1,198 @@
+"""Plain versions of the fused CUDA kernels against the JAX Pallas kernels
+(run in interpret mode on the CPU, as tests/test_pallas_interpret.py runs
+them), plus the CPU dispatch of the wrappers.
+
+With ``p_std=0`` a trajectory starts from rest, so energy_error and
+accept_prob do not depend on either side's random stream: they are
+compared elementwise, and q', u', g' on walkers both sides accepted, all
+at rtol=atol=1e-5 (float32, sums in another order)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from physicsbasedbayesianinference_tpu.ops import pallas_kernels as jk
+from physicsbasedbayesianinference_tpu.ops import potentials as jp
+import physicsbasedbayesianinference_tpu_torch as pt
+from physicsbasedbayesianinference_tpu_torch.ops import kernels as tk
+from physicsbasedbayesianinference_tpu_torch.ops import potentials as tp
+from physicsbasedbayesianinference_tpu_torch.utils import convert
+
+pytestmark = pytest.mark.skipif(
+    jax.default_backend() == "tpu",
+    reason="the JAX side runs the Pallas kernels in interpret mode")
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _compare(jout, tout, names):
+    j = dict(zip(names, (np.asarray(x) for x in jout)))
+    t = dict(zip(names, (x.numpy() for x in tout)))
+    np.testing.assert_allclose(t["energy_error"], j["energy_error"], **TOL)
+    np.testing.assert_allclose(t["accept_prob"], j["accept_prob"], **TOL)
+    both = j["accepted"] & t["accepted"]
+    assert both.mean() > 0.5
+    for key in ("q", "u", "g"):
+        np.testing.assert_allclose(t[key][both], j[key][both], **TOL)
+    return t, both
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.5])
+def test_diag_quadratic_plain_matches_pallas(scale):
+    w, d, steps = 256, 32, 4
+    rng = np.random.default_rng(0)
+    q = rng.normal(size=(w, d)).astype(np.float32)
+    k = rng.uniform(0.5, 2.0, d).astype(np.float32)
+    mu = rng.normal(size=d).astype(np.float32)
+    im = rng.uniform(0.5, 2.0, d).astype(np.float32)
+    step, beta = 0.2, 1.3
+    jout = jk.make_fused_hmc_diag_quadratic(num_steps=steps)(
+        jnp.int32(5), jnp.asarray(q), step_size=jnp.float32(step),
+        p_std=0.0, inv_mass=jnp.asarray(im), beta=beta,
+        k_diag=jnp.asarray(k), mean=jnp.asarray(mu),
+        scale=jnp.float32(scale))
+    tout = tk.fused_hmc_diag_quadratic_plain(
+        5, 0, torch.as_tensor(q),
+        scalars=torch.tensor([step, beta, scale]),
+        p_std=torch.zeros(d), inv_mass=torch.as_tensor(im),
+        k_diag=torch.as_tensor(k), mean=torch.as_tensor(mu),
+        num_steps=steps)
+    t, both = _compare(jout, tout, ("q", "g", "u", "accept_prob",
+                                    "accepted", "energy_error"))
+    # (u, g) stay unscaled whatever the scale
+    qc = t["q"] - mu
+    np.testing.assert_allclose(t["u"], 0.5 * np.sum(k * qc * qc, axis=1),
+                               rtol=1e-5)
+    np.testing.assert_allclose(t["g"], k * qc, rtol=1e-5, atol=1e-6)
+
+
+def _target(kind, rng, w):
+    """(JAX potential, numpy parameters, start positions, step size)."""
+    if kind == "gaussian":
+        d = 5
+        a = rng.normal(size=(d, d))
+        params = {"mean": rng.normal(size=d).astype(np.float32),
+                  "cov": (a @ a.T / d + 0.5 * np.eye(d)).astype(np.float32)}
+        return (jp.make_gaussian(params["mean"], cov=params["cov"]), params,
+                rng.normal(size=(w, d)), 0.15)
+    if kind == "funnel":
+        params = {"num_dims": 6, "sigma": 3.0}
+        return (jp.make_funnel(6, 3.0), params,
+                0.5 * rng.normal(size=(w, 6)), 0.15)
+    if kind == "banana":
+        params = {"a": 1.0, "b": 10.0}
+        return (jp.make_banana(1.0, 10.0), params,
+                0.5 * rng.normal(size=(w, 2)), 0.05)
+    if kind == "mixture":
+        params = {"means": 2.0 * rng.normal(size=(3, 4)).astype(np.float32),
+                  "sigma": 1.2,
+                  "log_weights": np.float32([0.0, -0.4, 0.2])}
+        return (jp.make_gaussian_mixture(params["means"], 1.2,
+                                         params["log_weights"]),
+                params, 2.0 * rng.normal(size=(w, 4)), 0.15)
+    params = {"mass": rng.uniform(0.5, 1.5, 4).astype(np.float32),
+              "num_bodies": 4, "softening": 0.5}
+    return (jp.make_nbody_potential(params["mass"], 4, softening=0.5),
+            params, 1.5 * rng.normal(size=(w, 12)), 0.15)
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "funnel", "banana", "mixture",
+                                  "nbody"])
+@pytest.mark.parametrize("scale", [1.0, 0.5])
+def test_generic_plain_matches_pallas(kind, scale):
+    w, steps = 64, 4
+    rng = np.random.default_rng(1)
+    jfn, params, q, step = _target(kind, rng, w)
+    q = q.astype(np.float32)
+    d = q.shape[1]
+    vg = jp.batched_value_and_grad(jfn)
+    u, g = (np.array(x) for x in vg(jnp.asarray(q)))
+    im = rng.uniform(0.5, 2.0, d).astype(np.float32)
+    beta = 1.0
+    jout = jk.make_fused_hmc_transition(vg, num_steps=steps)(
+        jnp.int32(3), jnp.asarray(q), jnp.asarray(u), jnp.asarray(g),
+        step_size=jnp.float32(step), p_std=0.0, inv_mass=jnp.asarray(im),
+        beta=beta, scale=jnp.float32(scale))
+    form = convert.potential_params_from_numpy(kind, params).device_form
+    tout = tk.fused_hmc_transition_plain(
+        form, 3, 0, torch.as_tensor(q), torch.as_tensor(u),
+        torch.as_tensor(g), scalars=torch.tensor([step, beta, scale]),
+        p_std=torch.zeros(d), inv_mass=torch.as_tensor(im), num_steps=steps)
+    t, both = _compare(jout, tout, ("q", "u", "g", "accept_prob",
+                                    "accepted", "energy_error"))
+    uu, gg = vg(jnp.asarray(t["q"][both]))  # unscaled (u, g) of q'
+    np.testing.assert_allclose(t["u"][both], np.asarray(uu), **TOL)
+    np.testing.assert_allclose(t["g"][both], np.asarray(gg), **TOL)
+
+
+def _fused_moments(fn, q0, step, n, burn):
+    kern = pt.build_fused_hmc_kernel(fn, num_steps=8)
+    st = kern.init(torch.as_tensor(q0))
+    qs, accs = [], []
+    for i in range(n):
+        st, info = kern.step((17, i), st, torch.tensor(step))
+        if i >= burn:
+            qs.append(st.ensemble.q)
+            accs.append(float(info.accept_prob.mean()))
+    return torch.cat(qs).double(), float(np.mean(accs)), kern
+
+
+def test_plain_kernels_sample_the_closed_form():
+    """p_std = 1 through the CPU fused engine (the plain versions): the
+    equilibrium moments of a diagonal and a correlated Gaussian. MC error
+    bounds: 1000 walkers x 50 kept transitions."""
+    rng = np.random.default_rng(2)
+    k = np.float32([0.5, 1.0, 2.0, 4.0])
+    mu = np.float32([1.0, -2.0, 0.5, 0.0])
+    diag = tp.make_gaussian(mu, precision=np.diag(k))
+    q, acc, kern = _fused_moments(diag, rng.normal(size=(1000, 4)) * 0.5
+                                  + mu, 0.35, 70, 20)
+    assert kern.variant_for(1000, 4, 1) == "diag" and 0.6 < acc <= 1.0
+    np.testing.assert_allclose(q.mean(0).numpy(), mu, atol=0.05)
+    np.testing.assert_allclose(q.var(0).numpy(), 1.0 / k, rtol=0.06)
+
+    mean = np.float32([2.0, -1.0])
+    cov = np.float32([[1.0, 0.8], [0.8, 2.0]])
+    corr = tp.make_gaussian(mean, cov=cov)
+    q, acc, kern = _fused_moments(corr, rng.normal(size=(1000, 2)) + mean,
+                                  0.25, 70, 20)
+    assert kern.variant_for(1000, 2, 1) == "generic" and 0.6 < acc <= 1.0
+    np.testing.assert_allclose(q.mean(0).numpy(), mean, atol=0.06)
+    np.testing.assert_allclose(np.cov(q.numpy().T), cov, atol=0.1)
+
+
+def test_wrappers_on_cpu_run_the_plain_version_and_count_nothing():
+    q = torch.randn(10, 3, generator=torch.Generator().manual_seed(0))
+    kw = dict(scalars=torch.tensor([0.1, 1.0, 1.0]), p_std=torch.ones(3),
+              inv_mass=torch.ones(3), num_steps=3)
+    before = tk.launch_counts()
+    a = tk.fused_hmc_diag_quadratic(9, 4, q, k_diag=torch.ones(3),
+                                    mean=torch.zeros(3), **kw)
+    b = tk.fused_hmc_diag_quadratic_plain(9, 4, q, k_diag=torch.ones(3),
+                                          mean=torch.zeros(3), **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    form = tp.make_gaussian(np.zeros(3), cov=np.eye(3)).device_form
+    u, g = tk.device_value_and_grad(form)(q)
+    c = tk.fused_hmc_transition(form, 9, 4, q, u, g, **kw)
+    d = tk.fused_hmc_transition_plain(form, 9, 4, q, u, g, **kw)
+    for x, y in zip(c, d):
+        assert torch.equal(x, y)
+    assert tk.launch_counts() == before
+    # the same (seed, transition) draws the same bits; the next one not
+    e = tk.fused_hmc_diag_quadratic(9, 5, q, k_diag=torch.ones(3),
+                                    mean=torch.zeros(3), **kw)
+    assert not torch.equal(a[5], e[5])
+
+
+def test_wrappers_refuse_other_devices():
+    q = torch.empty(4, 3, device="meta")
+    vec = torch.empty(3, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tk.fused_hmc_diag_quadratic(
+            0, 0, q, scalars=torch.empty(3, device="meta"), p_std=vec,
+            inv_mass=vec, k_diag=vec, mean=vec, num_steps=2)
+    with pytest.raises(ValueError, match="unknown device form"):
+        tk.device_value_and_grad(("rosenbrock", ()))
