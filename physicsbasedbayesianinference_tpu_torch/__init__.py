@@ -2,13 +2,16 @@
 hand-written CUDA transition kernels for NVIDIA Hopper.
 
 The port of ``physicsbasedbayesianinference_tpu`` (JAX on a TPU, kept in the
-repository as the reference). It imports torch and never JAX. This slice
-covers fixed-length ensemble HMC through :func:`run_hmc`: constants, the
-ensemble state, the analytic potentials, the splitting integrators, warmup
-adaptation, the fused transition kernels and the diagnostics.
+repository as the reference). It imports torch and never JAX. It covers
+fixed-length ensemble HMC through :func:`run_hmc` (constants, the ensemble
+state, the analytic potentials, the splitting integrators with kernel D's
+``pallas_leapfrog``, warmup adaptation, the fused transition kernels and
+the diagnostics) and direct N-body simulation in :mod:`.physics`, whose
+accelerations run kernel E on CUDA.
 """
 
-from . import adaptation, constants, diagnostics, ensemble, hmc, ops, utils
+from . import (adaptation, constants, diagnostics, ensemble, hmc, native,
+               ops, physics, utils)
 from .constants import NATURAL, SI, Constants, solar_system_units
 from .ensemble import (
     EnsembleState,
@@ -26,7 +29,9 @@ __all__ = [
     "diagnostics",
     "ensemble",
     "hmc",
+    "native",
     "ops",
+    "physics",
     "utils",
     "Constants",
     "NATURAL",

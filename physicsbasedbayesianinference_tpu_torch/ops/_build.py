@@ -1,10 +1,12 @@
 """Build the CUDA sources under ``csrc/`` with ``nvcc`` and load them with
 ctypes (plain C interface; no PyTorch headers, so a build takes seconds).
 
-The library is built at first use into ``_build/`` beside the package
-sources (listed in ``.gitignore``). Its file name carries a hash of the
-sources and flags, so an edited source rebuilds. A missing ``nvcc`` or a
-failed build raises; there is no fallback.
+Every ``.cu`` source is compiled to an object by its own ``nvcc``, all at
+once, and the objects are linked into one library. It is built at first
+use into ``_build/`` beside the package sources (listed in ``.gitignore``).
+Its file name carries a hash of every source, headers included, and of the
+flags, so an edited source rebuilds. A missing ``nvcc`` or a failed build
+raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -20,15 +22,19 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_hmc.cu", "philox.cuh")
+# compiled (one object each) ...
+CU_SOURCES = ("fused_hmc.cu", "leapfrog.cu", "nbody.cu")
+# ... and every file the library depends on, for its hash
+SOURCES = CU_SOURCES + ("forms.cuh", "philox.cuh")
 # --fmad=false: no multiply-add contraction, so the kernels round op by op
 # as their plain torch versions do and agree with them to 1e-5 even on
 # sensitive trajectories (the banana's valley, the funnel's neck). It costs
 # up to a tenth of the kernels' time (tools/fmad_cost.py measures both).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false")
+              "-O3", "-Xcompiler", "-fPIC", "--fmad=false")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_double
 _TAIL = [_I, _I, _I, _F, ctypes.c_uint64, ctypes.c_uint32, _P]
 _SIGNATURES = {
     # 12 pointers: q, k, mean, inv_mass, p_std, scalars, then 6 outputs
@@ -36,6 +42,12 @@ _SIGNATURES = {
     # form id, 3 parameter pointers, parameter count, then 12 pointers:
     # q, u, g, inv_mass, p_std, scalars, 6 outputs
     "pbbi_fused_hmc_transition": [_I] + [_P] * 3 + [_I] + [_P] * 12 + _TAIL,
+    # form id, 3 parameter pointers, parameter count, then 10 pointers:
+    # q, p, u, g, inv_mass, step, 4 outputs; W, D, L, stream
+    "pbbi_leapfrog_trajectory": ([_I] + [_P] * 3 + [_I] + [_P] * 10
+                                 + [_I, _I, _I, _P]),
+    # dtype code, x, mass, out, N, softening, G, stream
+    "pbbi_nbody_accelerations": [_I, _P, _P, _P, _I, _D, _D, _P],
 }
 
 
@@ -48,7 +60,7 @@ def nvcc_path() -> str:
         return str(default)
     raise RuntimeError(
         "nvcc not found (looked on PATH and in /usr/local/cuda/bin): the "
-        "fused CUDA kernels cannot be built")
+        "CUDA kernels cannot be built")
 
 
 def _digest(flags) -> str:
@@ -60,7 +72,22 @@ def _digest(flags) -> str:
 
 
 def library_path(flags=NVCC_FLAGS) -> Path:
-    return BUILD_DIR / f"libpbbi_fused_{_digest(flags)}.so"
+    return BUILD_DIR / f"libpbbi_kernels_{_digest(flags)}.so"
+
+
+def _run_all(cmds) -> None:
+    """Run the commands at once; raise with every failure's output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def build(flags=NVCC_FLAGS) -> Path:
@@ -70,16 +97,19 @@ def build(flags=NVCC_FLAGS) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    stem = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{stem}.{Path(src).stem}.o" for src in CU_SOURCES]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *flags, "-o", str(tmp),
-           str(CSRC / "fused_hmc.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    try:
+        _run_all([[nvcc, *flags, "-c", "-o", str(obj), str(CSRC / src)]
+                  for src, obj in zip(CU_SOURCES, objs)])
+        _run_all([[nvcc, *flags, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
     return out
 
 

@@ -4,8 +4,9 @@ package's ``ops/integrators.py``).
 A palindromic table of momentum kicks (p -= c dt grad U) and position
 drifts (q += c dt p / m) becomes a Python loop over steps; the gradient is
 recomputed only where a kick follows a drift. ``lax.scan`` becomes that
-loop. The JAX ``pallas_leapfrog`` entry is not registered here: its kernel
-is still to port.
+loop. ``pallas_leapfrog`` runs the whole trajectory in one launch of
+kernel D on CUDA (``ops/kernels.py`` ``leapfrog_trajectory``); the
+registry holds the same names as the JAX package's.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from __future__ import annotations
 from typing import Callable, Sequence, Tuple
 
 import torch
+
+from . import kernels
 
 Tensor = torch.Tensor
 ValueAndGradFn = Callable[[Tensor], Tuple[Tensor, Tensor]]
@@ -131,6 +134,81 @@ stormer_verlet.grad_evals_per_step = 1  # type: ignore[attr-defined]
 stormer_verlet.name = "stormer_verlet"  # type: ignore[attr-defined]
 
 
+def _leapfrog_form(vg_fn, device, d: int):
+    """The device form kernel D runs for ``vg_fn`` at dimension ``d``, its
+    parameters as contiguous float32 tensors on ``device``: the diagonal
+    quadratic when the potential has one (kernel A's targets), else its
+    ``device_form``. Prepared once per device and D and kept on ``vg_fn``,
+    so a trajectory issues no host-to-device copy."""
+    prepared = vg_fn.__dict__.setdefault("leapfrog_forms", {})
+    key = (str(device), d)
+    if key in prepared:
+        return prepared[key]
+    diag = getattr(vg_fn, "diag_quadratic", None)
+    form = getattr(vg_fn, "device_form", None)
+    if diag is not None:
+        form = ("diag", tuple(
+            torch.broadcast_to(torch.as_tensor(v, dtype=torch.float32),
+                               (d,)) for v in diag))
+    elif form is None:
+        raise ValueError(
+            "integrator 'pallas_leapfrog' on CUDA runs kernel D, which "
+            "needs the potential's diag_quadratic or device_form; this "
+            "potential has neither")
+    why = kernels.leapfrog_unsupported(form, d)
+    if why is not None:
+        raise ValueError(f"integrator 'pallas_leapfrog' on CUDA: {why}")
+    prepared[key] = (form[0], tuple(
+        t.to(device=device, dtype=torch.float32).contiguous()
+        for t in form[1]))
+    return prepared[key]
+
+
+def _on_device(value, shape, what: str, device) -> Tensor:
+    """``value`` as a contiguous float32 tensor of ``shape`` on ``device``;
+    a Python number is filled there (a kernel, not a host copy)."""
+    if not isinstance(value, Tensor):
+        return torch.full(shape, float(value), dtype=torch.float32,
+                          device=device)
+    if value.numel() not in (1, shape[0]):
+        raise ValueError(f"kernel D takes {what}, got shape "
+                         f"{tuple(value.shape)}")
+    return torch.broadcast_to(
+        value.to(device=device, dtype=torch.float32).reshape(-1),
+        shape).contiguous()
+
+
+def pallas_leapfrog(vg_fn: ValueAndGradFn, q: Tensor, p: Tensor, *,
+                    step_size, num_steps: int, inv_mass,
+                    grad: Tensor | None = None,
+                    potential_energy: Tensor | None = None):
+    """The JAX package's ``pallas_leapfrog`` (kick-drift-kick, one gradient
+    per step). On CPU tensors it is :func:`leapfrog`. On CUDA it is one
+    launch of kernel D with the potential's device form (see
+    :func:`_leapfrog_form`; a potential without one raises): one step
+    size, read on the device, a ``[D]`` or scalar inverse mass, and the
+    cached ``(potential_energy, grad)`` used when given."""
+    if q.device.type == "cpu":
+        return leapfrog(vg_fn, q, p, step_size=step_size,
+                        num_steps=num_steps, inv_mass=inv_mass, grad=grad,
+                        potential_energy=potential_energy)
+    d = q.shape[-1]
+    form = _leapfrog_form(vg_fn, q.device, d)
+    return kernels.leapfrog_trajectory(
+        form, q.contiguous(), p.contiguous(),
+        step_size=_on_device(step_size, (1,), "one step size", q.device),
+        num_steps=num_steps,
+        inv_mass=_on_device(inv_mass, (d,), "a [D] or scalar inverse mass",
+                            q.device),
+        grad=None if grad is None else grad.contiguous(),
+        potential_energy=(None if potential_energy is None
+                          else potential_energy.contiguous()))
+
+
+pallas_leapfrog.grad_evals_per_step = 1  # type: ignore[attr-defined]
+pallas_leapfrog.name = "pallas_leapfrog"  # type: ignore[attr-defined]
+
+
 INTEGRATORS = {
     "leapfrog": leapfrog,
     "velocity_verlet": velocity_verlet,
@@ -138,6 +216,7 @@ INTEGRATORS = {
     "mclachlan": mclachlan,
     "yoshida4": yoshida4,
     "stormer_verlet": stormer_verlet,
+    "pallas_leapfrog": pallas_leapfrog,
 }
 
 

@@ -9,7 +9,8 @@ sampler:
 * ``diag_quadratic``: ``(k_diag, mean)`` for ``U = 0.5 sum_d k_d (q_d -
   mean_d)^2``; routes a CUDA transition to the diagonal-quadratic kernel.
 * ``device_form``: ``(name, parameter tensors)`` that the generic fused
-  CUDA kernel evaluates in-kernel (``ops/kernels.py`` ``GENERIC_FORMS``):
+  CUDA kernel (B) and the leapfrog kernel (D) evaluate in-kernel
+  (``ops/kernels.py`` ``FORM_IDS``):
   ``("gaussian", (mean [D], precision [D, D]))``, ``("funnel", ((2
   sigma^2, (num_dims - 1) / 2),))``, ``("banana", ((a, b),))``,
   ``("mixture", (means [K, D], log_weights [K], (1 / sigma^2,)))`` or
@@ -210,7 +211,8 @@ _attach(no_potential, analytic_grad=torch.zeros_like, name="no_potential",
 
 
 # ---------------------------------------------------------------------------
-# Gravitational N-body (plain torch; the tiled CUDA kernel is still to port)
+# Gravitational N-body (plain torch; kernel E, ops/kernels.py
+# nbody_accelerations_tiled, is the CUDA route of physics/nbody.py)
 # ---------------------------------------------------------------------------
 
 
@@ -219,18 +221,32 @@ def pairwise_displacements(x: Tensor) -> Tensor:
     return x[..., None, :, :] - x[..., :, None, :]
 
 
+# target rows per block of the pairwise energy: [rows, N] pairs of at most
+# 2^24 elements, so N = 16384 needs no [N, N, D] tensor
+_ENERGY_PAIR_BLOCK = 1 << 24
+
+
 def nbody_potential_energy(x: Tensor, mass: Tensor, *,
                            constants: Constants = NATURAL,
                            softening: float = 0.0) -> Tensor:
-    """Total gravitational energy ``-G sum_{i<j} m_i m_j / r_ij``."""
+    """Total gravitational energy ``-G sum_{i<j} m_i m_j / r_ij``, over
+    blocks of target rows (one block up to N = 4096)."""
     n = x.shape[-2]
-    r = pairwise_displacements(x)
-    dist2 = torch.sum(r * r, dim=-1) + softening**2
-    eye = torch.eye(n, dtype=torch.bool, device=x.device)
-    inv_dist = torch.where(
-        eye, 0.0, torch.rsqrt(torch.where(eye, 1.0, dist2)))
-    mm = mass[:, None] * mass[None, :]
-    return -0.5 * constants.G * torch.sum(mm * inv_dist, dim=(-2, -1))
+    rows = max(1, _ENERGY_PAIR_BLOCK // n)
+    cols = torch.arange(n, device=x.device)
+    total = None
+    for start in range(0, n, rows):
+        stop = min(n, start + rows)
+        r = x[..., None, :, :] - x[..., start:stop, None, :]
+        dist2 = torch.sum(r * r, dim=-1) + softening**2
+        eye = cols[None, :] == torch.arange(start, stop,
+                                            device=x.device)[:, None]
+        inv_dist = torch.where(
+            eye, 0.0, torch.rsqrt(torch.where(eye, 1.0, dist2)))
+        mm = mass[start:stop, None] * mass[None, :]
+        part = torch.sum(mm * inv_dist, dim=(-2, -1))
+        total = part if total is None else total + part
+    return -0.5 * constants.G * total
 
 
 def nbody_accelerations(x: Tensor, mass: Tensor, *,
@@ -283,18 +299,25 @@ def batched_value_and_grad(
     potential_fn: PotentialFn, *, use_analytic: bool = True
 ) -> Callable[[Tensor], tuple[Tensor, Tensor]]:
     """``q:[W, D] -> (U:[W], grad:[W, D])``: the closed-form gradient when
-    the potential has one, else ``vmap(grad_and_value(f))``."""
+    the potential has one, else ``vmap(grad_and_value(f))``. The returned
+    function carries the potential's ``diag_quadratic`` and
+    ``device_form``, which the ``pallas_leapfrog`` integrator hands to
+    kernel D on CUDA."""
     ag = getattr(potential_fn, "analytic_grad", None)
     if use_analytic and ag is not None:
         def vg(q):
             return potential_fn(q), ag(q)
-        return vg
-    gv = torch.func.vmap(torch.func.grad_and_value(potential_fn))
+    else:
+        gv = torch.func.vmap(torch.func.grad_and_value(potential_fn))
 
-    def vg_autodiff(q):
-        g, u = gv(q)
-        return u, g
-    return vg_autodiff
+        def vg(q):
+            g, u = gv(q)
+            return u, g
+    vg.diag_quadratic = getattr(  # type: ignore[attr-defined]
+        potential_fn, "diag_quadratic", None)
+    vg.device_form = getattr(  # type: ignore[attr-defined]
+        potential_fn, "device_form", None)
+    return vg
 
 
 @functools.lru_cache(maxsize=None)

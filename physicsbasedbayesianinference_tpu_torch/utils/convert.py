@@ -1,5 +1,6 @@
-"""Carry sampler state and potential parameters between the JAX package and
-the port as numpy arrays (neither side imports the other).
+"""Carry sampler state, N-body systems and potential parameters between the
+JAX package and the port as numpy arrays (neither side imports the
+other).
 
 The numpy form of an HMC state is a dict with keys ``q``, ``p``, ``mass``,
 ``log_weight``, ``potential_energy`` and ``grad``: for a JAX state,
@@ -16,8 +17,10 @@ import torch
 from ..ensemble import EnsembleState
 from ..hmc import HMCState
 from ..ops import potentials
+from ..physics.nbody import NBodySystem
 
 STATE_KEYS = ("q", "p", "mass", "log_weight", "potential_energy", "grad")
+NBODY_KEYS = ("x", "v", "mass", "time")
 
 
 def hmc_state_from_jax(state: Mapping[str, np.ndarray],
@@ -41,6 +44,18 @@ def hmc_state_to_numpy(state: HMCState) -> dict:
     values = (ens.q, ens.p, ens.mass, ens.log_weight,
               state.potential_energy, state.grad)
     return {k: v.detach().cpu().numpy() for k, v in zip(STATE_KEYS, values)}
+
+
+def nbody_system_from_numpy(system: Mapping[str, np.ndarray],
+                            device=None) -> NBodySystem:
+    """The port's ``NBodySystem`` from a JAX one given as numpy arrays
+    (``{"x": np.asarray(s.x), "v": ..., "mass": ..., "time": ...}``); the
+    values are copied exactly (same dtype)."""
+    missing = [k for k in NBODY_KEYS if k not in system]
+    if missing:
+        raise KeyError(f"system dict lacks {missing}")
+    return NBodySystem(**{k: torch.as_tensor(np.array(system[k])).to(device)
+                          for k in NBODY_KEYS})
 
 
 def potential_params_from_numpy(kind: str, params: Mapping,

@@ -1,5 +1,7 @@
-"""The port imports and runs without JAX, and ``chip_smoke.py`` refuses to
-run (printing no result) where there is no CUDA device."""
+"""The port imports and runs without JAX (HMC with both integrator routes,
+the physics package, the native parser and every kernel wrapper), and
+``chip_smoke.py`` refuses to run (printing no result) where there is no CUDA
+device."""
 
 import subprocess
 import sys
@@ -29,10 +31,18 @@ def test_port_imports_and_samples_without_jax():
         "from physicsbasedbayesianinference_tpu_torch.ops import (kernels,\n"
         "    philox, potentials, integrators, _build)\n"
         "from physicsbasedbayesianinference_tpu_torch.utils import convert\n"
+        "from physicsbasedbayesianinference_tpu_torch import native, physics\n"
+        "from physicsbasedbayesianinference_tpu_torch.physics import (\n"
+        "    integrators as pi, nbody, simulate_lib)\n"
+        "from physicsbasedbayesianinference_tpu_torch.ops.kernels import (\n"
+        "    leapfrog_trajectory, nbody_accelerations_tiled)\n"
         "r = pt.run_hmc(0, potentials.make_standard_normal(2),\n"
         "               torch.zeros(64, 2), num_warmup=5, num_samples=5,\n"
-        "               num_steps=2)\n"
+        "               num_steps=2, integrator='pallas_leapfrog')\n"
         "assert r.samples.shape == (5, 64, 2)\n"
+        "s, tmax, dt = physics.load_nbody_text('examples/nbody/pl3.txt')\n"
+        "tr = physics.simulate(s, dt, 4, save_every=2)\n"
+        "assert tr.num_valid == 2 and tr.x.shape == (2, 3, 3)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'orbax') and sys.modules[m]]\n"
         "assert not bad, bad\n"

@@ -196,3 +196,105 @@ def test_wrappers_refuse_other_devices():
             inv_mass=vec, k_diag=vec, mean=vec, num_steps=2)
     with pytest.raises(ValueError, match="unknown device form"):
         tk.device_value_and_grad(("rosenbrock", ()))
+
+
+# ---------------------------------------------------------------------------
+# Kernel D: the leapfrog trajectory (make_pallas_leapfrog in interpret mode)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["std_normal", "funnel"])
+def test_leapfrog_plain_matches_pallas(kind):
+    """q', p', u', g' to rtol=atol=1e-5 (float32): the standard normal as a
+    diagonal-quadratic form, the funnel as its device form, whose JAX side
+    is autodiff traced into the kernel."""
+    rng = np.random.default_rng(4)
+    if kind == "std_normal":
+        w, d, steps, step = 512, 8, 10, 0.1
+        jfn = jp.make_standard_normal(d)
+        form = ("diag", (torch.ones(d), torch.zeros(d)))
+        q = rng.normal(size=(w, d))
+    else:
+        w, d, steps, step = 256, 4, 5, 0.05
+        jfn = jp.make_funnel(d)
+        form = tp.make_funnel(d).device_form
+        q = 0.3 * rng.normal(size=(w, d))
+    q = q.astype(np.float32)
+    p = rng.normal(size=(w, d)).astype(np.float32)
+    im = rng.uniform(0.5, 2.0, d).astype(np.float32)
+    jout = jk.make_pallas_leapfrog(128)(
+        jp.batched_value_and_grad(jfn), jnp.asarray(q), jnp.asarray(p),
+        step_size=jnp.float32(step), num_steps=steps,
+        inv_mass=jnp.asarray(im))
+    tout = tk.leapfrog_trajectory_plain(
+        form, torch.as_tensor(q), torch.as_tensor(p),
+        step_size=torch.tensor(step), num_steps=steps,
+        inv_mass=torch.as_tensor(im))
+    for a, b in zip(tout, jout):  # q', p', u', g'
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+
+
+def test_leapfrog_wrapper_on_cpu_and_its_integrator():
+    """On CPU tensors the wrapper is its plain version and launches
+    nothing; the cached (u, g) gives what a fresh evaluation gives; the
+    registered integrator is the plain leapfrog there."""
+    from physicsbasedbayesianinference_tpu_torch.ops import integrators as ti
+    gen = torch.Generator().manual_seed(3)
+    q, p = torch.randn(20, 6, generator=gen), torch.randn(20, 6, generator=gen)
+    target = tp.make_gaussian(np.zeros(6), cov=np.eye(6) + 0.4)
+    form = target.device_form
+    kw = dict(step_size=torch.tensor(0.1), num_steps=4,
+              inv_mass=torch.full((6,), 0.8))
+    before = tk.launch_counts()
+    a = tk.leapfrog_trajectory(form, q, p, **kw)
+    b = tk.leapfrog_trajectory_plain(form, q, p, **kw)
+    u, g = tk.device_value_and_grad(form)(q)
+    c = tk.leapfrog_trajectory(form, q, p, grad=g, potential_energy=u, **kw)
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    vg = tp.batched_value_and_grad(target)
+    assert vg.device_form is form and vg.diag_quadratic is None
+    d = ti.get_integrator("pallas_leapfrog")(vg, q, p, **kw)
+    e = ti.leapfrog(vg, q, p, **kw)
+    for x, y in zip(d, e):
+        assert torch.equal(x, y)
+    assert tk.launch_counts() == before
+
+
+def test_pallas_leapfrog_off_the_cpu_needs_a_device_form():
+    """Off the CPU the integrator runs kernel D, which needs a device form:
+    a potential without one raises before any launch, naming the form."""
+    from physicsbasedbayesianinference_tpu_torch.ops import integrators as ti
+
+    def plain(q):
+        return 0.5 * torch.sum(q * q, dim=-1)
+
+    q = torch.empty(4, 3, device="meta")
+    integ = ti.get_integrator("pallas_leapfrog")
+    with pytest.raises(ValueError, match="device_form"):
+        integ(tp.batched_value_and_grad(plain), q, q, step_size=0.1,
+              num_steps=2, inv_mass=1.0)
+    # with a form it reaches the wrapper, which takes CPU or CUDA only
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        integ(tp.batched_value_and_grad(tp.make_standard_normal(3)), q, q,
+              step_size=0.1, num_steps=2, inv_mass=1.0)
+    with pytest.raises(ValueError, match="D <= 128"):
+        integ(tp.batched_value_and_grad(tp.make_standard_normal(129)),
+              torch.empty(4, 129, device="meta"),
+              torch.empty(4, 129, device="meta"), step_size=0.1,
+              num_steps=2, inv_mass=1.0)
+
+
+def test_run_hmc_pallas_leapfrog_end_to_end():
+    """run_hmc(integrator="pallas_leapfrog") on the CPU, moments as
+    tests/test_pallas.py checks the JAX run: 256 walkers x 100 kept
+    transitions of a 4-dim standard normal."""
+    q0 = np.random.default_rng(1).normal(size=(256, 4)).astype(np.float32)
+    res = pt.run_hmc(0, tp.make_standard_normal(4), torch.as_tensor(q0),
+                     num_warmup=100, num_samples=100, num_steps=8,
+                     integrator="pallas_leapfrog", collect="moments")
+    assert res.kernel_used == "composed"
+    np.testing.assert_allclose(res.mean.numpy(), 0.0, atol=0.1)
+    np.testing.assert_allclose(res.var.numpy(), 1.0, atol=0.15)
+    assert float(res.accept_rate) > 0.6
+    assert res.num_grad_evals == 200 * 256 * 9
