@@ -5,9 +5,13 @@
 
 1. Prints the card (nvidia-smi name and power limit) and builds the CUDA
    kernels from the sources in this checkout with nvcc.
+1, continued. Calls one constructor of each family without a ``device`` and
+   fails unless what it made lies on the card.
 2. Holds every fused kernel against its plain-torch version on the card, on
    the same inputs and the same Philox draws, at the main path's shapes,
-   and times both (CUDA-graph replays timed with CUDA events).
+   and times both (CUDA-graph replays timed with CUDA events). Kernel A
+   also at a D off its 16-byte path (33), at D = 200 (its loop over
+   dim-groups) and with a threshold that rejects every walker.
 3. Runs the main path, ``run_hmc(kernel="auto")`` on the bench
    configuration (32-dim standard normal, 102400 walkers, 16 leapfrog
    steps), and checks its moments, acceptance and kernel launch count.
@@ -17,9 +21,10 @@
    shapes (here D = 2) ran the walker-packed one there, the others (here
    D = 10) the unpacked one.
 2, continued. Holds kernel D (the leapfrog trajectory) at the bench shape
-   and kernel E (the N-body accelerations) at four shapes against their
-   plain versions, kernel E to a bound argued from summation order
-   (``E_BOUND_C``), and times them.
+   and kernel E (the N-body accelerations) at six shapes against their
+   plain versions, kernel E to the bound of ``kernels.nbody_bound``
+   (summation order plus each term's own rounding) and to the same bits
+   from a second launch, and times them.
 5. Runs ``run_hmc(integrator="pallas_leapfrog")`` on the bench
    configuration: the composed engine with kernel D's trajectory, one
    launch per transition; checks moments, acceptance and the count.
@@ -29,8 +34,10 @@
    drift and 20 steps against the plain accelerations; then the adaptive
    Hermite and RK45 drivers on ``examples/nbody/pl1k.txt`` in float64.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Any failure raises, and the
+The line before the last is a JSON object with one entry per kernel, with
+its time beside its bound (``bound_ms``: the larger of the bytes it must
+move over ``HBM_BYTES_PER_S`` and its operations over the card's rate for
+their type, from this run's shapes); the last line is ``{"ok": true, "device": {...}}``. Any failure raises, and the
 script exits non-zero; without a CUDA device it exits non-zero at once.
 It imports nothing of JAX.
 """
@@ -45,6 +52,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -52,13 +60,48 @@ CSRC = "physicsbasedbayesianinference_tpu_torch/csrc"
 SOURCE = f"{CSRC}/fused_hmc.cu"
 TPU_KERNELS = "physicsbasedbayesianinference_tpu/ops/pallas_kernels.py"
 SEED = 20261016
-# kernel E against its plain version: per body and component
-# |a_kernel - a_plain| <= E_BOUND_C * u * sqrt(N) * S_i, with u the dtype's
-# unit roundoff and S_i the sum of the magnitudes of a_i's terms: two
-# summation orders of N terms differ by about u sqrt(N) S_i (a random walk
-# of roundings), and the factor covers the largest of 3N components and
-# the per-term rounding of the square root and the division.
-E_BOUND_C = 4.0
+# The H100's published peaks (NVIDIA's data sheet, SXM part): HBM3 bytes/s,
+# and arithmetic outside the tensor cores in instructions per lane and
+# second, a multiply-add being one (67 TFLOP/s in float32 and 33.5 in
+# float64 count it as two).
+HBM_BYTES_PER_S = 3.35e12
+LANE_OPS_PER_S = {torch.float32: 33.5e12, torch.float64: 16.75e12}
+
+
+def bound(nbytes: float, ops: float, dtype=torch.float32) -> dict:
+    """The least time the card could take: the bytes the function must
+    move (each input read once, each output written once) at the memory's
+    rate, or its arithmetic at the card's rate, whichever is longer."""
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * ops / LANE_OPS_PER_S[dtype]
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None}  # no one PyTorch call computes any of them
+
+
+def transition_bytes(w: int, d: int, cached: bool) -> int:
+    """A fused transition: q in, q' and g' out, per walker u', accept_prob,
+    energy_error (4 bytes each) and the decision (1); kernel B also reads
+    the cached g and u."""
+    return 4 * w * d * (4 if cached else 3) + w * (17 if cached else 13)
+
+
+def gradient_ops(form, d: int) -> float:
+    """Instructions per walker of one gradient of a device form, a
+    multiply-add counted once (the transcendental functions as one)."""
+    name, params = form
+    if name == "gaussian":
+        return d * d + d           # the D x D matvec and q - mu
+    if name == "diag":
+        return 2 * d
+    if name == "funnel":
+        return 4 * d + 8
+    if name == "banana":
+        return 12
+    if name == "mixture":
+        return params[0].shape[0] * (5 * d + 6)
+    n = params[0].shape[0]         # nbody: n^2 pairs of 12
+    return 12 * n * n
 
 
 def fail(msg: str) -> None:
@@ -143,10 +186,12 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script runs only on "
              "a CUDA GPU")
-    from physicsbasedbayesianinference_tpu_torch import physics, run_hmc
+    from physicsbasedbayesianinference_tpu_torch import (
+        adaptation, default_device, new_ensemble, physics, run_hmc)
     from physicsbasedbayesianinference_tpu_torch.ops import _build, kernels
     from physicsbasedbayesianinference_tpu_torch.ops import philox
     from physicsbasedbayesianinference_tpu_torch.ops import potentials as pot
+    from physicsbasedbayesianinference_tpu_torch.utils import convert
 
     # ---- 1. device and build ----------------------------------------------
     smi = subprocess.run(
@@ -162,6 +207,26 @@ def main() -> None:
     lib = _build.build()
     _build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s ({lib.name})")
+
+    # ---- 1, continued: constructors default to the card --------------------
+    made = {
+        "new_ensemble": new_ensemble(4, 3).q,
+        "physics.new_system": physics.new_system(
+            np.zeros((2, 3)), np.zeros((2, 3)), [1.0, 1.0]).x,
+        "physics.kepler_two_body": physics.kepler_two_body()[0].x,
+        "potentials.make_gaussian": pot.make_gaussian(
+            [0.0, 0.0], cov=[[1.0, 0.0], [0.0, 1.0]]).device_form[1][1],
+        "potentials.make_funnel": pot.make_funnel(4).device_form[1][0],
+        "adaptation.variance_init": adaptation.variance_init(3).mean,
+        "convert.nbody_system_from_numpy": convert.nbody_system_from_numpy(
+            {"x": np.zeros((2, 3)), "v": np.zeros((2, 3)),
+             "mass": np.ones(2), "time": np.zeros(())}).x}
+    off_card = [k for k, t in made.items() if t.device.type != "cuda"]
+    if default_device().type != "cuda" or off_card:
+        fail(f"constructors called without a device made CPU tensors: "
+             f"{off_card}")
+    print(json.dumps({"phase": "constructors default to the card",
+                      "checked": sorted(made)}))
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False  # plain Gaussian in fp32
@@ -181,7 +246,8 @@ def main() -> None:
                             device=dev)
 
     # ---- 2. kernels against their plain versions ---------------------------
-    def check_a(case, w, d, steps, step, random_metric, time_it):
+    def check_a(case, w, d, steps, step, random_metric, time_it,
+                threshold=1000.0):
         q = randn(w, d)
         if random_metric:
             k, mu, im = uniform(0.5, 2, d), randn(d), uniform(0.5, 2, d)
@@ -189,7 +255,8 @@ def main() -> None:
             k, mu = torch.ones(d, device=dev), torch.zeros(d, device=dev)
             im = torch.ones(d, device=dev)
         kw = dict(scalars=scalars(step), p_std=torch.sqrt(1.0 / im),
-                  inv_mass=im, k_diag=k, mean=mu, num_steps=steps)
+                  inv_mass=im, k_diag=k, mean=mu, num_steps=steps,
+                  divergence_threshold=threshold)
         counter = 7
         out_k = named(kernels.fused_hmc_diag_quadratic(SEED, counter, q, **kw),
                       A_ORDER)
@@ -197,7 +264,17 @@ def main() -> None:
             SEED, counter, q, **kw), A_ORDER)
         log_u = torch.log(philox.accept_uniforms(SEED, counter, w, dev))
         err = compare(case, out_k, out_p, log_u)
-        line = {"case": case, "max_abs_err": err}
+        if threshold < 0 and not (
+                not bool(out_k["accepted"].any())
+                and torch.equal(out_k["q"], q)
+                and torch.equal(out_k["g"], k * (q - mu))):
+            fail(f"{case}: a rejected walker's q' is not q bit for bit, or "
+                 f"its g' not k (q - mu)")
+        # per dim: 4 instructions a step (drift, q - mu, times k, kick) and
+        # some 10 for the two energies and the half kicks
+        line = {"case": case, "max_abs_err": err,
+                **bound(transition_bytes(w, d, False),
+                        w * d * (4 * steps + 10))}
         if time_it:
             line["ms"] = median_ms(lambda: kernels.fused_hmc_diag_quadratic(
                 SEED, counter, q, **kw))
@@ -221,7 +298,9 @@ def main() -> None:
             form, SEED, counter, q, u, g, **kw), B_ORDER)
         log_u = torch.log(philox.accept_uniforms(SEED, counter, w, dev))
         err = compare(case, out_k, out_p, log_u)
-        line = {"case": case, "max_abs_err": err}
+        line = {"case": case, "max_abs_err": err,
+                **bound(transition_bytes(w, d, True),
+                        w * (steps + 1) * (gradient_ops(form, d) + 3 * d))}
         if time_it:
             line["ms"] = median_ms(lambda: kernels.fused_hmc_transition(
                 form, SEED, counter, q, u, g, **kw))
@@ -243,9 +322,18 @@ def main() -> None:
 
     a_main = check_a("A std_normal W=102400 D=32 L=16", 102400, 32, 16, 0.3,
                      False, True)
-    a_errs = [a_main["max_abs_err"],
-              check_a("A random metric W=1000 D=5 L=16", 1000, 5, 16, 0.2,
-                      True, False)["max_abs_err"]]
+    a_errs = [a_main["max_abs_err"]] + [
+        check_a(case, w_, d_, 16, 0.2, True, False, thr)["max_abs_err"]
+        for case, w_, d_, thr in (
+            ("A random metric W=1000 D=5 L=16", 1000, 5, 1000.0),
+            ("A random metric W=1000 D=33 L=16 (scalar path)", 1000, 33,
+             1000.0),
+            ("A random metric W=1000 D=200 L=16 (loop over groups)", 1000,
+             200, 1000.0),
+            ("A random metric W=1000 D=32 L=16 every walker rejected", 1000,
+             32, -1e30),
+            ("A random metric W=1000 D=200 L=16 every walker rejected",
+             1000, 200, -1e30))]
     # shapes with D | 128 (the TPU ran them walker-packed) ...
     c_main = check_b("B gaussian W=8192 D=2 L=16", gaussian_form(2),
                      randn(8192, 2), 16, 0.3, True)
@@ -388,7 +476,10 @@ def main() -> None:
                 fail(f"{case}: {key}' differs by up to "
                      f"{(k - pl).abs().max().item()}")
             worst = max(worst, (k - pl).abs().max().item())
+        # q, p in; q', p', g' and u' out
         line = {"case": case, "max_abs_err": worst,
+                **bound(4 * w * (5 * d + 1),
+                        w * (steps + 1) * (gradient_ops(form, d) + 3 * d)),
                 "ms": median_ms(lambda: kernels.leapfrog_trajectory(
                     form, q, p, **kw)),
                 "plain_ms": median_ms(
@@ -433,18 +524,30 @@ def main() -> None:
         n = x.shape[0]
         kw = dict(g_const=1.0, softening=softening)
         a_k = kernels.nbody_accelerations_tiled(x, m, **kw)
+        again = kernels.nbody_accelerations_tiled(x, m, **kw)
         a_p = kernels.nbody_accelerations_tiled_plain(x, m, **kw)
         torch.cuda.synchronize()
         if not bool(torch.isfinite(a_k).all()):
             fail(f"{case}: non-finite accelerations")
+        if not torch.equal(a_k, again):
+            fail(f"{case}: two launches on the same input differ")
+        err = (a_k - a_p).abs().double()
+        # in units of u sqrt(N) S_i; the bound is C + K / sqrt(N) of them
         u = torch.finfo(x.dtype).eps / 2
-        scale = u * n**0.5 * kernels.nbody_abs_sum(x, m, **kw)[:, None]
-        ratio = ((a_k - a_p).abs().double() / scale).max().item()
-        if not ratio <= E_BOUND_C:
+        ratio = (err / (u * n**0.5 * kernels.nbody_abs_sum(
+            x, m, **kw)[:, None])).max().item()
+        allowed = (kernels.NBODY_BOUND_C
+                   + kernels.NBODY_BOUND_TERM / n**0.5)
+        if not ratio <= allowed:
             fail(f"{case}: |a_kernel - a_plain| reaches {ratio:.3g} "
-                 f"u sqrt(N) S_i, over the bound {E_BOUND_C}")
-        line = {"case": case, "max_abs_err": (a_k - a_p).abs().max().item(),
-                "bound_c": E_BOUND_C, "worst_ratio": ratio}
+                 f"u sqrt(N) S_i, over the bound {allowed:.3g}")
+        # x and m in, a out; 12 instructions a pair (3 subtractions, 3
+        # multiply-adds for r^2, 3 multiplications for m / r^3, 3
+        # multiply-adds into a)
+        line = {"case": case, "max_abs_err": err.max().item(),
+                "split": kernels.nbody_split(n), "worst_ratio": ratio,
+                "allowed_ratio": allowed,
+                **bound(7 * n * x.element_size(), 12.0 * n * n, x.dtype)}
         if time_it:
             line["ms"] = median_ms(
                 lambda: kernels.nbody_accelerations_tiled(x, m, **kw))
@@ -457,10 +560,16 @@ def main() -> None:
     plummer, _, _ = load(plummer_path, torch.float32)
     e_main = check_e("E float32 Plummer N=16384 eps=0.05", plummer.x,
                      plummer.mass, 0.05, True)
+    e_errs = [e_main["max_abs_err"]]
+    e_errs.append(check_e("E float32 Plummer N=16384 eps=0", plummer.x,
+                          plummer.mass, 0.0, False)["max_abs_err"])
+    e_errs.append(check_e("E float32 Plummer first 4096 bodies eps=0.05",
+                          plummer.x[:4096].contiguous(),
+                          plummer.mass[:4096].contiguous(), 0.05,
+                          True)["max_abs_err"])
     pl1k32, _, _ = load(nbody_dir / "pl1k.txt", torch.float32)
     at_origin = pl1k32.x.clone()
     at_origin[0] = 0.0
-    e_errs = [e_main["max_abs_err"]]
     e_errs.append(check_e("E float32 N=1000 body at the origin eps=0",
                           at_origin, pl1k32.mass, 0.0, False)["max_abs_err"])
     pl1k64, _, _ = load(nbody_dir / "pl1k.txt", torch.float64)
@@ -576,28 +685,24 @@ def main() -> None:
             "max_rel_energy_drift": drift, "launches": launches,
             "seconds": seconds}))
 
+    def entry(name, source, replaces, launches, errs, main):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": f"{TPU_KERNELS}:{replaces}",
+                "launches": launches, "max_abs_err": max(errs),
+                **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")}}
+
     print(json.dumps({"kernels": [
-        {"name": "fused_hmc_diag_quadratic", "route": "cuda",
-         "source": SOURCE, "replaces": f"{TPU_KERNELS}:893",
-         "launches": launched_a,
-         "max_abs_err": max(a_errs), "ms": a_main["ms"],
-         "plain_ms": a_main["plain_ms"]},
-        {"name": "fused_hmc_transition", "route": "cuda",
-         "source": SOURCE, "replaces": f"{TPU_KERNELS}:373",
-         "launches": launched_b, "max_abs_err": max(b_errs),
-         "ms": b_main["ms"], "plain_ms": b_main["plain_ms"]},
-        {"name": "fused_hmc_transition", "route": "cuda",
-         "source": SOURCE, "replaces": f"{TPU_KERNELS}:576",
-         "launches": launched_c, "max_abs_err": max(c_errs),
-         "ms": c_main["ms"], "plain_ms": c_main["plain_ms"]},
-        {"name": "leapfrog_trajectory", "route": "cuda",
-         "source": f"{CSRC}/leapfrog.cu", "replaces": f"{TPU_KERNELS}:140",
-         "launches": launched_d, "max_abs_err": max(d_errs),
-         "ms": d_main["ms"], "plain_ms": d_main["plain_ms"]},
-        {"name": "nbody_accelerations_tiled", "route": "cuda",
-         "source": f"{CSRC}/nbody.cu", "replaces": f"{TPU_KERNELS}:252",
-         "launches": launched_e, "max_abs_err": max(e_errs),
-         "ms": e_main["ms"], "plain_ms": e_main["plain_ms"]},
+        entry("fused_hmc_diag_quadratic", SOURCE, 893, launched_a, a_errs,
+              a_main),
+        entry("fused_hmc_transition", SOURCE, 373, launched_b, b_errs,
+              b_main),
+        entry("fused_hmc_transition", SOURCE, 576, launched_c, c_errs,
+              c_main),
+        entry("leapfrog_trajectory", f"{CSRC}/leapfrog.cu", 140, launched_d,
+              d_errs, d_main),
+        entry("nbody_accelerations_tiled", f"{CSRC}/nbody.cu", 252,
+              launched_e, e_errs, e_main),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

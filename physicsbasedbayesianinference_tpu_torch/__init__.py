@@ -10,9 +10,10 @@ the diagnostics) and direct N-body simulation in :mod:`.physics`, whose
 accelerations run kernel E on CUDA.
 """
 
-from . import (adaptation, constants, diagnostics, ensemble, hmc, native,
-               ops, physics, utils)
+from . import (adaptation, constants, device, diagnostics, ensemble, hmc,
+               native, ops, physics, utils)
 from .constants import NATURAL, SI, Constants, solar_system_units
+from .device import default_device
 from .ensemble import (
     EnsembleState,
     kinetic_energy,
@@ -26,6 +27,7 @@ from .hmc import (HMCInfo, HMCKernel, HMCRunResult, HMCState,
 __all__ = [
     "adaptation",
     "constants",
+    "device",
     "diagnostics",
     "ensemble",
     "hmc",
@@ -37,6 +39,7 @@ __all__ = [
     "NATURAL",
     "SI",
     "solar_system_units",
+    "default_device",
     "EnsembleState",
     "new_ensemble",
     "sample_positions",

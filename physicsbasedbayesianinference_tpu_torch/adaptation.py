@@ -14,6 +14,8 @@ from typing import List
 
 import torch
 
+from .device import resolve_device
+
 Tensor = torch.Tensor
 
 
@@ -33,8 +35,11 @@ class DualAveragingState:
 
 def da_init(step_size, *, mu_factor: float = 10.0) -> DualAveragingState:
     """Start dual averaging at ``step_size`` (a float or a 0-d tensor,
-    whose device the state takes)."""
-    log_step = torch.log(torch.as_tensor(step_size, dtype=torch.float32))
+    whose device the state takes; a float goes to
+    ``device.default_device()``)."""
+    log_step = torch.log(torch.as_tensor(
+        step_size, dtype=torch.float32,
+        device=resolve_device(None, step_size)))
     z = torch.zeros_like(log_step)
     return DualAveragingState(log_step=log_step, log_avg_step=log_step,
                               h_bar=z, t=z, mu=math.log(mu_factor) + log_step)
@@ -78,6 +83,7 @@ class VarianceState:
 
 def variance_init(num_dims: int, dtype=torch.float32,
                   device=None) -> VarianceState:
+    device = resolve_device(device)
     return VarianceState(
         mean=torch.zeros((num_dims,), dtype=dtype, device=device),
         m2=torch.zeros((num_dims,), dtype=dtype, device=device),
@@ -134,6 +140,7 @@ class CovarianceState:
 
 def covariance_init(num_dims: int, dtype=torch.float32,
                     device=None) -> CovarianceState:
+    device = resolve_device(device)
     return CovarianceState(
         mean=torch.zeros((num_dims,), dtype=dtype, device=device),
         m2=torch.zeros((num_dims, num_dims), dtype=dtype, device=device),

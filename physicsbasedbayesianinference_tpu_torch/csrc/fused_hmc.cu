@@ -25,11 +25,13 @@
 // walker packing and its segment-sum matmuls have no counterpart: the
 // reductions are shuffles here.
 //
-// Bound: kernel A at the bench shape (W = 102400, D = 32, L = 16) reads q
-// (13 MB) and writes q' and g' (26 MB): ~40 MB per transition, with about
-// six flops per dim and step in registers, so it is bound by memory traffic
-// and by Philox/Box-Muller latency, not by arithmetic. Kernel B adds a
-// D x D matvec per step for the Gaussian, read from shared memory.
+// Bound: kernel A at the bench shape (W = 102400, D = 32, L = 16) must read
+// q (13.1 MB) and write q' and g' (26.2 MB): 39.3 MB, 0.0117 ms at the
+// H100's 3.35 TB/s, and that is all it moves. Its arithmetic in registers
+// (six operations per dim and step, a Philox block and two Box-Muller
+// pairs per four dims, one more Philox block per walker) is of the same
+// order, so the kernel sits between the two bounds. Kernel B adds a D x D
+// matvec per step for the Gaussian, read from shared memory.
 //
 // Scalars (step size, beta, potential scale) come from a device array, so
 // adapting the step size never needs a host read-back. Outputs are
@@ -50,14 +52,12 @@ struct Decision {
   bool accepted;
 };
 
+// log_u: the log of the walker's Metropolis uniform.
 __device__ __forceinline__ Decision metropolis(float h0, float h1, float beta,
-                                               float threshold, uint32_t t,
-                                               uint32_t w, uint32_t k0,
-                                               uint32_t k1) {
+                                               float threshold, float log_u) {
   float derr = beta * (h1 - h0);
   if (!isfinite(derr)) derr = INFINITY;  // -inf and NaN included
   const bool divergent = derr > threshold;
-  const float log_u = logf(pbbi::accept_uniform(t, w, k0, k1));
   Decision d;
   d.energy_error = derr;
   d.accepted = (log_u < -derr) && !divergent;
@@ -67,12 +67,157 @@ __device__ __forceinline__ Decision metropolis(float h0, float h1, float beta,
 
 // ---------------------------------------------------------------------------
 // Kernel A: U = 0.5 sum_d k_d (q_d - mu_d)^2, separable by dimension.
-// Each group's trajectory runs in registers; q' and g' are written as soon
-// as the group is done and rewritten from q for rejected walkers, so any D
-// works with a fixed register budget.
+//
+// D <= 128 (every lane owns one dim-group): diag_quadratic_kernel. The lane
+// keeps q0 and the endpoint (q1, p1) in registers, the walker's lanes take
+// the decision, and each lane stores the selected q' and g' once: q in,
+// q' and g' out and nothing else, with no second pass over memory. The
+// per-dimension parameters are staged in shared memory once a block, padded
+// with zeros to whole dim-groups, and read as one 16-byte load each. With
+// kVec (D % 4 == 0 and q, q', g' 16-byte aligned, checked by the launcher)
+// the lane's four floats of q, q' and g' are one 16-byte access each;
+// otherwise they are scalar accesses with a bound test.
+//
+// D > 128: diag_quadratic_loop_kernel, a lane owning several groups in
+// turn. Each group's trajectory runs in registers; q' and g' are written
+// as soon as the group is done and rewritten from q for rejected walkers,
+// so any D works with a fixed register budget.
+//
+// Both draw the same Philox bits and round every sum in the same order.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kBlock) diag_quadratic_kernel(
+#ifndef PBBI_A_BLOCK
+#define PBBI_A_BLOCK 256
+#endif
+#ifndef PBBI_A_MIN_BLOCKS
+#define PBBI_A_MIN_BLOCKS 1
+#endif
+constexpr int kBlockA = PBBI_A_BLOCK;
+
+template <bool kVec>
+__global__ void __launch_bounds__(kBlockA, PBBI_A_MIN_BLOCKS)
+diag_quadratic_kernel(
+    const float* __restrict__ q, const float* __restrict__ kdiag,
+    const float* __restrict__ mean, const float* __restrict__ inv_mass,
+    const float* __restrict__ p_std, const float* __restrict__ scalars,
+    float* __restrict__ q_out, float* __restrict__ g_out,
+    float* __restrict__ u_out, float* __restrict__ acc_out,
+    uint8_t* __restrict__ taken_out, float* __restrict__ derr_out,
+    int num_walkers, int num_dims, int tpw, int num_steps, float threshold,
+    uint32_t k0, uint32_t k1, uint32_t t) {
+  // k, mean, inv_mass, p_std, each padded with zeros to 4 * tpw floats
+  __shared__ float4 params[kMaxGenericDims];
+  // log of the Metropolis uniform of each of the block's walkers, drawn by
+  // the block's first threads, one walker each, and not by every lane
+  __shared__ float log_u[kBlockA];
+  const int wpb = kBlockA / tpw;
+  if (threadIdx.x < wpb)
+    log_u[threadIdx.x] = logf(pbbi::accept_uniform(
+        t, (uint32_t)((long long)blockIdx.x * wpb + threadIdx.x), k0, k1));
+  {
+    float* sh = reinterpret_cast<float*>(params);
+    const int padded = 4 * tpw;
+    for (int i = threadIdx.x; i < padded; i += kBlockA) {
+      const bool in = i < num_dims;
+      sh[i] = in ? kdiag[i] : 0.0f;
+      sh[padded + i] = in ? mean[i] : 0.0f;
+      sh[2 * padded + i] = in ? inv_mass[i] : 0.0f;
+      sh[3 * padded + i] = in ? p_std[i] : 0.0f;
+    }
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x % tpw;
+  const int slot = threadIdx.x / tpw;
+  const long long w = (long long)blockIdx.x * wpb + slot;
+  const int base = 4 * lane;
+  const bool active = w < num_walkers && base < num_dims;
+  const long long at = w * num_dims + base;
+  const float dt = scalars[0], beta = scalars[1], scale = scalars[2];
+  const float ck = dt * scale;
+
+  float kv[4], mv[4], imv[4], sd[4];
+  *reinterpret_cast<float4*>(kv) = params[lane];
+  *reinterpret_cast<float4*>(mv) = params[tpw + lane];
+  *reinterpret_cast<float4*>(imv) = params[2 * tpw + lane];
+  *reinterpret_cast<float4*>(sd) = params[3 * tpw + lane];
+  float q0[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (active) {
+    if (kVec) {
+      *reinterpret_cast<float4*>(q0) =
+          *reinterpret_cast<const float4*>(q + at);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (base + e < num_dims) q0[e] = q[at + e];
+    }
+  }
+  float n[4];
+  pbbi::momentum_normals4(t, (uint32_t)w, (uint32_t)lane, k0, k1, n);
+
+  float u0 = 0.0f, kin0 = 0.0f, u1 = 0.0f, kin1 = 0.0f;  // lane partials
+  float qv[4], pv[4], dtim[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float p0 = sd[e] * n[e];  // 0 beyond D: p_std is padded with 0
+    const float qc = q0[e] - mv[e];
+    u0 += kv[e] * qc * qc;
+    kin0 += p0 * p0 * imv[e];
+    dtim[e] = dt * imv[e];
+    pv[e] = p0 - (0.5f * ck) * (kv[e] * qc);
+    qv[e] = q0[e];
+  }
+  for (int s = 0; s < num_steps; ++s) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      qv[e] += pv[e] * dtim[e];
+      pv[e] -= ck * (kv[e] * (qv[e] - mv[e]));
+    }
+  }
+  float g1[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float qc = qv[e] - mv[e];
+    g1[e] = kv[e] * qc;
+    pv[e] += (0.5f * ck) * g1[e];
+    u1 += g1[e] * qc;
+    kin1 += pv[e] * pv[e] * imv[e];
+  }
+  const float uu0 = 0.5f * segment_sum(u0, tpw);
+  const float uu1 = 0.5f * segment_sum(u1, tpw);
+  const float h0 = 0.5f * segment_sum(kin0, tpw) + scale * uu0;
+  const float h1 = 0.5f * segment_sum(kin1, tpw) + scale * uu1;
+  const Decision dec = metropolis(h0, h1, beta, threshold, log_u[slot]);
+  if (w >= num_walkers) return;
+  if (lane == 0) {
+    u_out[w] = dec.accepted ? uu1 : uu0;
+    acc_out[w] = dec.accept_prob;
+    taken_out[w] = dec.accepted ? 1 : 0;
+    derr_out[w] = dec.energy_error;
+  }
+  if (!active) return;
+  float qs[4], gs[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    qs[e] = dec.accepted ? qv[e] : q0[e];
+    gs[e] = dec.accepted ? g1[e] : kv[e] * (q0[e] - mv[e]);
+  }
+  if (kVec) {
+    *reinterpret_cast<float4*>(q_out + at) =
+        *reinterpret_cast<const float4*>(qs);
+    *reinterpret_cast<float4*>(g_out + at) =
+        *reinterpret_cast<const float4*>(gs);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (base + e < num_dims) {
+        q_out[at + e] = qs[e];
+        g_out[at + e] = gs[e];
+      }
+  }
+}
+
+__global__ void __launch_bounds__(kBlock) diag_quadratic_loop_kernel(
     const float* __restrict__ q, const float* __restrict__ kdiag,
     const float* __restrict__ mean, const float* __restrict__ inv_mass,
     const float* __restrict__ p_std, const float* __restrict__ scalars,
@@ -137,7 +282,8 @@ __global__ void __launch_bounds__(kBlock) diag_quadratic_kernel(
   const float h0 = 0.5f * segment_sum(kin0, tpw) + scale * uu0;
   const float h1 = 0.5f * segment_sum(kin1, tpw) + scale * uu1;
   const Decision dec =
-      metropolis(h0, h1, beta, threshold, t, (uint32_t)w, k0, k1);
+      metropolis(h0, h1, beta, threshold,
+                 logf(pbbi::accept_uniform(t, (uint32_t)w, k0, k1)));
   if (!valid) return;
   if (lane == 0) {
     u_out[w] = dec.accepted ? uu1 : uu0;
@@ -232,7 +378,8 @@ __global__ void __launch_bounds__(kBlock) generic_kernel(
   }
   const float h1 = 0.5f * segment_sum(kin1, tpw) + scale * u1;
   const Decision dec =
-      metropolis(h0, h1, beta, threshold, t, (uint32_t)w, k0, k1);
+      metropolis(h0, h1, beta, threshold,
+                 logf(pbbi::accept_uniform(t, (uint32_t)w, k0, k1)));
   if (!valid) return;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
@@ -295,9 +442,19 @@ int pbbi_fused_hmc_diag_quadratic(
   if (num_walkers <= 0 || num_dims <= 0 || num_steps < 0)
     return (int)cudaErrorInvalidValue;
   const int tpw = threads_per_walker(num_dims);
-  const int wpb = kBlock / tpw;
+  const bool looped = (num_dims + 3) / 4 > tpw;  // D > kMaxGenericDims
+  const int wpb = (looped ? kBlock : kBlockA) / tpw;
   const unsigned blocks = (unsigned)((num_walkers + wpb - 1) / wpb);
-  diag_quadratic_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
+  const auto misaligned = [](const void* ptr) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 != 0;
+  };
+  const bool vec = num_dims % 4 == 0 && !misaligned(q) &&
+                   !misaligned(q_out) && !misaligned(g_out);
+  using Kernel = decltype(&diag_quadratic_loop_kernel);
+  const Kernel kernel = looped ? &diag_quadratic_loop_kernel
+                        : vec  ? &diag_quadratic_kernel<true>
+                               : &diag_quadratic_kernel<false>;
+  kernel<<<blocks, looped ? kBlock : kBlockA, 0, (cudaStream_t)stream>>>(
       q, kdiag, mean, inv_mass, p_std, scalars, q_out, g_out, u_out, acc_out,
       taken_out, derr_out, num_walkers, num_dims, tpw, num_steps, threshold,
       (uint32_t)seed, (uint32_t)(seed >> 32), counter);

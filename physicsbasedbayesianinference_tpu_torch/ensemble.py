@@ -13,6 +13,7 @@ from typing import Optional, Union
 import torch
 
 from .constants import Constants, NATURAL
+from .device import resolve_device
 
 Tensor = torch.Tensor
 
@@ -54,7 +55,9 @@ def new_ensemble(
     dtype: torch.dtype = torch.float32,
     device: Optional[torch.device] = None,
 ) -> EnsembleState:
-    """Zero-initialised ensemble with unit (or given) mass, zero weights."""
+    """Zero-initialised ensemble with unit (or given) mass, zero weights,
+    on ``device`` (``device.default_device()`` unless given)."""
+    device = resolve_device(device)
     return EnsembleState(
         q=torch.zeros((num_walkers, num_dims), dtype=dtype, device=device),
         p=torch.zeros((num_walkers, num_dims), dtype=dtype, device=device),

@@ -30,6 +30,8 @@ SOURCES = CU_SOURCES + ("forms.cuh", "philox.cuh")
 # as their plain torch versions do and agree with them to 1e-5 even on
 # sensitive trajectories (the banana's valley, the funnel's neck). It costs
 # up to a tenth of the kernels' time (tools/fmad_cost.py measures both).
+# nbody.cu, held to a bound and not to its plain version's rounding, names
+# its multiply-adds (fma), which the flag leaves alone.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "--fmad=false")
 
@@ -46,8 +48,8 @@ _SIGNATURES = {
     # q, p, u, g, inv_mass, step, 4 outputs; W, D, L, stream
     "pbbi_leapfrog_trajectory": ([_I] + [_P] * 3 + [_I] + [_P] * 10
                                  + [_I, _I, _I, _P]),
-    # dtype code, x, mass, out, N, softening, G, stream
-    "pbbi_nbody_accelerations": [_I, _P, _P, _P, _I, _D, _D, _P],
+    # dtype code, x, mass, out, N, lanes per target, softening, G, stream
+    "pbbi_nbody_accelerations": [_I, _P, _P, _P, _I, _I, _D, _D, _P],
 }
 
 

@@ -148,7 +148,9 @@ def fused_hmc_diag_quadratic(
 ):
     """Kernel A. Replaces ``make_fused_hmc_diag_quadratic``
     (physicsbasedbayesianinference_tpu/ops/pallas_kernels.py:893); see
-    :func:`fused_hmc_diag_quadratic_plain` for the contract. Any D."""
+    :func:`fused_hmc_diag_quadratic_plain` for the contract. Any D; up to
+    D = 128 each walker's q' and g' are stored once, in 16-byte accesses
+    when D % 4 == 0 and the tensors' storage is 16-byte aligned."""
     if q.device.type == "cpu":
         return fused_hmc_diag_quadratic_plain(
             seed, counter, q, scalars=scalars, p_std=p_std,
@@ -518,21 +520,92 @@ leapfrog_trajectory.launches = 0  # type: ignore[attr-defined]
 # in float32 per temporary)
 _PLAIN_PAIR_BLOCK = 1 << 24
 _NBODY_DTYPES = {torch.float32: 0, torch.float64: 1}
+# kernel E's layout (csrc/nbody.cu): partial sums a lane keeps, the most
+# lanes that share a target, and the threads that fill an H100 to half its
+# 132 x 2048 (2^17, so that N = 16384 takes 8 lanes)
+_NBODY_UNROLL = 4
+_NBODY_MAX_SPLIT = 32
+_NBODY_FILL_THREADS = 1 << 17
+# Kernel E against its plain version, per body and component:
+#     |a_kernel - a_plain| <= (NBODY_BOUND_C sqrt(N) + NBODY_BOUND_TERM) u S_i
+# (see nbody_abs_sum).
+NBODY_BOUND_C = 4.0
+NBODY_BOUND_TERM = 8.0
+
+
+def nbody_bound(x: Tensor, mass: Tensor, *, g_const: float,
+                softening: float) -> Tensor:
+    """The bound above for these bodies, ``[N]`` in float64."""
+    n = x.shape[0]
+    u = torch.finfo(x.dtype).eps / 2
+    return (NBODY_BOUND_C * n**0.5 + NBODY_BOUND_TERM) * u * nbody_abs_sum(
+        x, mass, g_const=g_const, softening=softening)
+
+
+def nbody_split(n: int) -> int:
+    """Lanes of a warp that share one target body in kernel E at ``n``
+    bodies: the smallest power of two in 1..32 with ``n * split`` threads
+    enough to fill the card (32 up to N = 4096, 8 at N = 16384, 1 from
+    N = 2^17 on)."""
+    if n < 1:
+        raise ValueError(f"need at least one body, got {n}")
+    split = 1
+    while split < _NBODY_MAX_SPLIT and n * split < _NBODY_FILL_THREADS:
+        split *= 2
+    return split
+
+
+def _check_split(split: int) -> int:
+    if not (1 <= split <= _NBODY_MAX_SPLIT and split & (split - 1) == 0):
+        raise ValueError(f"split must be a power of two in 1.."
+                         f"{_NBODY_MAX_SPLIT}, got {split}")
+    return split
+
+
+def _sum_in_kernel_order(terms: Tensor, split: int) -> Tensor:
+    """Sum ``terms`` ``[rows, N, 3]`` over the sources as kernel E does at
+    ``split`` lanes per target: lane s, partial sum u takes the sources
+    s + split * u + 4 * split * i for i = 0, 1, ... in turn (whatever the
+    tile size, a multiple of 4 * split); the 4 partial sums are joined left
+    to right, and the lanes by an xor butterfly (offsets split/2 .. 1)."""
+    rows, n, _ = terms.shape
+    stride = _NBODY_UNROLL * split
+    padded = -(-n // stride) * stride
+    if padded > n:
+        terms = torch.cat([terms, terms.new_zeros(rows, padded - n, 3)], 1)
+    # source j = stride * i + split * u + s
+    terms = terms.reshape(rows, padded // stride, _NBODY_UNROLL, split, 3)
+    partial = terms.new_zeros(rows, _NBODY_UNROLL, split, 3)
+    for i in range(terms.shape[1]):
+        partial = partial + terms[:, i]
+    lanes = partial[:, 0]
+    for u in range(1, _NBODY_UNROLL):
+        lanes = lanes + partial[:, u]
+    idx = torch.arange(split, device=terms.device)
+    off = split >> 1
+    while off:
+        lanes = lanes + lanes[:, idx ^ off]
+        off >>= 1
+    return lanes[:, 0]
 
 
 def nbody_accelerations_tiled_plain(x: Tensor, mass: Tensor, *,
-                                    g_const: float,
-                                    softening: float) -> Tensor:
+                                    g_const: float, softening: float,
+                                    split: Optional[int] = None) -> Tensor:
     """``a_i = G sum_{j != i} m_j r_ij / (|r_ij|^2 + eps^2)^{3/2}`` with
     ``r_ij = x_j - x_i``, for ``x`` ``[N, 3]``: the pairs of a block of
-    target rows at a time, so that N = 16384 fits in memory. Each pair's
-    terms are rounded as kernel E rounds them; the sums over sources are
-    torch reductions, in another order than the kernel's."""
+    target rows at a time, so that N = 16384 fits in memory. Each term is
+    rounded op by op with an exact square root and division (kernel E fuses
+    its multiply-adds and takes one reciprocal square root). The sum over
+    the sources is a torch reduction, or, with ``split``, runs in kernel
+    E's order at that many lanes per target (:func:`nbody_split`)."""
     n = x.shape[0]
     rows = max(1, _PLAIN_PAIR_BLOCK // n)
     soft2 = float(softening) ** 2
     out = torch.empty_like(x)
     cols = torch.arange(n, device=x.device)
+    if split is not None:
+        _check_split(split)
     for start in range(0, n, rows):
         stop = min(n, start + rows)
         r = x[None, :, :] - x[start:stop, None, :]  # r[i, j] = x_j - x_i
@@ -542,18 +615,38 @@ def nbody_accelerations_tiled_plain(x: Tensor, mass: Tensor, *,
             start, stop, device=x.device)[:, None]
         inv = torch.where(self_pair, 0.0,
                           1.0 / torch.sqrt(torch.where(self_pair, 1.0, r2)))
-        w = mass[None, :] * (inv * inv * inv)
-        out[start:stop] = g_const * torch.sum(w[..., None] * r, dim=1)
+        terms = (mass[None, :] * (inv * inv * inv))[..., None] * r
+        total = (torch.sum(terms, dim=1) if split is None
+                 else _sum_in_kernel_order(terms, split))
+        out[start:stop] = g_const * total
     return out
 
 
 def nbody_abs_sum(x: Tensor, mass: Tensor, *, g_const: float,
                   softening: float) -> Tensor:
     """``S_i = |G| sum_{j != i} |m_j| |r_ij| / (|r_ij|^2 + eps^2)^{3/2}``
-    in float64, ``[N]``: the sum of the magnitudes of a_i's terms. Two
-    summation orders of a_i in a dtype with unit roundoff u differ by about
-    u sqrt(N) S_i, which states the tolerance between kernel E and its
-    plain version."""
+    in float64, ``[N]``: the sum of the magnitudes of a_i's terms, the
+    scale of the tolerance between kernel E and its plain version
+    (:func:`nbody_bound`). With u the dtype's unit roundoff, per body and
+    component
+
+        |a_kernel - a_plain| <= (C sqrt(N) + K) u S_i,   C = 4, K = 8.
+
+    ``C sqrt(N)``: two summation orders of N terms differ by a random walk
+    of roundings, about u sqrt(N) S_i, and C covers the largest of 3N
+    components. ``K``: the two sides also round each term differently. The
+    kernel fuses the multiply-adds of r^2 (3 roundings where the plain
+    version has 5) and takes 1 / r as one reciprocal square root, in
+    float32 an approximate one of relative error up to 2.14 u (2^-22.9),
+    in float64 one of up to 2 u, against the u + u of an exact square root
+    and division; these enter the weight m / r^3 three times over. A term
+    that carries most of S_i (a close neighbour, or N = 2) brings that
+    difference into a_i whole: over 200 random systems of 2 bodies the
+    worst was 7.2 u S_i, over the 5.7 u S_i that C sqrt(N) alone allows
+    there (at N = 3: 7.1 against 6.9; from N = 4 on C sqrt(N) alone held at
+    every size checked; ``tools/kernel_sweeps.py``). K = 8 is that 7.2
+    with a margin; from a few hundred bodies on it is small beside
+    C sqrt(N)."""
     x, mass = x.double(), mass.double().abs()
     n = x.shape[0]
     rows = max(1, _PLAIN_PAIR_BLOCK // n)
@@ -572,17 +665,19 @@ def nbody_abs_sum(x: Tensor, mass: Tensor, *, g_const: float,
 
 
 def nbody_accelerations_tiled(x: Tensor, mass: Tensor, *, g_const: float,
-                              softening: float) -> Tensor:
+                              softening: float,
+                              split: Optional[int] = None) -> Tensor:
     """Kernel E. Replaces ``nbody_accelerations_pallas``
     (physicsbasedbayesianinference_tpu/ops/pallas_kernels.py:252); see
     :func:`nbody_accelerations_tiled_plain` for the contract. ``x``
     ``[N, 3]`` and ``mass`` ``[N]``, contiguous, both float32 or both
-    float64; ``softening`` is eps, added as eps^2 to r^2. A body at the
-    origin with eps = 0 gets a finite acceleration: the kernel has no
-    padded sources."""
+    float64; ``softening`` is eps, added as eps^2 to r^2; ``split`` lanes
+    share a target (:func:`nbody_split` of N unless given). A body at the
+    origin with eps = 0 gets a finite acceleration: a pair at r^2 = 0 has
+    weight zero. Two launches on the same input give the same bits."""
     if x.device.type == "cpu":
         return nbody_accelerations_tiled_plain(
-            x, mass, g_const=g_const, softening=softening)
+            x, mass, g_const=g_const, softening=softening, split=split)
     if x.device.type != "cuda":
         raise ValueError(f"kernel E takes CPU or CUDA tensors, got "
                          f"{x.device}")
@@ -600,12 +695,14 @@ def nbody_accelerations_tiled(x: Tensor, mass: Tensor, *, g_const: float,
                          f"{mass.device}")
     if not (x.is_contiguous() and mass.is_contiguous()):
         raise ValueError("x and mass must be contiguous")
+    split = nbody_split(n) if split is None else _check_split(split)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = load_library().pbbi_nbody_accelerations(
             _NBODY_DTYPES[x.dtype], x.data_ptr(), mass.data_ptr(),
-            out.data_ptr(), n, float(softening), float(g_const), stream)
+            out.data_ptr(), n, split, float(softening), float(g_const),
+            stream)
     _raise_on(rc, "nbody_accelerations_tiled")
     nbody_accelerations_tiled.launches += 1
     return out

@@ -17,8 +17,10 @@ sampler:
   ``("nbody", (mass [N], (G, softening^2)))``. This replaces tracing a
   jaxpr into the kernel.
 
-Parameter tensors live on the ``device`` given to the constructor; a
-potential evaluated on another device copies them on every call.
+Parameter tensors live on the ``device`` given to the constructor
+(without one: where the first parameter lies if it is a tensor, else on
+``device.default_device()``, the card when there is one); a potential
+evaluated on another device copies them on every call.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import Callable, Optional
 import torch
 
 from ..constants import Constants, NATURAL
+from ..device import resolve_device
 
 Tensor = torch.Tensor
 PotentialFn = Callable[[Tensor], Tensor]
@@ -68,7 +71,7 @@ def harmonic_potential(q: Tensor, spring_consts) -> Tensor:
 
 
 def make_harmonic(spring_consts, *, device=None) -> PotentialFn:
-    k = _param(spring_consts, device)
+    k = _param(spring_consts, resolve_device(device, spring_consts))
 
     def potential(q):
         return harmonic_potential(q, _like(k, q))
@@ -101,17 +104,18 @@ def make_gaussian(mean, cov=None, precision=None, *,
     Supply ``cov`` (inverted through its Cholesky factor, in float32 on the
     CPU, as the JAX constructor does) or ``precision``.
     """
-    mean = _param(mean, None)
+    device = resolve_device(device, mean)
+    mean = _param(mean, "cpu")
     if precision is None:
         if cov is None:
             raise ValueError("need cov or precision")
-        cov = _param(cov, None)
+        cov = _param(cov, "cpu")
         chol = torch.linalg.cholesky(cov)
         eye = torch.eye(cov.shape[-1], dtype=cov.dtype)
         inv_chol = torch.linalg.solve_triangular(chol, eye, upper=False)
         precision = inv_chol.T @ inv_chol
     else:
-        precision = _param(precision, None)
+        precision = _param(precision, "cpu")
     off_diag = precision - torch.diag(torch.diagonal(precision))
     is_diag = bool(torch.all(off_diag == 0.0))
     mean, precision = mean.to(device), precision.to(device)
@@ -143,7 +147,8 @@ def make_banana(a: float = 1.0, b: float = 100.0, *,
         d1 = 2.0 * b * (q1 - q0**2)
         return torch.stack([d0, d1], dim=-1)
 
-    params = torch.tensor([a, b], dtype=torch.float32, device=device)
+    params = torch.tensor([a, b], dtype=torch.float32,
+                          device=resolve_device(device))
     return _attach(potential, analytic_grad=grad, name="banana",
                    device_form=("banana", (params,)))
 
@@ -174,7 +179,7 @@ def make_funnel(num_dims: int = 10, sigma: float = 3.0, *,
         return torch.cat([gv, ev * x], dim=-1)
 
     params = torch.tensor([two_s2, half_dm1], dtype=torch.float32,
-                          device=device)
+                          device=resolve_device(device))
     return _attach(potential, analytic_grad=grad, name=f"funnel_{num_dims}d",
                    device_form=("funnel", (params,)))
 
@@ -183,6 +188,7 @@ def make_gaussian_mixture(means, sigma: float = 1.0, log_weights=None, *,
                           device=None) -> PotentialFn:
     """Isotropic Gaussian mixture ``-logsumexp_k (log w_k - |q - mu_k|^2 /
     (2 sigma^2))``; ``means``: ``[K, D]``."""
+    device = resolve_device(device, means)
     mu = _param(means, device)
     k_comp = mu.shape[0]
     lw = (torch.zeros((k_comp,), device=device) if log_weights is None
@@ -269,6 +275,7 @@ def make_nbody_potential(mass, num_bodies: int, num_space_dims: int = 3, *,
                          device=None) -> PotentialFn:
     """N-body energy over the flattened configuration ``q: [N * D]``;
     ``analytic_grad`` is the exact force."""
+    device = resolve_device(device, mass)
     mass = _param(mass, device)
     consts = torch.tensor([constants.G, softening**2], dtype=torch.float32,
                           device=device)

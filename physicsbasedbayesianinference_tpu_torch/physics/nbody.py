@@ -34,6 +34,7 @@ from ..constants import (
     SOLAR_MASS_IN_KG,
     solar_system_units,
 )
+from ..device import resolve_device
 from ..ops import kernels
 from ..ops.potentials import nbody_accelerations, nbody_potential_energy
 
@@ -64,7 +65,9 @@ class NBodySystem:
 
 def new_system(x, v, mass, *, time: float = 0.0, dtype=None,
                device=None) -> NBodySystem:
-    x = torch.as_tensor(x, dtype=dtype, device=device)
+    """A system on ``device``; without one, where ``x`` lies if it is a
+    tensor, else on ``device.default_device()``."""
+    x = torch.as_tensor(x, dtype=dtype, device=resolve_device(device, x))
     return NBodySystem(
         x=x,
         v=torch.as_tensor(v, dtype=x.dtype, device=x.device),

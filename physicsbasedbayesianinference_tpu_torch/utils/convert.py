@@ -14,6 +14,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ensemble import EnsembleState
 from ..hmc import HMCState
 from ..ops import potentials
@@ -26,10 +27,12 @@ NBODY_KEYS = ("x", "v", "mass", "time")
 def hmc_state_from_jax(state: Mapping[str, np.ndarray],
                        device=None) -> HMCState:
     """The port's ``HMCState`` from a JAX state given as numpy arrays; the
-    values are copied exactly (same dtype)."""
+    values are copied exactly (same dtype), onto ``device``
+    (``device.default_device()`` unless given)."""
     missing = [k for k in STATE_KEYS if k not in state]
     if missing:
         raise KeyError(f"state dict lacks {missing}")
+    device = resolve_device(device)
     t = {k: torch.as_tensor(np.asarray(state[k])).to(device)
          for k in STATE_KEYS}
     ens = EnsembleState(q=t["q"], p=t["p"], mass=t["mass"],
@@ -50,10 +53,12 @@ def nbody_system_from_numpy(system: Mapping[str, np.ndarray],
                             device=None) -> NBodySystem:
     """The port's ``NBodySystem`` from a JAX one given as numpy arrays
     (``{"x": np.asarray(s.x), "v": ..., "mass": ..., "time": ...}``); the
-    values are copied exactly (same dtype)."""
+    values are copied exactly (same dtype), onto ``device``
+    (``device.default_device()`` unless given)."""
     missing = [k for k in NBODY_KEYS if k not in system]
     if missing:
         raise KeyError(f"system dict lacks {missing}")
+    device = resolve_device(device)
     return NBodySystem(**{k: torch.as_tensor(np.array(system[k])).to(device)
                           for k in NBODY_KEYS})
 

@@ -54,8 +54,9 @@ def _assert_match(out_k, out_p, seed, counter):
                                    rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("w,d", [(1, 1), (37, 5), (300, 32), (64, 33),
-                                 (50, 257)])
+@pytest.mark.parametrize("w,d", [(1, 1), (41, 3), (40, 4), (37, 5),
+                                 (300, 32), (64, 33), (70, 128), (30, 129),
+                                 (45, 200), (50, 257)])
 @pytest.mark.parametrize("scale", [1.0, 0.5])
 def test_diag_kernel_matches_plain(dev, w, d, scale):
     rng = np.random.default_rng(w * 1000 + d)
@@ -73,6 +74,93 @@ def test_diag_kernel_matches_plain(dev, w, d, scale):
     torch.cuda.synchronize()
     assert out_k["accepted"].dtype == torch.bool
     _assert_match(out_k, out_p, 99, 5)
+
+
+def _diag_case(w, d, dev, seed=0):
+    rng = np.random.default_rng(seed + 31 * d)
+    im = _t(rng.uniform(0.5, 2.0, d), dev)
+    return _t(rng.normal(size=(w, d)), dev), dict(
+        scalars=_t([0.2, 1.0, 1.0], dev), p_std=torch.sqrt(1 / im),
+        inv_mass=im, k_diag=_t(rng.uniform(0.5, 2.0, d), dev),
+        mean=_t(rng.normal(size=d), dev), num_steps=8)
+
+
+@pytest.mark.parametrize("d", [3, 32, 33, 128, 200])
+def test_diag_kernel_all_rejected_and_all_accepted(dev, d):
+    """A threshold under every energy error rejects every walker: q' is q
+    bit for bit and g' = k (q - mu), from registers (D <= 128) or from the
+    repair pass (D = 200). A zero step size accepts every walker
+    (energy_error = 0 exactly) and leaves it where it was."""
+    q, kw = _diag_case(90, d, dev)
+    out = dict(zip(A_ORDER, kernels.fused_hmc_diag_quadratic(
+        4, 2, q, divergence_threshold=-1e30, **kw)))
+    torch.cuda.synchronize()
+    assert not bool(out["accepted"].any())
+    assert torch.equal(out["q"], q)
+    assert torch.equal(out["g"], kw["k_diag"] * (q - kw["mean"]))
+    assert bool((out["accept_prob"] == 0).all())
+    plain = dict(zip(A_ORDER, kernels.fused_hmc_diag_quadratic_plain(
+        4, 2, q, divergence_threshold=-1e30, **kw)))
+    torch.testing.assert_close(out["u"], plain["u"], rtol=1e-5, atol=1e-5)
+
+    kw["scalars"] = _t([0.0, 1.0, 1.0], dev)
+    out = dict(zip(A_ORDER, kernels.fused_hmc_diag_quadratic(4, 2, q, **kw)))
+    torch.cuda.synchronize()
+    assert bool(out["accepted"].all())
+    assert bool((out["energy_error"] == 0).all())
+    assert torch.equal(out["q"], q)
+
+
+@pytest.mark.parametrize("d", [4, 32, 128])
+def test_diag_kernel_takes_a_q_that_is_not_16_byte_aligned(dev, d):
+    """A contiguous view one float into its storage cannot be read in
+    16-byte accesses: the launcher takes the scalar path, and the result
+    is the aligned one's bit for bit."""
+    q, kw = _diag_case(77, d, dev)
+    storage = torch.zeros(q.numel() + 4, device=dev)
+    storage[1:1 + q.numel()] = q.reshape(-1)
+    shifted = storage[1:1 + q.numel()].view_as(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    assert q.data_ptr() % 16 == 0
+    a = kernels.fused_hmc_diag_quadratic(8, 1, q, **kw)
+    b = kernels.fused_hmc_diag_quadratic(8, 1, shifted, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert bool(storage[0] == 0) and bool((storage[-3:] == 0).all())
+
+
+def test_constructors_land_on_the_card_unless_told_otherwise(dev):
+    """Every family of constructors, called with no device on a machine
+    with a card: the result is on the card; ``device="cpu"`` and a CPU
+    tensor handed in stay on the CPU."""
+    from physicsbasedbayesianinference_tpu_torch import adaptation, physics
+    from physicsbasedbayesianinference_tpu_torch.utils import convert
+    assert pt.default_device().type == "cuda"
+    made = [pt.new_ensemble(4, 3).q,
+            physics.new_system(np.zeros((2, 3)), np.zeros((2, 3)),
+                               [1.0, 1.0]).x,
+            physics.kepler_two_body()[0].mass,
+            physics.solar_system()[0].x,
+            pot.make_harmonic([1.0, 2.0]).diag_quadratic[0],
+            pot.make_gaussian(np.zeros(2), cov=np.eye(2)).device_form[1][1],
+            pot.make_banana().device_form[1][0],
+            pot.make_funnel(4).device_form[1][0],
+            pot.make_gaussian_mixture(np.zeros((2, 2))).device_form[1][1],
+            pot.make_nbody_potential(np.ones(2), 2).device_form[1][0],
+            adaptation.variance_init(3).mean,
+            adaptation.covariance_init(3).m2,
+            adaptation.da_init(0.1).log_step,
+            convert.nbody_system_from_numpy(
+                {"x": np.zeros((2, 3)), "v": np.zeros((2, 3)),
+                 "mass": np.ones(2), "time": np.zeros(())}).x]
+    assert all(t.device.type == "cuda" for t in made)
+    assert pt.new_ensemble(4, 3, device="cpu").q.device.type == "cpu"
+    assert pot.make_funnel(4, device="cpu").device_form[1][0].device.type \
+        == "cpu"
+    cpu = physics.new_system(torch.zeros(2, 3), torch.zeros(2, 3),
+                             torch.ones(2))
+    assert cpu.x.device.type == "cpu"
 
 
 def _forms(d, dev):
@@ -287,13 +375,13 @@ def test_pallas_leapfrog_without_a_device_form_raises_on_cuda(dev):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("n", [1, 2, 100, 129, 1000])
+@pytest.mark.parametrize("n", [1, 2, 31, 100, 127, 128, 129, 1000, 4097])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("softening", [0.0, 0.05])
 def test_nbody_kernel_matches_plain(dev, n, dtype, softening):
-    """Per body and component |a_kernel - a_plain| <= 4 u sqrt(N) S_i (the
-    summation-order bound of tests/test_torch_nbody_kernel.py), with one
-    body at the origin: no NaN at eps = 0."""
+    """Per body and component |a_kernel - a_plain| <= (4 sqrt(N) + 8) u S_i
+    (``kernels.nbody_bound``), with one body at the origin: no NaN at
+    eps = 0. A second launch gives the same bits."""
     rng = np.random.default_rng(n)
     x = torch.as_tensor(rng.normal(size=(n, 3)), dtype=dtype, device=dev)
     x[n // 2] = 0.0
@@ -302,14 +390,39 @@ def test_nbody_kernel_matches_plain(dev, n, dtype, softening):
     a_k = kernels.nbody_accelerations_tiled(x, m, g_const=1.5,
                                             softening=softening)
     assert kernels.nbody_accelerations_tiled.launches == before + 1
+    again = kernels.nbody_accelerations_tiled(x, m, g_const=1.5,
+                                              softening=softening)
     a_p = kernels.nbody_accelerations_tiled_plain(x, m, g_const=1.5,
                                                   softening=softening)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(a_k).all())
-    u = torch.finfo(dtype).eps / 2
-    bound = 4.0 * u * n**0.5 * kernels.nbody_abs_sum(
-        x, m, g_const=1.5, softening=softening)[:, None]
+    assert torch.equal(a_k, again)
+    bound = kernels.nbody_bound(x, m, g_const=1.5,
+                                softening=softening)[:, None]
     assert bool(((a_k - a_p).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_nbody_kernel_at_every_split(dev, split, dtype):
+    """Every split the chooser can return, forced: within the bound of the
+    plain version in the same split order (the same sums in the same
+    order, terms rounded differently) and of the unsplit one."""
+    n = 1000
+    rng = np.random.default_rng(split)
+    x = torch.as_tensor(rng.normal(size=(n, 3)), dtype=dtype, device=dev)
+    m = torch.as_tensor(rng.uniform(0.5, 2.0, n), dtype=dtype, device=dev)
+    kw = dict(g_const=1.0, softening=0.0)
+    a_k = kernels.nbody_accelerations_tiled(x, m, split=split, **kw)
+    assert torch.equal(a_k, kernels.nbody_accelerations_tiled(
+        x, m, split=split, **kw))
+    bound = kernels.nbody_bound(x, m, **kw)[:, None]
+    for ref in (kernels.nbody_accelerations_tiled_plain(x, m, **kw),
+                kernels.nbody_accelerations_tiled_plain(x, m, split=split,
+                                                        **kw)):
+        assert bool(((a_k - ref).abs() <= bound).all())
+    with pytest.raises(ValueError, match="power of two"):
+        kernels.nbody_accelerations_tiled(x, m, split=3, **kw)
 
 
 def test_nbody_kernel_rejects_bad_inputs(dev):

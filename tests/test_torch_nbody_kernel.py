@@ -6,8 +6,8 @@ of the wrapper.
 
 Tolerance, from summation order: per body and component, |a_port - a_jax|
 <= C u sqrt(N) S_i with u the dtype's unit roundoff, S_i the sum of the
-magnitudes of a_i's terms (``kernels.nbody_abs_sum``) and C = 4, the same
-bound ``chip_smoke.py`` holds kernel E to.
+magnitudes of a_i's terms (``kernels.nbody_abs_sum``) and C = 4, the
+summation-order part of the bound ``chip_smoke.py`` holds kernel E to.
 """
 
 import jax
