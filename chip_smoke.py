@@ -24,7 +24,11 @@
    and kernel E (the N-body accelerations) at six shapes against their
    plain versions, kernel E to the bound of ``kernels.nbody_bound``
    (summation order plus each term's own rounding) and to the same bits
-   from a second launch, and times them.
+   from a second launch, and times them. Kernels D and B also with the
+   correlated 32-dim Gaussian at W = 102400 (walker tile 4) and at shapes
+   that take the other layouts of the Gaussian form (D = 128, 32 lanes a
+   walker; tile 1; D = 33 off the 16-byte path; tile 2 is phase 2's W =
+   8192, D = 32).
 5. Runs ``run_hmc(integrator="pallas_leapfrog")`` on the bench
    configuration: the composed engine with kernel D's trajectory, one
    launch per transition; checks moments, acceptance and the count.
@@ -33,6 +37,11 @@
    Verlet, kernel E twice per step), checks the launch count, the energy
    drift and 20 steps against the plain accelerations; then the adaptive
    Hermite and RK45 drivers on ``examples/nbody/pl1k.txt`` in float64.
+7. Runs the correlated 32-dim Gaussian (cov = a a^T + 0.5 I) at the bench
+   width, 102400 walkers and 16 steps: 7a ``run_hmc(kernel="auto")``
+   through kernel B's Gaussian form, 7b the same through
+   ``integrator="pallas_leapfrog"`` and kernel D; checks the moments
+   against the closed form, the acceptance and 456 launches each.
 
 The line before the last is a JSON object with one entry per kernel, with
 its time beside its bound (``bound_ms``: the larger of the bytes it must
@@ -463,7 +472,7 @@ def main() -> None:
     def randn2(*shape):
         return torch.randn(*shape, generator=gen2).to(dev)
 
-    def check_d(case, form, w, d, steps, step, inv_mass):
+    def check_d(case, form, w, d, steps, step, inv_mass, time_it=True):
         q, p = randn2(w, d), randn2(w, d)
         kw = dict(step_size=torch.tensor([step], device=dev),
                   num_steps=steps, inv_mass=inv_mass)
@@ -479,12 +488,12 @@ def main() -> None:
         # q, p in; q', p', g' and u' out
         line = {"case": case, "max_abs_err": worst,
                 **bound(4 * w * (5 * d + 1),
-                        w * (steps + 1) * (gradient_ops(form, d) + 3 * d)),
-                "ms": median_ms(lambda: kernels.leapfrog_trajectory(
-                    form, q, p, **kw)),
-                "plain_ms": median_ms(
-                    lambda: kernels.leapfrog_trajectory_plain(
-                        form, q, p, **kw))}
+                        w * (steps + 1) * (gradient_ops(form, d) + 3 * d))}
+        if time_it:
+            line["ms"] = median_ms(lambda: kernels.leapfrog_trajectory(
+                form, q, p, **kw))
+            line["plain_ms"] = median_ms(
+                lambda: kernels.leapfrog_trajectory_plain(form, q, p, **kw))
         print(json.dumps(line))
         return line
 
@@ -496,14 +505,26 @@ def main() -> None:
     corr32 = pot.make_gaussian(torch.randn(32, generator=gen2),
                                cov=a32 @ a32.T + 0.5 * torch.eye(32),
                                device=dev).device_form
-    d_errs = [d_main["max_abs_err"], check_d(
+    d_corr = check_d(
         "D correlated gaussian W=102400 D=32 L=16", corr32, 102400, 32, 16,
-        0.1, (0.5 + 1.5 * torch.rand(32, generator=gen2)).to(dev))[
-            "max_abs_err"]]
+        0.1, (0.5 + 1.5 * torch.rand(32, generator=gen2)).to(dev))
+    d_errs = [d_main["max_abs_err"], d_corr["max_abs_err"]]
     # kernel B at the same shape and form, for D's time beside B's
-    b_errs.append(check_b("B correlated gaussian W=102400 D=32 L=16",
-                          corr32, randn2(102400, 32), 16, 0.1,
-                          True)["max_abs_err"])
+    b_corr = check_b("B correlated gaussian W=102400 D=32 L=16", corr32,
+                     randn2(102400, 32), 16, 0.1, True)
+    b_errs.append(b_corr["max_abs_err"])
+    # the Gaussian form's other layouts (kernels.walker_tile picks from the
+    # shape; 4 above, 2 at W=8192 D=32): 32 lanes a walker with tile 4, tile
+    # 1 on the 16-byte path and a D off it; held against the plain version,
+    # not timed
+    for w_, d_ in ((8192, 128), (1000, 32), (1000, 33)):
+        form = gaussian_form(d_)
+        tag = (f"gaussian W={w_} D={d_} L=16 (tile "
+               f"{kernels.walker_tile(w_, d_)})")
+        d_errs.append(check_d(f"D {tag}", form, w_, d_, 16, 0.1,
+                              uniform(0.5, 2, d_), False)["max_abs_err"])
+        b_errs.append(check_b(f"B {tag}", form, randn(w_, d_), 16, 0.1,
+                              False)["max_abs_err"])
 
     # kernel E, the N-body accelerations: the 16384-body Plummer sphere of
     # phase 6, pl1k with a body at the origin and no softening, pl1k in
@@ -685,8 +706,62 @@ def main() -> None:
             "max_rel_energy_drift": drift, "launches": launches,
             "seconds": seconds}))
 
+    # ---- 7. the correlated Gaussian at full width ---------------------------
+    # mean and cov = a a^T + 0.5 I with a = randn(32, 32) / sqrt(32), from a
+    # generator of the phase's own; 7a through the generic fused kernel (B),
+    # 7b through the composed engine around the leapfrog kernel (D).
+    # Moments against the closed form in units of each marginal's sd. The
+    # limits: counting each walker's 256 draws as one independent draw, the
+    # mean's standard error is 1 / sqrt(W) = 0.0031 sd and the variance's
+    # sqrt(2 / W) = 0.0044 of itself; 0.02 sd and 0.03 are over six of
+    # those, so a miss is a fault and not a Monte-Carlo fluctuation.
+    gen7 = torch.Generator(device="cpu").manual_seed(SEED + 7)
+    a7 = torch.randn(d, d, generator=gen7) / d**0.5
+    mean7 = torch.randn(d, generator=gen7)
+    cov7 = a7 @ a7.T + 0.5 * torch.eye(d)
+    sd7 = torch.sqrt(torch.diagonal(cov7))
+    corr_launches = {}
+    for sub, wrapper, kernel_ms, extra in (
+            ("7a", "fused_hmc_transition", b_corr["ms"],
+             dict(kernel="auto")),
+            ("7b", "leapfrog_trajectory", d_corr["ms"],
+             dict(integrator="pallas_leapfrog"))):
+        q0 = torch.randn(w, d, generator=seeded(0), device=dev)
+        kernels.reset_launch_counts()
+        res7 = run_hmc(SEED + 3, pot.make_gaussian(mean7, cov=cov7), q0,
+                       num_warmup=n_warm, num_samples=n_samp,
+                       num_steps=steps, collect="moments", **extra)
+        launched = kernels.launch_counts()[wrapper]
+        corr_launches[sub] = launched
+        ran = (res7.kernel_used, res7.kernel_variant)
+        want = (("fused", "generic") if sub == "7a"
+                else ("composed", "composed"))
+        if ran != want or launched != n_warm + n_samp:
+            fail(f"phase {sub} ran {ran} with {launched} launches of "
+                 f"{wrapper}, want {want} with {n_warm + n_samp}")
+        mean_err = ((res7.mean.cpu() - mean7) / sd7).abs().max().item()
+        var_err = (res7.var.cpu() / sd7**2 - 1.0).abs().max().item()
+        accept = res7.accept_rate.item()
+        if not (mean_err < 0.02 and var_err < 0.03
+                and 0.6 <= accept <= 0.99):
+            fail(f"phase {sub} moments off: max mean error {mean_err} sd "
+                 f"(limit 0.02), max relative var error {var_err} (limit "
+                 f"0.03), accept={accept}")
+        print(json.dumps({
+            "phase": f"{sub} run_hmc correlated 32-dim Gaussian W=102400 "
+                     f"L=16 " + " ".join(f"{k}={v}" for k, v in extra.items()),
+            "kernel_used": res7.kernel_used,
+            "kernel_variant": res7.kernel_variant, "launches": launched,
+            "max_mean_err_sd": mean_err, "max_rel_var_err": var_err,
+            "accept_rate": accept, "step_size": res7.step_size.item(),
+            "sampling_seconds": res7.sampling_seconds,
+            "walker_transitions_per_s": w * n_samp / res7.sampling_seconds,
+            "ms_per_transition": 1e3 * res7.sampling_seconds / n_samp,
+            "kernel_ms": kernel_ms}))
+
     def entry(name, source, replaces, launches, errs, main):
-        return {"name": name, "route": "cuda", "source": source,
+        return {"name": name, "case": main["case"], "route": "cuda",
+                "source": source,
                 "replaces": f"{TPU_KERNELS}:{replaces}",
                 "launches": launches, "max_abs_err": max(errs),
                 **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
@@ -701,6 +776,11 @@ def main() -> None:
               c_main),
         entry("leapfrog_trajectory", f"{CSRC}/leapfrog.cu", 140, launched_d,
               d_errs, d_main),
+        # B and D once more, at the correlated Gaussian of phase 7
+        entry("fused_hmc_transition", SOURCE, 373, corr_launches["7a"],
+              b_errs, b_corr),
+        entry("leapfrog_trajectory", f"{CSRC}/leapfrog.cu", 140,
+              corr_launches["7b"], d_errs, d_corr),
         entry("nbody_accelerations_tiled", f"{CSRC}/nbody.cu", 252,
               launched_e, e_errs, e_main),
     ]}))

@@ -1,26 +1,58 @@
 // Device forms of the potentials, shared by kernel B (fused_hmc.cu) and
 // kernel D (leapfrog.cu), and the warp layout they run in.
 //
-// Layout: a walker's dims are split into dim-groups of four. The
-// T = min(32, next_pow2(ceil(D / 4))) consecutive lanes of a warp own one
-// walker, lane l owning group l (so D <= 4 * 32 = 128); per-walker sums
-// are xor-butterfly shuffles over those T lanes.
+// Layout: a walker's dims are split into dim-groups of four. T =
+// min(32, next_pow2(ceil(D / 4))) consecutive lanes of a warp form a lane
+// group, lane l owning dim-group l (so D <= 4 * 32 = 128) of the group's R
+// walkers (the walker tile, 1, 2 or 4; ops/kernels.py walker_tile). The
+// group's walkers are consecutive: group s of block b owns walkers
+// (b * kBlock / T + s) * R + r, r < R. Per-walker sums are xor-butterfly
+// shuffles over the T lanes; a lane group never leaves its warp, so
+// __syncwarp() orders its traffic through shared memory.
 //
 // A form stages its parameters in shared memory (stage) and evaluates, for
 // the lane's four dims, the gradient (grad) and the walker's value (value,
 // on every lane). Sums over dimensions run in index order, the order of the
 // plain versions (ops/kernels.py), so that both round alike. Forms that
-// couple a walker's dims read them from the walker's shared buffer.
+// couple a walker's dims read them from the walker's shared buffer, a row
+// of 4 T + kBufPad floats; the rows of a lane group's R walkers lie
+// row_step floats apart.
+//
+// The Gaussian is the form with arithmetic enough to bound a kernel (a
+// D x D matvec per leapfrog step: D^2 multiply-adds a walker against 4 D
+// floats moved), and the only one that takes R > 1 (kTiled): a thread
+// keeps the [R][4] tile of the gradient in registers and reads each row of
+// P once for its R walkers (GaussianForm::grad). The other forms take one
+// walker a lane group, as written for it.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int kBlock = 256;
+#ifndef PBBI_BLOCK
+#define PBBI_BLOCK 256
+#endif
+constexpr int kBlock = PBBI_BLOCK;
+// blocks of kernels B and D that the compiler must fit on an SM: 2 caps a
+// thread at 128 registers, which the Gaussian form at R = 4 would exceed
+// (143-160) for no gain: 16 warps an SM hide the shared loads better than
+// 8 (tools/kernel_sweeps.py)
+#ifndef PBBI_BD_MIN_BLOCKS
+#define PBBI_BD_MIN_BLOCKS 2
+#endif
+constexpr int kMinBlocks = PBBI_BD_MIN_BLOCKS;
 constexpr int kMaxGenericDims = 128;
+// chunks of four rows of P that one pass of the matvec loop takes
+#ifndef PBBI_G_UNROLL
+#define PBBI_G_UNROLL 4
+#endif
+constexpr int kGaussianUnroll = PBBI_G_UNROLL;
 
 int threads_per_walker(int num_dims) {
   const int groups = (num_dims + 3) / 4;
@@ -29,12 +61,49 @@ int threads_per_walker(int num_dims) {
   return t;
 }
 
+inline bool misaligned16(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 != 0;
+}
+
 // Sum over aligned segments of `width` lanes (a power of two <= 32); every
 // lane of the warp must call it.
 __device__ __forceinline__ float segment_sum(float v, int width) {
   for (int off = width >> 1; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// A lane's four floats of a row-major [W, D] array, at element `at` of it;
+// `left` of them exist (<= 0: none, the lane reads zeros). With kVec (D a
+// multiple of 4 and the array 16-byte aligned, checked by the launcher)
+// they are one 16-byte access.
+template <bool kVec>
+__device__ __forceinline__ void load_group(const float* __restrict__ src,
+                                           long long at, int left,
+                                           float v[4]) {
+  if (kVec) {
+    const float4 x = left > 0 ? *reinterpret_cast<const float4*>(src + at)
+                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = e < left ? src[at + e] : 0.0f;
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store_group(float* __restrict__ dst,
+                                            long long at, int left,
+                                            const float v[4]) {
+  if (kVec) {
+    if (left > 0)
+      *reinterpret_cast<float4*>(dst + at) =
+          make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < left) dst[at + e] = v[e];
+  }
 }
 
 // The walker's q into its shared buffer, readable by all its lanes. The
@@ -53,10 +122,12 @@ __device__ __forceinline__ void share_walker(const float qv[4], int lane,
 struct DiagQuadraticForm {
   const float* k;     // [D]
   const float* mean;  // [D]
+  static constexpr bool kTiled = false;
+  static constexpr int kBufPad = 1;
 
-  __host__ __device__ int shared_floats(int d) const { return 2 * d; }
+  __host__ __device__ int shared_floats(int d, int) const { return 2 * d; }
 
-  __device__ void stage(float* sh, int d) const {
+  __device__ void stage(float* sh, int d, int) const {
     for (int i = threadIdx.x; i < d; i += blockDim.x) {
       sh[i] = k[i];
       sh[d + i] = mean[i];
@@ -88,47 +159,126 @@ struct DiagQuadraticForm {
 };
 
 // U = 0.5 (q - mu)^T P (q - mu); gradient (q - mu) @ P, accumulated over
-// rows of P in index order. Mean and P are staged in shared memory per
-// block; the walker's q - mu is broadcast to its lanes through its buffer.
+// rows of P in index order, each step one fused multiply-add (named, since
+// the library is built without contraction): g_i = fma(d_j, P_ji, g_i) for
+// j = 0 .. D-1, d = q - mu, whatever R is.
+//
+// P and mu are staged once a block, padded with zeros to 4 ceil(D / 4)
+// rows and 4 T columns, so the loop has no bound test and every load is an
+// aligned 16-byte one. The lane group's walkers write q - mu into their
+// buffer rows ([walker][dim], one 16-byte store a lane and walker). Then,
+// per chunk of four rows of P, a lane loads its four columns of the four
+// rows (4 loads) and each walker's four d_j (R loads, the same address for
+// all lanes of the group: a broadcast) and does 16 R multiply-adds into
+// its [R][4] tile of g: for R = 4, 8 loads to 64 multiply-adds, P read
+// once for four walkers. Padded rows and columns are zero, so lanes and
+// dims past D compute zeros.
+//
+// What bounds it: 2 bytes from shared memory a multiply-add at R = 4 (4
+// at R = 1). An SM's shared memory returns 128 bytes a clock, broadcast
+// or not, and its FP32 lanes take 128 multiply-adds a clock, so the loop
+// runs at the shared-memory rate, half the multiply-add rate at R = 4: 4
+// byte loads of P in place of 16-byte ones cost nothing, a separate
+// multiply and add only a quarter more (tools/kernel_sweeps.py). A larger
+// tile would need fewer bytes, but q, p and g of the tile stay in
+// registers for the whole trajectory: R = 8 (1.5 bytes a multiply-add,
+// built with -DPBBI_G_TILE8) takes 217-250 registers (nvcc -Xptxas -v),
+// leaves 8 warps an SM and is no faster (tools/kernel_sweeps.py). R = 4 is
+// capped at 128 registers (kMinBlocks = 2), 16 warps.
 struct GaussianForm {
   const float* mean;  // [D]
   const float* prec;  // [D, D] row-major
+  static constexpr bool kTiled = true;
+  static constexpr int kBufPad = 4;  // rows stay 16-byte aligned
 
-  __host__ __device__ int shared_floats(int d) const { return d * d + d; }
+  __host__ __device__ static int chunks(int d) { return (d + 3) / 4; }
 
-  __device__ void stage(float* sh, int d) const {
-    for (int i = threadIdx.x; i < d * d; i += blockDim.x) sh[i] = prec[i];
-    for (int i = threadIdx.x; i < d; i += blockDim.x) sh[d * d + i] = mean[i];
+  __host__ __device__ int shared_floats(int d, int tpw) const {
+    return 4 * tpw * (4 * chunks(d) + 1);
   }
 
-  __device__ void grad(const float qv[4], float gv[4], int lane, int tpw,
-                       int d, const float* sh, float* buf) const {
-    const int base = 4 * lane;
-    const float* mu = sh + d * d;
+  __device__ void stage(float* sh, int d, int tpw) const {
+    const int cols = 4 * tpw, rows = 4 * chunks(d);
+    for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
+      const int r = i / cols, c = i - r * cols;
+      sh[i] = (r < d && c < d) ? prec[r * d + c] : 0.0f;
+    }
+    for (int i = threadIdx.x; i < cols; i += blockDim.x)
+      sh[rows * cols + i] = i < d ? mean[i] : 0.0f;
+  }
+
+  __device__ __forceinline__ static float madd(float a, float b, float c) {
+#ifdef PBBI_G_NO_FMA
+    return a * b + c;  // two roundings (measured by tools/kernel_sweeps.py)
+#else
+    return fmaf(a, b, c);
+#endif
+  }
+
+  // g + d.x a + d.y b + d.z c + d.w e, added in that order
+  __device__ __forceinline__ static float madd4(float4 d, float a, float b,
+                                                float c, float e, float g) {
+    return madd(d.w, e, madd(d.z, c, madd(d.y, b, madd(d.x, a, g))));
+  }
+
+  // the lane's four columns of row j of P
+  __device__ __forceinline__ static float4 prec_row(const float* sh, int j,
+                                                    int tpw, int lane) {
+#ifdef PBBI_G_SCALAR_P
+    const float* row = sh + 4 * (j * tpw + lane);  // four 4-byte loads
+    return make_float4(row[0], row[1], row[2], row[3]);
+#else
+    return reinterpret_cast<const float4*>(sh)[j * tpw + lane];
+#endif
+  }
+
+  template <int R>
+  __device__ __forceinline__ void grad(const float (*qv)[4], float (*gv)[4],
+                                       int lane, int tpw, int d,
+                                       const float* sh, float* buf,
+                                       int row_step) const {
+    const int nc = chunks(d);
+    const float4 mu =
+        reinterpret_cast<const float4*>(sh)[4 * nc * tpw + lane];
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (base + e < d) buf[base + e] = qv[e] - mu[base + e];
+    for (int r = 0; r < R; ++r) {
+      *reinterpret_cast<float4*>(buf + r * row_step + 4 * lane) =
+          make_float4(qv[r][0] - mu.x, qv[r][1] - mu.y, qv[r][2] - mu.z,
+                      qv[r][3] - mu.w);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gv[r][e] = 0.0f;
+    }
     __syncwarp();
+#pragma unroll kGaussianUnroll
+    for (int m = 0; m < nc; ++m) {
+      const float4 p0 = prec_row(sh, 4 * m, tpw, lane);
+      const float4 p1 = prec_row(sh, 4 * m + 1, tpw, lane);
+      const float4 p2 = prec_row(sh, 4 * m + 2, tpw, lane);
+      const float4 p3 = prec_row(sh, 4 * m + 3, tpw, lane);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) gv[e] = 0.0f;
-    for (int j = 0; j < d; ++j) {
-      const float dj = buf[j];
-      const float* row = sh + j * d + base;
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (base + e < d) gv[e] += dj * row[e];
+      for (int r = 0; r < R; ++r) {
+        const float4 dv =
+            *reinterpret_cast<const float4*>(buf + r * row_step + 4 * m);
+        float* g = gv[r];
+        g[0] = madd4(dv, p0.x, p1.x, p2.x, p3.x, g[0]);
+        g[1] = madd4(dv, p0.y, p1.y, p2.y, p3.y, g[1]);
+        g[2] = madd4(dv, p0.z, p1.z, p2.z, p3.z, g[2]);
+        g[3] = madd4(dv, p0.w, p1.w, p2.w, p3.w, g[3]);
+      }
     }
     __syncwarp();
   }
 
+  // 0.5 (q - mu) . g with the g the last grad left (dims past D add zeros)
   __device__ float value(const float qv[4], const float gv[4], int lane,
                          int tpw, int d, const float* sh, float*) const {
-    const int base = 4 * lane;
-    const float* mu = sh + d * d;
+    const float4 mu =
+        reinterpret_cast<const float4*>(sh)[4 * chunks(d) * tpw + lane];
     float part = 0.0f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (base + e < d) part += (qv[e] - mu[base + e]) * gv[e];
+    part += (qv[0] - mu.x) * gv[0];
+    part += (qv[1] - mu.y) * gv[1];
+    part += (qv[2] - mu.z) * gv[2];
+    part += (qv[3] - mu.w) * gv[3];
     return 0.5f * segment_sum(part, tpw);
   }
 };
@@ -138,9 +288,12 @@ struct GaussianForm {
 struct FunnelForm {
   const float* params;  // [2]
 
-  __host__ __device__ int shared_floats(int) const { return 2; }
+  static constexpr bool kTiled = false;
+  static constexpr int kBufPad = 1;
 
-  __device__ void stage(float* sh, int) const {
+  __host__ __device__ int shared_floats(int, int) const { return 2; }
+
+  __device__ void stage(float* sh, int, int) const {
     if (threadIdx.x < 2) sh[threadIdx.x] = params[threadIdx.x];
   }
 
@@ -179,9 +332,12 @@ struct FunnelForm {
 struct BananaForm {
   const float* params;  // [2]
 
-  __host__ __device__ int shared_floats(int) const { return 2; }
+  static constexpr bool kTiled = false;
+  static constexpr int kBufPad = 1;
 
-  __device__ void stage(float* sh, int) const {
+  __host__ __device__ int shared_floats(int, int) const { return 2; }
+
+  __device__ void stage(float* sh, int, int) const {
     if (threadIdx.x < 2) sh[threadIdx.x] = params[threadIdx.x];
   }
 
@@ -211,9 +367,14 @@ struct MixtureForm {
   const float* inv_var;  // [1]
   int k;
 
-  __host__ __device__ int shared_floats(int d) const { return k * d + k + 1; }
+  static constexpr bool kTiled = false;
+  static constexpr int kBufPad = 1;
 
-  __device__ void stage(float* sh, int d) const {
+  __host__ __device__ int shared_floats(int d, int) const {
+    return k * d + k + 1;
+  }
+
+  __device__ void stage(float* sh, int d, int) const {
     for (int i = threadIdx.x; i < k * d; i += blockDim.x) sh[i] = means[i];
     for (int i = threadIdx.x; i < k; i += blockDim.x) sh[k * d + i] = log_w[i];
     if (threadIdx.x == 0) sh[k * d + k] = inv_var[0];
@@ -279,9 +440,12 @@ struct NbodyForm {
   const float* consts;  // [2]
   int n;
 
-  __host__ __device__ int shared_floats(int) const { return n + 2; }
+  static constexpr bool kTiled = false;
+  static constexpr int kBufPad = 1;
 
-  __device__ void stage(float* sh, int) const {
+  __host__ __device__ int shared_floats(int, int) const { return n + 2; }
+
+  __device__ void stage(float* sh, int, int) const {
     for (int i = threadIdx.x; i < n; i += blockDim.x) sh[i] = mass[i];
     if (threadIdx.x < 2) sh[n + threadIdx.x] = consts[threadIdx.x];
   }
@@ -333,6 +497,59 @@ struct NbodyForm {
     return (-0.5f * sh[n]) * total;
   }
 };
+
+// The gradients and the values of a lane group's R walkers: a tiled form
+// takes them together, any other one walker after the other (R = 1 for
+// them, see with_tile).
+template <int R, class Form>
+__device__ __forceinline__ void grad_walkers(const Form& form,
+                                             const float (*qv)[4],
+                                             float (*gv)[4], int lane, int tpw,
+                                             int d, const float* sh,
+                                             float* buf, int row_step) {
+  if constexpr (Form::kTiled) {
+    form.template grad<R>(qv, gv, lane, tpw, d, sh, buf, row_step);
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      form.grad(qv[r], gv[r], lane, tpw, d, sh, buf + r * row_step);
+  }
+}
+
+template <int R, class Form>
+__device__ __forceinline__ void value_walkers(const Form& form,
+                                              const float (*qv)[4],
+                                              const float (*gv)[4], int lane,
+                                              int tpw, int d, const float* sh,
+                                              float* buf, int row_step,
+                                              float u[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    u[r] = form.value(qv[r], gv[r], lane, tpw, d, sh, buf + r * row_step);
+}
+
+// Bytes of dynamic shared memory of a block: the form's parameters, then
+// a buffer row for each of its kBlock / T * R walkers.
+template <class Form>
+size_t shared_bytes(const Form& form, int num_dims, int tpw, int tile) {
+  return sizeof(float) * (form.shared_floats(num_dims, tpw) +
+                          kBlock / tpw * tile * (4 * tpw + Form::kBufPad));
+}
+
+// Run `body(std::integral_constant<int, R>)` for the walker tile R = `tile`:
+// 1, 2 or 4 for a tiled form, 1 for any other.
+template <class Form, class Body>
+int with_tile(int tile, Body body) {
+  if constexpr (Form::kTiled) {
+#ifdef PBBI_G_TILE8  // for tools/kernel_sweeps.py only: never the chooser's
+    if (tile == 8) return body(std::integral_constant<int, 8>{});
+#endif
+    if (tile == 4) return body(std::integral_constant<int, 4>{});
+    if (tile == 2) return body(std::integral_constant<int, 2>{});
+  }
+  if (tile != 1) return (int)cudaErrorInvalidValue;
+  return body(std::integral_constant<int, 1>{});
+}
 
 // Run `body(form)` with the device form numbered `form` (ops/kernels.py
 // FORM_IDS): 0 Gaussian (param0 mean, param1 precision), 1 funnel

@@ -19,19 +19,27 @@
 //
 // Layout (forms.cuh): a walker's dims are split into Philox dim-groups of
 // four. The T = min(32, next_pow2(ceil(D / 4))) consecutive lanes of a warp
-// own one walker, lane l owning groups l, l + T, ... (kernel A; kernel B
-// takes D <= 128, one group per lane); per-walker sums (H0, H1, U) are
-// xor-butterfly shuffles over those T lanes. The TPU version's 128-lane
-// walker packing and its segment-sum matmuls have no counterpart: the
-// reductions are shuffles here.
+// own one walker, lane l owning groups l, l + T, ... (kernel A), or, in
+// kernel B (D <= 128, one group per lane), the R walkers of their lane
+// group; per-walker sums (H0, H1, U) are xor-butterfly shuffles over those
+// T lanes. The TPU version's 128-lane walker packing and its segment-sum
+// matmuls have no counterpart: the reductions are shuffles here.
 //
 // Bound: kernel A at the bench shape (W = 102400, D = 32, L = 16) must read
 // q (13.1 MB) and write q' and g' (26.2 MB): 39.3 MB, 0.0117 ms at the
 // H100's 3.35 TB/s, and that is all it moves. Its arithmetic in registers
 // (six operations per dim and step, a Philox block and two Box-Muller
 // pairs per four dims, one more Philox block per walker) is of the same
-// order, so the kernel sits between the two bounds. Kernel B adds a D x D
-// matvec per step for the Gaussian, read from shared memory.
+// order, so the kernel sits between the two bounds. Kernel B with the
+// Gaussian form is bound by its D x D matvec per step instead: 17 x 1024
+// multiply-adds a walker at that shape, 0.060 ms at the FP32 rate, against
+// 52 MB (0.016 ms). What holds it is neither: the operands come from
+// shared memory, whose 128 bytes a clock and SM feed a quarter of the
+// multiply-add rate at one 4-byte operand each. So a lane keeps a 4-dim x
+// R-walker tile of the gradient in registers (R = 4: 2 bytes a
+// multiply-add, forms.cuh), and the kernel runs at the shared-memory rate:
+// 0.137 ms on an H100 80GB HBM3 at 700 W, from 0.334 ms without the tile
+// (tools/compare_builds.py, tools/kernel_sweeps.py).
 //
 // Scalars (step size, beta, potential scale) come from a device array, so
 // adapting the step size never needs a host read-back. Outputs are
@@ -311,10 +319,22 @@ __global__ void __launch_bounds__(kBlock) diag_quadratic_loop_kernel(
 // every lane owns exactly one dim-group. Takes the cached (u, g) and returns
 // them unscaled; forces and H use scale * U. The device forms are in
 // forms.cuh.
+//
+// A lane keeps its dim-group of the lane group's R walkers in registers
+// (q, g, p: 12 R floats) for the whole transition; a rejected walker's
+// start (q, g) is read again at the end, so that the registers go to the
+// tile and not to a copy of the start. R > 1 is for the Gaussian form,
+// whose D x D matvec per step bounds the kernel by arithmetic and not by
+// bytes: its gradient reads each row of P once for R walkers (forms.cuh).
+// With kVec (D % 4 == 0 and q, g, q', g' 16-byte aligned, checked by the
+// launcher) the lane's four floats of each are one 16-byte access;
+// otherwise scalar accesses with a bound test. The Philox counter names
+// (transition, walker, dim-group), so the draws depend on neither R nor
+// kVec.
 // ---------------------------------------------------------------------------
 
-template <class Form>
-__global__ void __launch_bounds__(kBlock) generic_kernel(
+template <class Form, int R, bool kVec>
+__global__ void __launch_bounds__(kBlock, kMinBlocks) generic_kernel(
     Form form, const float* __restrict__ q, const float* __restrict__ u,
     const float* __restrict__ g, const float* __restrict__ inv_mass,
     const float* __restrict__ p_std, const float* __restrict__ scalars,
@@ -323,77 +343,105 @@ __global__ void __launch_bounds__(kBlock) generic_kernel(
     uint8_t* __restrict__ taken_out, float* __restrict__ derr_out,
     int num_walkers, int num_dims, int tpw, int num_steps, float threshold,
     uint32_t k0, uint32_t k1, uint32_t t) {
-  extern __shared__ float smem[];
-  form.stage(smem, num_dims);
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  form.stage(smem, num_dims, tpw);
   __syncthreads();
 
   const int lane = threadIdx.x % tpw;
   const int slot = threadIdx.x / tpw;
-  // one extra float per walker buffer keeps neighbouring walkers' reads of
-  // buf[j] in different banks
-  float* buf = smem + form.shared_floats(num_dims) + slot * (4 * tpw + 1);
-  const long long w = (long long)blockIdx.x * (kBlock / tpw) + slot;
-  const bool valid = w < num_walkers;
-  const long long row = valid ? w * num_dims : 0;
+  const int groups = kBlock / tpw;
+  // walker r of the lane group has the buffer row r * groups + slot: the
+  // rows that a warp reads together are neighbours; a row's kBufPad keeps
+  // neighbouring rows in different banks
+  const int stride = 4 * tpw + Form::kBufPad;
+  const int row_step = groups * stride;
+  float* buf = smem + form.shared_floats(num_dims, tpw) + slot * stride;
+  const long long first = ((long long)blockIdx.x * groups + slot) * R;
   const int base = 4 * lane;
   const float dt = scalars[0], beta = scalars[1], scale = scalars[2];
   const float ck = dt * scale;
 
-  float n[4];
-  pbbi::momentum_normals4(t, (uint32_t)w, (uint32_t)lane, k0, k1, n);
-  float q0[4], g0[4], qv[4], gv[4], pv[4], imv[4], dtim[4];
-  float kin0 = 0.0f;
+  float imv[4], sdv[4], dtim[4];
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    const int d = base + e;
-    const bool in = valid && d < num_dims;
-    q0[e] = in ? q[row + d] : 0.0f;
-    g0[e] = in ? g[row + d] : 0.0f;
-    imv[e] = in ? inv_mass[d] : 0.0f;
-    const float p0 = in ? p_std[d] * n[e] : 0.0f;
-    kin0 += p0 * p0 * imv[e];
+    const bool in = base + e < num_dims;
+    imv[e] = in ? inv_mass[base + e] : 0.0f;
+    sdv[e] = in ? p_std[base + e] : 0.0f;
     dtim[e] = dt * imv[e];
-    pv[e] = p0 - (0.5f * ck) * g0[e];
-    qv[e] = q0[e];
-    gv[e] = g0[e];
   }
-  const float u0 = valid ? u[w] : 0.0f;
-  const float h0 = 0.5f * segment_sum(kin0, tpw) + scale * u0;
+
+  // Lanes of walkers past the end run along on zeros (every lane of the
+  // warp takes part in the shuffles and warp barriers) and write nothing.
+  float qv[R][4], gv[R][4], pv[R][4], u0[R], h0[R];
+  int left[R];  // the lane's dims of walker r that exist: 0 past the end
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long w = first + r;
+    const bool valid = w < num_walkers;
+    left[r] = valid ? num_dims - base : 0;
+    const long long at = valid ? w * num_dims + base : 0;
+    load_group<kVec>(q, at, left[r], qv[r]);
+    load_group<kVec>(g, at, left[r], gv[r]);
+    float n[4];
+    pbbi::momentum_normals4(t, (uint32_t)w, (uint32_t)lane, k0, k1, n);
+    float kin0 = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p0 = e < left[r] ? sdv[e] * n[e] : 0.0f;
+      kin0 += p0 * p0 * imv[e];
+      pv[r][e] = p0 - (0.5f * ck) * gv[r][e];
+    }
+    u0[r] = valid ? u[w] : 0.0f;
+    h0[r] = 0.5f * segment_sum(kin0, tpw) + scale * u0[r];
+  }
 
   for (int s = 0; s < num_steps; ++s) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) qv[e] += pv[e] * dtim[e];
-    form.grad(qv, gv, lane, tpw, num_dims, smem, buf);
+    for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) pv[e] -= ck * gv[e];
+      for (int e = 0; e < 4; ++e) qv[r][e] += pv[r][e] * dtim[e];
+    grad_walkers<R>(form, qv, gv, lane, tpw, num_dims, smem, buf, row_step);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[r][e] -= ck * gv[r][e];
   }
-  const float u1 =
-      num_steps > 0 ? form.value(qv, gv, lane, tpw, num_dims, smem, buf)
-                    : u0;
-  float kin1 = 0.0f;
+  float u1[R];
+  if (num_steps > 0) {
+    value_walkers<R>(form, qv, gv, lane, tpw, num_dims, smem, buf, row_step,
+                     u1);
+  } else {
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    pv[e] += (0.5f * ck) * gv[e];
-    kin1 += pv[e] * pv[e] * imv[e];
+    for (int r = 0; r < R; ++r) u1[r] = u0[r];
   }
-  const float h1 = 0.5f * segment_sum(kin1, tpw) + scale * u1;
-  const Decision dec =
-      metropolis(h0, h1, beta, threshold,
-                 logf(pbbi::accept_uniform(t, (uint32_t)w, k0, k1)));
-  if (!valid) return;
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int d = base + e;
-    if (d < num_dims) {
-      q_out[row + d] = dec.accepted ? qv[e] : q0[e];
-      g_out[row + d] = dec.accepted ? gv[e] : g0[e];
+  for (int r = 0; r < R; ++r) {
+    const long long w = first + r;
+    float kin1 = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      pv[r][e] += (0.5f * ck) * gv[r][e];
+      kin1 += pv[r][e] * pv[r][e] * imv[e];
     }
-  }
-  if (lane == 0) {
-    u_out[w] = dec.accepted ? u1 : u0;
-    acc_out[w] = dec.accept_prob;
-    taken_out[w] = dec.accepted ? 1 : 0;
-    derr_out[w] = dec.energy_error;
+    const float h1 = 0.5f * segment_sum(kin1, tpw) + scale * u1[r];
+    const Decision dec =
+        metropolis(h0[r], h1, beta, threshold,
+                   logf(pbbi::accept_uniform(t, (uint32_t)w, k0, k1)));
+    if (w >= num_walkers) continue;
+    const long long at = w * num_dims + base;
+    if (!dec.accepted) {  // back to the start, read once more
+      load_group<kVec>(q, at, left[r], qv[r]);
+      load_group<kVec>(g, at, left[r], gv[r]);
+    }
+    store_group<kVec>(q_out, at, left[r], qv[r]);
+    store_group<kVec>(g_out, at, left[r], gv[r]);
+    if (lane == 0) {
+      u_out[w] = dec.accepted ? u1[r] : u0[r];
+      acc_out[w] = dec.accept_prob;
+      taken_out[w] = dec.accepted ? 1 : 0;
+      derr_out[w] = dec.energy_error;
+    }
   }
 }
 
@@ -403,25 +451,31 @@ int launch_generic(Form form, const float* q, const float* u, const float* g,
                    const float* scalars, float* q_out, float* u_out,
                    float* g_out, float* acc_out, uint8_t* taken_out,
                    float* derr_out, int num_walkers, int num_dims,
-                   int num_steps, float threshold, uint64_t seed,
-                   uint32_t counter, void* stream) {
+                   int num_steps, int walker_tile, float threshold,
+                   uint64_t seed, uint32_t counter, void* stream) {
   if (num_walkers <= 0 || num_dims <= 0 || num_dims > kMaxGenericDims ||
       num_steps < 0)
     return (int)cudaErrorInvalidValue;
   const int tpw = threads_per_walker(num_dims);
-  const int wpb = kBlock / tpw;
-  const size_t smem =
-      sizeof(float) * (form.shared_floats(num_dims) + wpb * (4 * tpw + 1));
-  const cudaError_t err = cudaFuncSetAttribute(
-      generic_kernel<Form>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((num_walkers + wpb - 1) / wpb);
-  generic_kernel<Form><<<blocks, kBlock, smem, (cudaStream_t)stream>>>(
-      form, q, u, g, inv_mass, p_std, scalars, q_out, u_out, g_out, acc_out,
-      taken_out, derr_out, num_walkers, num_dims, tpw, num_steps, threshold,
-      (uint32_t)seed, (uint32_t)(seed >> 32), counter);
-  return (int)cudaGetLastError();
+  const bool vec = num_dims % 4 == 0 && !misaligned16(q) &&
+                   !misaligned16(g) && !misaligned16(q_out) &&
+                   !misaligned16(g_out);
+  return with_tile<Form>(walker_tile, [&](auto tile) {
+    constexpr int R = decltype(tile)::value;
+    const auto kernel = vec ? &generic_kernel<Form, R, true>
+                            : &generic_kernel<Form, R, false>;
+    const size_t smem = shared_bytes(form, num_dims, tpw, R);
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int wpb = kBlock / tpw * R;
+    const unsigned blocks = (unsigned)((num_walkers + wpb - 1) / wpb);
+    kernel<<<blocks, kBlock, smem, (cudaStream_t)stream>>>(
+        form, q, u, g, inv_mass, p_std, scalars, q_out, u_out, g_out, acc_out,
+        taken_out, derr_out, num_walkers, num_dims, tpw, num_steps, threshold,
+        (uint32_t)seed, (uint32_t)(seed >> 32), counter);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -445,11 +499,8 @@ int pbbi_fused_hmc_diag_quadratic(
   const bool looped = (num_dims + 3) / 4 > tpw;  // D > kMaxGenericDims
   const int wpb = (looped ? kBlock : kBlockA) / tpw;
   const unsigned blocks = (unsigned)((num_walkers + wpb - 1) / wpb);
-  const auto misaligned = [](const void* ptr) {
-    return reinterpret_cast<uintptr_t>(ptr) % 16 != 0;
-  };
-  const bool vec = num_dims % 4 == 0 && !misaligned(q) &&
-                   !misaligned(q_out) && !misaligned(g_out);
+  const bool vec = num_dims % 4 == 0 && !misaligned16(q) &&
+                   !misaligned16(q_out) && !misaligned16(g_out);
   using Kernel = decltype(&diag_quadratic_loop_kernel);
   const Kernel kernel = looped ? &diag_quadratic_loop_kernel
                         : vec  ? &diag_quadratic_kernel<true>
@@ -463,20 +514,22 @@ int pbbi_fused_hmc_diag_quadratic(
 
 // Kernel B for the device form `form` (forms.cuh with_form; ops/kernels.py
 // FORM_IDS), every form but the diagonal quadratic (kernel A's).
+// walker_tile: walkers a lane group owns, 1, 2 or 4 for the Gaussian form
+// (ops/kernels.py walker_tile), 1 for any other.
 int pbbi_fused_hmc_transition(
     int form, const float* param0, const float* param1, const float* param2,
     int count, const float* q, const float* u, const float* g,
     const float* inv_mass, const float* p_std, const float* scalars,
     float* q_out, float* u_out, float* g_out, float* acc_out,
     uint8_t* taken_out, float* derr_out, int num_walkers, int num_dims,
-    int num_steps, float threshold, uint64_t seed, uint32_t counter,
-    void* stream) {
+    int num_steps, int walker_tile, float threshold, uint64_t seed,
+    uint32_t counter, void* stream) {
   return with_form<false>(
       form, param0, param1, param2, count, num_dims, [&](auto f) {
         return launch_generic(f, q, u, g, inv_mass, p_std, scalars, q_out,
                               u_out, g_out, acc_out, taken_out, derr_out,
-                              num_walkers, num_dims, num_steps, threshold,
-                              seed, counter, stream);
+                              num_walkers, num_dims, num_steps, walker_tile,
+                              threshold, seed, counter, stream);
       });
 }
 

@@ -30,8 +30,10 @@ SOURCES = CU_SOURCES + ("forms.cuh", "philox.cuh")
 # as their plain torch versions do and agree with them to 1e-5 even on
 # sensitive trajectories (the banana's valley, the funnel's neck). It costs
 # up to a tenth of the kernels' time (tools/fmad_cost.py measures both).
-# nbody.cu, held to a bound and not to its plain version's rounding, names
-# its multiply-adds (fma), which the flag leaves alone.
+# The flag leaves a named multiply-add alone: nbody.cu, held to a bound and
+# not to its plain version's rounding, names its own (fma), and so does the
+# Gaussian form's matvec (forms.cuh, fmaf), whose plain version rounds each
+# multiply-add once as well.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "--fmad=false")
 
@@ -42,12 +44,14 @@ _SIGNATURES = {
     # 12 pointers: q, k, mean, inv_mass, p_std, scalars, then 6 outputs
     "pbbi_fused_hmc_diag_quadratic": [_P] * 12 + _TAIL,
     # form id, 3 parameter pointers, parameter count, then 12 pointers:
-    # q, u, g, inv_mass, p_std, scalars, 6 outputs
-    "pbbi_fused_hmc_transition": [_I] + [_P] * 3 + [_I] + [_P] * 12 + _TAIL,
+    # q, u, g, inv_mass, p_std, scalars, 6 outputs; W, D, L, walker tile
+    # and the rest of the tail
+    "pbbi_fused_hmc_transition": ([_I] + [_P] * 3 + [_I] + [_P] * 12 + [_I]
+                                  + _TAIL),
     # form id, 3 parameter pointers, parameter count, then 10 pointers:
-    # q, p, u, g, inv_mass, step, 4 outputs; W, D, L, stream
+    # q, p, u, g, inv_mass, step, 4 outputs; W, D, L, walker tile, stream
     "pbbi_leapfrog_trajectory": ([_I] + [_P] * 3 + [_I] + [_P] * 10
-                                 + [_I, _I, _I, _P]),
+                                 + [_I, _I, _I, _I, _P]),
     # dtype code, x, mass, out, N, lanes per target, softening, G, stream
     "pbbi_nbody_accelerations": [_I, _P, _P, _P, _I, _I, _D, _D, _P],
 }

@@ -36,6 +36,15 @@ Tensor = torch.Tensor
 MAX_GENERIC_DIMS = 128
 # Parameter floats a device form may stage in shared memory (128 KiB).
 MAX_FORM_FLOATS = 32768
+# Kernels B and D with the Gaussian form: walkers a lane group may own
+# (the register tile of the matvec, csrc/forms.cuh), and the blocks of 256
+# threads that fill the card: 128, all but 4 of an H100's 132 SMs, since
+# walker counts are powers of two more often than multiples of 132 (at
+# W = 8192, D = 32 tile 2 makes 128 blocks and takes 0.017 ms where tile 1
+# with 256 blocks takes 0.025; tools/kernel_sweeps.py).
+WALKER_TILES = (1, 2, 4)
+_BLOCK_THREADS = 256
+_FILL_BLOCKS = 128
 # device form -> (its id at the C entries, its parameter tensors' names)
 # (csrc/forms.cuh with_form). Kernel D takes every form; kernel B all but
 # "diag", the diagonal quadratic that kernel A runs.
@@ -237,6 +246,48 @@ def leapfrog_unsupported(device_form, num_dims: int) -> Optional[str]:
     return _unsupported(device_form, num_dims, FORM_IDS, "leapfrog kernel")
 
 
+def threads_per_walker(num_dims: int) -> int:
+    """Lanes of a warp that own one walker in kernels B and D: the smallest
+    power of two with a dim-group of four for each, at most 32."""
+    groups = -(-num_dims // 4)
+    t = 1
+    while t < groups and t < 32:
+        t *= 2
+    return t
+
+
+def walker_tile(num_walkers: int, num_dims: int) -> int:
+    """Walkers a lane group owns in kernels B and D with the Gaussian form:
+    the largest of 4, 2, 1 that still leaves ``_FILL_BLOCKS`` blocks, one
+    for nearly every SM of the card; 1 where not even that does. A larger
+    tile reads each row of the precision matrix once for more walkers, but
+    makes fewer threads."""
+    if num_walkers < 1 or num_dims < 1:
+        raise ValueError(f"need at least one walker and one dim, got "
+                         f"W={num_walkers}, D={num_dims}")
+    per_block = _BLOCK_THREADS // threads_per_walker(num_dims)
+    for tile in reversed(WALKER_TILES):
+        if -(-num_walkers // (per_block * tile)) >= _FILL_BLOCKS:
+            return tile
+    return 1
+
+
+def _tile_for(device_form, num_walkers: int, num_dims: int,
+              tile: Optional[int]) -> int:
+    """The walker tile a launch takes: the chooser's unless one is forced;
+    only the Gaussian form takes more than 1."""
+    if device_form[0] != "gaussian":
+        if tile not in (None, 1):
+            raise ValueError(f"only the gaussian form takes a walker tile, "
+                             f"got {tile} for {device_form[0]!r}")
+        return 1
+    if tile is None:
+        return walker_tile(num_walkers, num_dims)
+    if tile not in WALKER_TILES:
+        raise ValueError(f"tile must be one of {WALKER_TILES}, got {tile}")
+    return tile
+
+
 def _diag_vg(k_diag, mean):
     def vg(q):
         qc = q - mean
@@ -245,11 +296,20 @@ def _diag_vg(k_diag, mean):
 
 
 def _gaussian_vg(mean, prec):
+    """``g_i = fma(d_j, P_ji, g_i)`` for j = 0 .. D-1 with d = q - mean:
+    the kernels' matvec, one rounding per multiply-add. The product of two
+    float32 values is exact in float64, so rounding the float64 sum to
+    float32 differs from a float32 fma only where the float64 sum itself
+    rounds onto a float32 tie (a double rounding). Float64 parameters stay
+    in float64, rounded op by op."""
+    prec64 = prec.double()
+
     def vg(q):
         d = q - mean
+        d64 = d.double()
         g = torch.zeros_like(q)
         for j in range(q.shape[1]):
-            g = g + d[:, j:j + 1] * prec[j]
+            g = (d64[:, j:j + 1] * prec64[j] + g.double()).to(q.dtype)
         return 0.5 * torch.sum(d * g, dim=1), g
     return vg
 
@@ -375,14 +435,18 @@ def fused_hmc_transition_plain(
 def fused_hmc_transition(
     device_form, seed: int, counter: int, q: Tensor, u: Tensor, g: Tensor,
     *, scalars: Tensor, p_std: Tensor, inv_mass: Tensor, num_steps: int,
-    divergence_threshold: float = 1000.0,
+    divergence_threshold: float = 1000.0, tile: Optional[int] = None,
 ):
     """Kernel B. Replaces ``make_fused_hmc_transition``
     (physicsbasedbayesianinference_tpu/ops/pallas_kernels.py:373) and, as
     one layout serves every D here, its walker-packed variant
     ``make_fused_hmc_packed`` (:576); see :func:`fused_hmc_transition_plain`
-    and :func:`generic_unsupported` for what it takes."""
+    and :func:`generic_unsupported` for what it takes. ``tile`` forces the
+    Gaussian form's walker tile (:func:`walker_tile` of the shape unless
+    given); the result does not depend on it."""
     if q.device.type == "cpu":
+        if tile is not None:
+            _tile_for(device_form, *q.shape, tile)
         return fused_hmc_transition_plain(
             device_form, seed, counter, q, u, g, scalars=scalars,
             p_std=p_std, inv_mass=inv_mass, num_steps=num_steps,
@@ -399,6 +463,7 @@ def fused_hmc_transition(
                "p_std": p_std, "inv_mass": inv_mass},
            {"q": (w, d), "u": (w,), "g": (w, d), **shapes, "scalars": (3,),
             "p_std": (d,), "inv_mass": (d,)})
+    tile = _tile_for(device_form, w, d, tile)
     param_ptrs = [t.data_ptr() for t in params]
     param_ptrs += [None] * (3 - len(param_ptrs))
     q_out, g_out, u_out, acc, taken, derr = _outputs(q)
@@ -409,7 +474,7 @@ def fused_hmc_transition(
             *map(Tensor.data_ptr,
                  (q, u, g, inv_mass, p_std, scalars,
                   q_out, u_out, g_out, acc, taken, derr)),
-            w, d, num_steps, divergence_threshold,
+            w, d, num_steps, tile, divergence_threshold,
             seed & 0xFFFFFFFFFFFFFFFF, counter & 0xFFFFFFFF, stream)
     _raise_on(rc, f"fused_hmc_transition[{name}]")
     fused_hmc_transition.launches += 1
@@ -452,7 +517,7 @@ def leapfrog_trajectory_plain(
 def leapfrog_trajectory(
     device_form, q: Tensor, p: Tensor, *, step_size: Tensor, num_steps: int,
     inv_mass: Tensor, grad: Optional[Tensor] = None,
-    potential_energy: Optional[Tensor] = None,
+    potential_energy: Optional[Tensor] = None, tile: Optional[int] = None,
 ):
     """Kernel D. Replaces ``make_pallas_leapfrog``
     (physicsbasedbayesianinference_tpu/ops/pallas_kernels.py:140); see
@@ -463,8 +528,11 @@ def leapfrog_trajectory(
     float32 tensor on the device (read there, never on the host),
     ``inv_mass`` ``[D]``. Uses the cached ``(potential_energy, grad)``
     when given (both or neither), where the TPU kernel recomputed them at
-    q; u' is the form's value at the final q."""
+    q; u' is the form's value at the final q. ``tile`` forces the Gaussian
+    form's walker tile, as in :func:`fused_hmc_transition`."""
     if q.device.type == "cpu":
+        if tile is not None:
+            _tile_for(device_form, *q.shape, tile)
         return leapfrog_trajectory_plain(
             device_form, q, p, step_size=step_size, num_steps=num_steps,
             inv_mass=inv_mass, grad=grad, potential_energy=potential_energy)
@@ -490,6 +558,7 @@ def leapfrog_trajectory(
         named.update(u=potential_energy, g=grad)
         shapes.update(u=(w,), g=(w, d))
     _check(q, named, shapes)
+    tile = _tile_for(device_form, w, d, tile)
     param_ptrs = [t.data_ptr() for t in params]
     param_ptrs += [None] * (3 - len(param_ptrs))
     q_out, p_out, g_out = (torch.empty_like(q) for _ in range(3))
@@ -503,7 +572,7 @@ def leapfrog_trajectory(
             *cache_ptrs,
             *map(Tensor.data_ptr, (inv_mass, step, q_out, p_out, u_out,
                                    g_out)),
-            w, d, num_steps, stream)
+            w, d, num_steps, tile, stream)
     _raise_on(rc, f"leapfrog_trajectory[{name}]")
     leapfrog_trajectory.launches += 1
     return q_out, p_out, u_out, g_out

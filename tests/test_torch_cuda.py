@@ -204,6 +204,141 @@ def test_generic_kernel_matches_plain(dev, w, d, scale):
         _assert_match(out_k, out_p, 7, 3)
 
 
+# the Gaussian form's walker tiles: D on and off the 16-byte path and the
+# whole dim-groups, W with ragged lane groups (W % tile != 0) and blocks
+GAUSS_DIMS = [2, 10, 31, 32, 33, 64, 127, 128]
+GAUSS_WALKERS = [1, 5, 1000, 8193]
+
+
+def _gaussian_case(w, d, dev):
+    rng = np.random.default_rng(1000 * d + w)
+    a = rng.normal(size=(d, d)) / np.sqrt(d)
+    form = pot.make_gaussian(rng.normal(size=d),
+                             cov=a @ a.T + 0.5 * np.eye(d),
+                             device=dev).device_form
+    q = _t(0.5 * rng.normal(size=(w, d)), dev)
+    p = _t(rng.normal(size=(w, d)), dev)
+    im = _t(rng.uniform(0.5, 2.0, d), dev)
+    return form, q, p, im
+
+
+def _shifted(x):
+    """A contiguous copy of x one float into its storage: not 16-byte
+    aligned, so the launcher must take the scalar accesses."""
+    storage = torch.zeros(x.numel() + 4, device=x.device)
+    storage[1:1 + x.numel()] = x.reshape(-1)
+    view = storage[1:1 + x.numel()].view_as(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.parametrize("tile", kernels.WALKER_TILES)
+@pytest.mark.parametrize("d", GAUSS_DIMS)
+@pytest.mark.parametrize("w", GAUSS_WALKERS)
+def test_generic_kernel_gaussian_at_every_tile(dev, tile, d, w):
+    """Kernel B with the Gaussian form at a forced walker tile: within
+    ``_assert_match`` of the plain version (which rounds each multiply-add
+    once, as the kernel's fmaf does), the same bits from a second launch,
+    from tile 1 (the sums run in index order whatever the tile) and from a
+    q and g that are not 16-byte aligned."""
+    form, q, _, im = _gaussian_case(w, d, dev)
+    u, g = kernels.device_value_and_grad(form)(q)
+    kw = dict(scalars=_t([0.1, 1.0, 0.7], dev), p_std=torch.sqrt(1 / im),
+              inv_mass=im, num_steps=12)
+    before = kernels.fused_hmc_transition.launches
+    out = kernels.fused_hmc_transition(form, 7, 3, q, u, g, tile=tile, **kw)
+    assert kernels.fused_hmc_transition.launches == before + 1
+    again = kernels.fused_hmc_transition(form, 7, 3, q, u, g, tile=tile,
+                                         **kw)
+    one = kernels.fused_hmc_transition(form, 7, 3, q, u, g, tile=1, **kw)
+    off = kernels.fused_hmc_transition(form, 7, 3, _shifted(q), u,
+                                       _shifted(g), tile=tile, **kw)
+    plain = kernels.fused_hmc_transition_plain(form, 7, 3, q, u, g, **kw)
+    torch.cuda.synchronize()
+    _assert_match(dict(zip(B_ORDER, out)), dict(zip(B_ORDER, plain)), 7, 3)
+    for other in (again, one, off):
+        for x, y in zip(out, other):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("tile", kernels.WALKER_TILES)
+@pytest.mark.parametrize("d", GAUSS_DIMS)
+@pytest.mark.parametrize("w", GAUSS_WALKERS)
+def test_leapfrog_kernel_gaussian_at_every_tile(dev, tile, d, w):
+    """Kernel D with the Gaussian form at a forced walker tile, from the
+    cached (u, g) and from none (one more gradient in the kernel): q', p',
+    u', g' to rtol=atol=1e-5 of the plain version; the same bits from a
+    second launch, from tile 1 and from misaligned q, p, g."""
+    form, q, p, im = _gaussian_case(w, d, dev)
+    u, g = kernels.device_value_and_grad(form)(q)
+    for cached in (False, True):
+        kw = dict(step_size=_t([0.05], dev), num_steps=12, inv_mass=im)
+        off_kw = dict(kw)
+        if cached:
+            kw.update(grad=g, potential_energy=u)
+            off_kw.update(grad=_shifted(g), potential_energy=u)
+        out = kernels.leapfrog_trajectory(form, q, p, tile=tile, **kw)
+        again = kernels.leapfrog_trajectory(form, q, p, tile=tile, **kw)
+        one = kernels.leapfrog_trajectory(form, q, p, tile=1, **kw)
+        off = kernels.leapfrog_trajectory(form, _shifted(q), _shifted(p),
+                                          tile=tile, **off_kw)
+        plain = kernels.leapfrog_trajectory_plain(form, q, p, **kw)
+        torch.cuda.synchronize()
+        for k, pl in zip(out, plain):
+            torch.testing.assert_close(k, pl, rtol=1e-5, atol=1e-5)
+        for other in (again, one, off):
+            for x, y in zip(out, other):
+                assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("tile", kernels.WALKER_TILES)
+@pytest.mark.parametrize("d", [2, 32, 33, 128])
+def test_gaussian_kernels_with_no_steps_return_the_cached_values(dev, tile,
+                                                                 d):
+    """num_steps = 0: kernel B returns q, u, g bit for bit, accepted or
+    not; kernel D returns q, p and the cached (u, g), or the form's own
+    (u, g) at q without them."""
+    form, q, p, im = _gaussian_case(37, d, dev)
+    u, g = kernels.device_value_and_grad(form)(q)
+    out = dict(zip(B_ORDER, kernels.fused_hmc_transition(
+        form, 2, 9, q, u, g, scalars=_t([0.1, 1.0, 1.0], dev),
+        p_std=torch.sqrt(1 / im), inv_mass=im, num_steps=0, tile=tile)))
+    kw = dict(step_size=_t([0.05], dev), num_steps=0, inv_mass=im, tile=tile)
+    cached = kernels.leapfrog_trajectory(form, q, p, grad=g,
+                                         potential_energy=u, **kw)
+    fresh = kernels.leapfrog_trajectory(form, q, p, **kw)
+    torch.cuda.synchronize()
+    assert bool((out["energy_error"].abs() < 1e-4).all())
+    for key, want in (("q", q), ("u", u), ("g", g)):
+        assert torch.equal(out[key], want)
+    for got, want in zip(cached, (q, p, u, g)):
+        assert torch.equal(got, want)
+    assert torch.equal(fresh[0], q) and torch.equal(fresh[1], p)
+    torch.testing.assert_close(fresh[2], u, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(fresh[3], g, rtol=1e-5, atol=1e-5)
+
+
+def test_walker_tile_is_for_the_gaussian_form_only(dev):
+    q, u = torch.zeros(8, 4, device=dev), torch.zeros(8, device=dev)
+    kw = dict(scalars=_t([0.1, 1.0, 1.0], dev),
+              p_std=torch.ones(4, device=dev),
+              inv_mass=torch.ones(4, device=dev), num_steps=2)
+    funnel = pot.make_funnel(4, device=dev).device_form
+    with pytest.raises(ValueError, match="only the gaussian form"):
+        kernels.fused_hmc_transition(funnel, 0, 0, q, u, q, tile=2,
+                                     **kw)
+    gauss = pot.make_gaussian(np.zeros(4), precision=np.eye(4),
+                              device=dev).device_form
+    with pytest.raises(ValueError, match="tile must be one of"):
+        kernels.fused_hmc_transition(gauss, 0, 0, q, u, q, tile=3,
+                                     **kw)
+    with pytest.raises(ValueError, match="tile must be one of"):
+        kernels.leapfrog_trajectory(gauss, q, q, step_size=_t([0.1], dev),
+                                    num_steps=2,
+                                    inv_mass=torch.ones(4, device=dev),
+                                    tile=8)
+
+
 def test_generic_kernel_rejects_wide_and_bad_inputs(dev):
     form = pot.make_gaussian(np.zeros(129), precision=np.eye(129),
                              device=dev).device_form

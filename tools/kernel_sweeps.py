@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
-"""The measured sweeps behind the design constants of kernels E and A.
+"""The measured sweeps behind the design constants of kernels E and A and
+of the Gaussian form's matvec in kernels B and D.
 
-    python3 tools/kernel_sweeps.py        # from the repository root, on a GPU
+    python3 tools/kernel_sweeps.py [--only e|a|gaussian]
+
+from the repository root, on a GPU (every sweep unless ``--only`` names one).
 
 Builds the kernel library several times with other ``-D`` constants (each
 build is hashed by its flags, ``ops/_build.py``) and times, as
@@ -19,13 +22,26 @@ build is hashed by its flags, ``ops/_build.py``) and times, as
 * the launch floor: kernel E at N = 1 and kernel A at W = 1, D = 1, L = 0;
   and a plain ``copy_`` of the bytes kernel A must move at W = 102400;
 * kernel E's error against its plain version at tiny N (2, 3, 4, 31) over
-  many seeds, in units of u sqrt(N) S_i (the bound's C is 4).
+  many seeds, in units of u sqrt(N) S_i (the bound's C is 4);
+* kernels B and D with the Gaussian form (``csrc/forms.cuh``) at W = 102400
+  and W = 8192, D = 32 and D = 128, L = 16, for every walker tile (1, 2, 4)
+  forced, in the default build and with ``PBBI_G_UNROLL`` (chunks of four
+  rows of P a loop pass takes), ``PBBI_BLOCK`` (threads a block),
+  ``PBBI_BD_MIN_BLOCKS`` (2, a cap of 128 registers, or 1, none),
+  ``PBBI_G_SCALAR_P`` (4-byte loads of P in place of 16-byte ones),
+  ``PBBI_G_NO_FMA`` (a multiply and an add in place of the fused
+  multiply-add) and ``PBBI_G_TILE8`` (a walker tile of 8, which the
+  chooser never takes) varied; kernel D with the
+  diagonal form at W = 102400, D = 32; and, as context for the matvec
+  alone, 17 calls of ``torch.matmul(q - mu, P)`` at W = 102400, D = 32 (the
+  gradients of one 16-step transition; the port never calls it).
 
 Prints the card, then one JSON line per measurement.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -44,6 +60,15 @@ SEED = 20261016
 E_VARIANTS = ((4, 512), (2, 512), (8, 512), (4, 256), (4, 128))
 A_VARIANTS = ((256, 1), (256, 4), (256, 5), (256, 6), (128, 1), (128, 8),
               (128, 10), (512, 1), (512, 2), (512, 3))
+# extra nvcc flags of the Gaussian sweep's builds, the default first
+G_VARIANTS = ((), ("-DPBBI_BD_MIN_BLOCKS=1",), ("-DPBBI_G_UNROLL=1",),
+              ("-DPBBI_G_UNROLL=2",), ("-DPBBI_G_UNROLL=8",),
+              ("-DPBBI_BLOCK=128",),
+              ("-DPBBI_BLOCK=512", "-DPBBI_BD_MIN_BLOCKS=1"),
+              ("-DPBBI_G_SCALAR_P",), ("-DPBBI_G_NO_FMA",),
+              ("-DPBBI_G_TILE8", "-DPBBI_BD_MIN_BLOCKS=1"),
+              ("-DPBBI_G_TILE8", "-DPBBI_BLOCK=128",
+               "-DPBBI_BD_MIN_BLOCKS=1"))
 
 
 def use(flags=()):
@@ -59,6 +84,9 @@ def bodies(n, dtype, gen, dev):
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", choices=("e", "a", "gaussian"))
+    only = parser.parse_args().only
     if not torch.cuda.is_available():
         raise SystemExit("tools/kernel_sweeps.py needs a CUDA device")
     print(subprocess.run(
@@ -67,8 +95,14 @@ def main() -> None:
         capture_output=True, text=True, check=True).stdout.strip())
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(SEED)
+    for name, sweep in (("e", sweep_e), ("a", sweep_a),
+                        ("gaussian", sweep_gaussian)):
+        if only in (None, name):
+            sweep(gen, dev)
+    kernels.load_library = _build.load_library
 
-    # ---- kernel E ----------------------------------------------------------
+
+def sweep_e(gen, dev) -> None:
     cases = [(n, dtype, *bodies(n, dtype, gen, dev)) for n, dtype in (
         (16384, torch.float32), (4096, torch.float32),
         (1000, torch.float64), (100, torch.float32))]
@@ -110,7 +144,8 @@ def main() -> None:
         print(json.dumps({"kernel": "E", "n": n, "seeds": 200,
                           "worst_ratio_to_u_sqrtN_S": worst}))
 
-    # ---- kernel A ----------------------------------------------------------
+
+def sweep_a(gen, dev) -> None:
     w, d = 102400, 32
 
     def inputs(d):
@@ -144,7 +179,72 @@ def main() -> None:
                       "launch_floor_ms": time_a(0, one[None], dict(
                           scalars=kw["scalars"], p_std=one, inv_mass=one,
                           k_diag=one, mean=0.0 * one))}))
-    kernels.load_library = _build.load_library
+
+
+def sweep_gaussian(gen, dev) -> None:
+    steps = 16
+
+    def case(w, d):
+        a = torch.randn(d, d, generator=gen) / d**0.5
+        form = ("gaussian", (
+            torch.randn(d, generator=gen).to(dev),
+            torch.linalg.inv(a @ a.T + 0.5 * torch.eye(d)).contiguous().to(
+                dev)))
+        q = torch.randn(w, d, generator=gen).to(dev)
+        p = torch.randn(w, d, generator=gen).to(dev)
+        u, g = (torch.randn(w, generator=gen).to(dev),
+                torch.randn(w, d, generator=gen).to(dev))
+        return form, q, p, u, g, torch.ones(d, device=dev)
+
+    cases = {(w, d): case(w, d) for w in (102400, 8192) for d in (32, 128)}
+    scalars = torch.tensor([0.05, 1.0, 1.0], device=dev)
+    step = torch.tensor([0.05], device=dev)
+
+    def time_b(key, tile):
+        form, q, _, u, g, one = cases[key]
+        return median_ms(lambda: kernels.fused_hmc_transition(
+            form, SEED, 7, q, u, g, scalars=scalars, p_std=one, inv_mass=one,
+            num_steps=steps, tile=tile))
+
+    def time_d(key, tile, form=None):
+        gauss, q, p, u, g, one = cases[key]
+        return median_ms(lambda: kernels.leapfrog_trajectory(
+            form or gauss, q, p, step_size=step, num_steps=steps,
+            inv_mass=one, grad=g, potential_energy=u, tile=tile))
+
+    tiles = kernels.WALKER_TILES
+    chosen = {key: kernels.walker_tile(*key) for key in cases}
+    for flags in G_VARIANTS:
+        use(flags)
+        # a build with the tile of 8 is asked for it, past the wrappers' check
+        kernels.WALKER_TILES = (*tiles, 8) if "-DPBBI_G_TILE8" in flags \
+            else tiles
+        for (w, d) in cases:
+            print(json.dumps({
+                "kernel": "B and D, gaussian form", "flags": list(flags),
+                "W": w, "D": d, "L": steps,
+                "chosen_tile": chosen[(w, d)],
+                "B_ms_by_tile": {t: time_b((w, d), t)
+                                 for t in kernels.WALKER_TILES},
+                "D_ms_by_tile": {t: time_d((w, d), t)
+                                 for t in kernels.WALKER_TILES}}))
+    kernels.WALKER_TILES = tiles
+    use()
+    one = torch.ones(32, device=dev)
+    print(json.dumps({
+        "kernel": "D, diag form", "W": 102400, "D": 32, "L": steps,
+        "ms": time_d((102400, 32), None, ("diag", (one, 0.0 * one)))}))
+    form, q, *_ = cases[(102400, 32)]
+    mean, prec = form[1]
+
+    def matvecs():
+        for _ in range(steps + 1):
+            torch.matmul(q - mean, prec)
+
+    print(json.dumps({
+        "yardstick": "torch.matmul(q - mu, P) x 17 (the gradients of one "
+                     "L=16 transition, nothing else of it)",
+        "W": 102400, "D": 32, "allow_tf32": False, "ms": median_ms(matvecs)}))
 
 
 if __name__ == "__main__":

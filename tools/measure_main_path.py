@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Where a transition of ``run_hmc``'s main path spends its time, on the card.
 
-    python3 tools/measure_main_path.py [--repeats 4]   # repo root, on a GPU
+    python3 tools/measure_main_path.py [--repeats 4] [--target correlated]
 
-At the bench configuration (32-dim standard normal, 102400 walkers, 16
-leapfrog steps, fused kernel A):
+from the repository root, on a GPU. At the bench configuration (32-dim
+standard normal, 102400 walkers, 16 leapfrog steps, fused kernel A) or,
+with ``--target correlated``, at the same shape on the correlated 32-dim
+Gaussian of ``chip_smoke.py`` phase 7 (cov = a a^T + 0.5 I, the generic
+fused kernel B):
 
 1. the run-to-run spread of the sampling phase: ``--repeats`` rounds of
    ``run_hmc`` with 200 warmup and 256 sampling transitions, once with
@@ -45,6 +48,8 @@ HOST_CALLS = ("cudaLaunchKernel", "cudaStreamSynchronize",
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--repeats", type=int, default=4)
+    parser.add_argument("--target", choices=("std_normal", "correlated"),
+                        default="std_normal")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tools/measure_main_path.py needs a CUDA device")
@@ -54,7 +59,14 @@ def main() -> None:
         capture_output=True, text=True, check=True).stdout.strip())
     _build.load_library()
     dev = torch.device("cuda", 0)
-    target = pot.make_standard_normal(D)
+    if args.target == "correlated":
+        gen = torch.Generator().manual_seed(7)
+        a = torch.randn(D, D, generator=gen) / D**0.5
+        target = pot.make_gaussian(torch.randn(D, generator=gen),
+                                   cov=a @ a.T + 0.5 * torch.eye(D))
+    else:
+        target = pot.make_standard_normal(D)
+    print(json.dumps({"target": args.target}))
     q0 = torch.randn(W, D, generator=torch.Generator(device=dev).manual_seed(0),
                      device=dev)
     run_hmc(0, target, q0, num_warmup=20, num_samples=20, num_steps=STEPS)
