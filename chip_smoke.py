@@ -42,6 +42,26 @@
    through kernel B's Gaussian form, 7b the same through
    ``integrator="pallas_leapfrog"`` and kernel D; checks the moments
    against the closed form, the acceptance and 456 launches each.
+8. Runs ChEES-HMC on models of the DSL, ``run_chees_hmc(kernel="auto")``
+   at 102400 walkers, 200 warmup and 256 sampling transitions,
+   ``max_steps=256``: 8a Bayesian logistic regression (D = 32, N = 256
+   rows, data from numpy seeds 7, 8, 9) and 8b non-centred eight schools
+   (D = 10), warmup and sampling both inside kernel B through the models'
+   device forms (456 launches each, the leapfrog count read on the device,
+   the warmup launches with the proposal outputs), moments held against a
+   composed run of the same model (autograd through the DSL, 8192
+   walkers); 8c the funnel model under ``reparam="auto"``, which has no
+   device form, through the composed engine (no kernel launch); 8d the
+   32-dim standard normal, whose sampling runs kernel A with the count
+   read on the device.
+2, once more. Holds kernel B with the device step count (1, 7, max_steps
+   and a count above it, which must clip) and with the proposal outputs,
+   kernel A with the device step count, and the two model forms (the
+   logistic form at W = 8192 and 102400 and at a D off the 16-byte path,
+   the eight-schools form at W = 102400) against their plain versions, on
+   the posterior states phase 8 left, each with a second launch that must
+   give the same bits; times them, and for the logistic form the two
+   ``torch.matmul`` calls and the sigmoid that its gradients amount to.
 
 The line before the last is a JSON object with one entry per kernel, with
 its time beside its bound (``bound_ms``: the larger of the bytes it must
@@ -109,6 +129,13 @@ def gradient_ops(form, d: int) -> float:
         return 12
     if name == "mixture":
         return params[0].shape[0] * (5 * d + 6)
+    if name == "logistic":
+        # z = x w + b and x^T r: N D multiply-adds each; the sigmoid and
+        # the residual about 8 a row (exponential and reciprocal as one)
+        n = params[1].shape[0]
+        return 2 * n * d + 8 * n
+    if name == "eight_schools_nc":
+        return 12 * params[0].shape[0] + 4 * d
     n = params[0].shape[0]         # nbody: n^2 pairs of 12
     return 12 * n * n
 
@@ -196,7 +223,8 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this script runs only on "
              "a CUDA GPU")
     from physicsbasedbayesianinference_tpu_torch import (
-        adaptation, default_device, new_ensemble, physics, run_hmc)
+        adaptation, chees, default_device, diagnostics, models, new_ensemble,
+        physics, run_chees_hmc, run_hmc)
     from physicsbasedbayesianinference_tpu_torch.ops import _build, kernels
     from physicsbasedbayesianinference_tpu_torch.ops import philox
     from physicsbasedbayesianinference_tpu_torch.ops import potentials as pot
@@ -759,6 +787,346 @@ def main() -> None:
             "ms_per_transition": 1e3 * res7.sampling_seconds / n_samp,
             "kernel_ms": kernel_ms}))
 
+    # ---- 8. ChEES-HMC on models of the DSL ----------------------------------
+    # 8a and 8b: warmup and sampling inside kernel B through the model's
+    # device form, at the bench width. The reference is the composed engine
+    # on the same model (autograd through the DSL, its own random stream) at
+    # 8192 walkers. Limits: counting each of the reference's walkers as one
+    # independent draw, its mean's standard error is 1 / sqrt(8192) = 0.011
+    # sd and its variance's sqrt(2 / 8192) = 0.0156 of itself (more for the
+    # heavy-tailed log tau); 4 of those, 0.044 sd and 0.0625, are the gates.
+    n_warm8, n_samp8, max_steps8 = 200, 256, 256
+    x_lr, y_lr = models.logistic_regression_data(256, 31)
+
+    def chees_on_model(sub, title, mp, init_step):
+        d8 = mp.num_dims
+        kw = dict(num_warmup=n_warm8, num_samples=n_samp8,
+                  max_steps=max_steps8, init_step_size=init_step,
+                  collect="moments")
+        q0 = 0.3 * torch.randn(w, d8, generator=seeded(0), device=dev)
+        kernels.reset_launch_counts()
+        res = run_chees_hmc(SEED + 8, mp.potential, q0, kernel="auto", **kw)
+        counts = kernels.launch_counts()
+        by = dict(kernels.fused_hmc_transition.launches_by)
+        if (res.kernel_used, res.warmup_kernel_used) != ("fused", "fused"):
+            fail(f"phase {sub} ran warmup {res.warmup_kernel_used}, "
+                 f"sampling {res.kernel_used}, want fused, fused")
+        want = {"fused_hmc_transition": n_warm8 + n_samp8,
+                "fused_hmc_diag_quadratic": 0, "leapfrog_trajectory": 0,
+                "nbody_accelerations_tiled": 0}
+        if counts != want or by["counted"] != n_samp8 or \
+                by["counted+proposal"] != n_warm8:
+            fail(f"phase {sub} launched {counts} ({by}), want {want} with "
+                 f"{n_warm8} counted+proposal and {n_samp8} counted")
+        ref = run_chees_hmc(SEED + 9, mp.potential, q0[:8192].clone(),
+                            kernel="composed", **kw)
+        if ref.kernel_used != "composed" or sum(
+                kernels.launch_counts().values()) != n_warm8 + n_samp8:
+            fail(f"phase {sub}: the composed reference launched a kernel")
+        sd = torch.sqrt(ref.var)
+        mean_err = ((res.mean - ref.mean) / sd).abs().max().item()
+        var_err = (res.var / ref.var - 1.0).abs().max().item()
+        accept, div = res.accept_rate.item(), res.divergence_rate.item()
+        if not (mean_err < 0.044 and var_err < 0.0625
+                and 0.6 <= accept <= 0.99 and div <= 0.01
+                and bool(torch.isfinite(res.mean).all())):
+            fail(f"phase {sub} off: mean {mean_err} sd from the composed "
+                 f"run (limit 0.044), var {var_err} (limit 0.0625), "
+                 f"accept {accept}, divergence rate {div}")
+        mean_steps = res.mean_num_steps.item()
+        # min-ESS/s from a tail of 256 more transitions of 512 walkers' worth
+        # of history, as the JAX package's model benchmark takes it
+        step = chees.build_fused_jittered_step(
+            mp.potential, num_dims=d8, max_steps=max_steps8)
+        hs = torch.as_tensor(chees.halton_sequence(
+            n_warm8 + 2 * n_samp8)[n_warm8 + n_samp8:]).to(dev)
+        state, hist = res.state, []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_samp8):
+            count = chees.steps_for(res.trajectory_time, hs[i],
+                                    res.step_size, max_steps8)
+            state, _ = step((SEED + 8, n_warm8 + n_samp8 + i), state,
+                            res.step_size, count)
+            hist.append(state.ensemble.q[:512].clone())
+        torch.cuda.synchronize()
+        tail_seconds = time.perf_counter() - t0
+        min_ess = diagnostics.effective_sample_size(
+            torch.stack(hist)).min().item() * (w / 512)
+        print(json.dumps({
+            "phase": f"{sub} run_chees_hmc {title} W={w} D={d8} "
+                     f"warmup={n_warm8} samples={n_samp8} "
+                     f"max_steps={max_steps8} kernel=auto",
+            "kernel_used": res.kernel_used,
+            "warmup_kernel_used": res.warmup_kernel_used,
+            "launches": counts["fused_hmc_transition"], "launches_by": by,
+            "max_mean_err_sd_vs_composed": mean_err,
+            "max_rel_var_err_vs_composed": var_err,
+            "accept_rate": accept, "divergence_rate": div,
+            "step_size": res.step_size.item(),
+            "trajectory_time": res.trajectory_time.item(),
+            "mean_num_steps": mean_steps,
+            "warmup_seconds": res.warmup_seconds,
+            "sampling_seconds": res.sampling_seconds,
+            "ms_per_transition": 1e3 * res.sampling_seconds / n_samp8,
+            "walker_transitions_per_s": w * n_samp8 / res.sampling_seconds,
+            "grad_evals_per_s": (w * n_samp8 * mean_steps
+                                 / res.sampling_seconds),
+            "min_ess_per_s": min_ess / tail_seconds,
+            "composed_ms_per_transition_W8192":
+                1e3 * ref.sampling_seconds / n_samp8}))
+        return res, counts["fused_hmc_transition"], by
+
+    mp_lr = models.make_model_potential(models.logistic_regression,
+                                        (x_lr, y_lr), {})
+    res8a, launched_lr, by_lr = chees_on_model(
+        "8a", "logistic regression N=256", mp_lr, 0.05)
+    mp_es = models.make_model_potential(models.eight_schools_noncentered,
+                                        (), models.EIGHT_SCHOOLS_DATA)
+    res8b, launched_es, by_es = chees_on_model(
+        "8b", "eight schools non-centred", mp_es, 0.22)
+
+    # 8c: a DSL model without a device form takes the composed route. The
+    # decentered funnel is v ~ N(0, 3), x_decentered ~ N(0, 1)^15.
+    mp_fn = models.make_model_potential(models.funnel, (), {"dim": 15},
+                                        reparam="auto")
+    if mp_fn.potential.device_form is not None or mp_fn.num_dims != 16:
+        fail("phase 8c: the reparameterised funnel has a device form")
+    kernels.reset_launch_counts()
+    reads = chees._host_count.reads
+    res8c = run_chees_hmc(SEED + 10, mp_fn.potential, mp_fn.init(SEED, 8192),
+                          num_warmup=n_warm8, num_samples=n_samp8,
+                          max_steps=max_steps8, collect="moments",
+                          kernel="auto")
+    reads = chees._host_count.reads - reads
+    sd_fn = torch.tensor([3.0] + [1.0] * 15, device=dev)
+    mean_err = (res8c.mean / sd_fn).abs().max().item()
+    var_err = (res8c.var / sd_fn**2 - 1.0).abs().max().item()
+    values = mp_fn.trace_values(res8c.state.ensemble.q)
+    x_want = torch.exp(0.5 * values["v"])[:, None] * values["x_decentered"]
+    if not (res8c.kernel_used == res8c.warmup_kernel_used == "composed"
+            and sum(kernels.launch_counts().values()) == 0
+            and reads == n_warm8 + n_samp8
+            and mean_err < 0.05 and var_err < 0.1
+            and values["x"].shape == (8192, 15)
+            and torch.allclose(values["x"], x_want, rtol=1e-5, atol=1e-6)):
+        fail(f"phase 8c off: ran {res8c.kernel_used}, launches "
+             f"{kernels.launch_counts()}, {reads} host reads, mean "
+             f"{mean_err} sd, var {var_err}")
+    print(json.dumps({
+        "phase": "8c run_chees_hmc funnel model reparam=auto W=8192 D=16 "
+                 "(no device form: the composed route)",
+        "kernel_used": res8c.kernel_used, "host_reads_of_the_count": reads,
+        "max_mean_err_sd": mean_err, "max_rel_var_err": var_err,
+        "accept_rate": res8c.accept_rate.item(),
+        "trajectory_time": res8c.trajectory_time.item(),
+        "mean_num_steps": res8c.mean_num_steps.item(),
+        "ms_per_transition": 1e3 * res8c.sampling_seconds / n_samp8}))
+
+    # 8d: a diag-quadratic target: warmup composed (kernel="auto" keeps
+    # it so, as the JAX package does), sampling in kernel A with the count
+    # read on the device
+    kernels.reset_launch_counts()
+    q0 = torch.randn(w, d, generator=seeded(0), device=dev)
+    res8d = run_chees_hmc(SEED + 11, pot.make_standard_normal(d), q0,
+                          num_warmup=100, num_samples=n_samp8,
+                          max_steps=max_steps8, collect="moments")
+    launched_a_counted = kernels.launch_counts()["fused_hmc_diag_quadratic"]
+    mean_err = res8d.mean.abs().max().item()
+    var_err = (res8d.var - 1.0).abs().max().item()
+    if not ((res8d.kernel_used, res8d.warmup_kernel_used)
+            == ("fused", "composed") and launched_a_counted == n_samp8
+            and kernels.launch_counts()["fused_hmc_transition"] == 0
+            and mean_err < 0.01 and var_err < 0.02
+            and 0.6 <= res8d.accept_rate.item() <= 0.99):
+        fail(f"phase 8d off: {res8d.warmup_kernel_used}/{res8d.kernel_used},"
+             f" {launched_a_counted} kernel A launches, mean {mean_err}, "
+             f"var {var_err}, accept {res8d.accept_rate.item()}")
+    print(json.dumps({
+        "phase": "8d run_chees_hmc std_normal_32d W=102400 kernel=auto",
+        "kernel_used": res8d.kernel_used,
+        "warmup_kernel_used": res8d.warmup_kernel_used,
+        "launches": launched_a_counted, "max_abs_mean": mean_err,
+        "max_abs_var_minus_1": var_err,
+        "accept_rate": res8d.accept_rate.item(),
+        "trajectory_time": res8d.trajectory_time.item(),
+        "mean_num_steps": res8d.mean_num_steps.item(),
+        "ms_per_transition": 1e3 * res8d.sampling_seconds / n_samp8}))
+
+    # ---- 2, once more: the count on the device, the proposal, the forms ---
+    gen8 = torch.Generator(device="cpu").manual_seed(SEED + 8)
+
+    def count(n):
+        return torch.tensor([n], dtype=torch.int32, device=dev)
+
+    def check_b8(case, form, q, steps, step, time_it, *, counted=None,
+                 proposal=False, plain_reps=20, library=None, mass=None):
+        """Kernel B against its plain version; ``counted``: the count goes
+        as a device tensor with this max_steps (and the fixed-count
+        kernel's first six outputs must be the same bits); ``mass``: the
+        metric [D] (a random one unless given)."""
+        w_, d_ = q.shape
+        u, g = kernels.device_value_and_grad(form)(q)
+        im = ((0.5 + 1.5 * torch.rand(d_, generator=gen8)).to(dev)
+              if mass is None else (1.0 / mass).contiguous())
+        kw = dict(scalars=scalars(step), p_std=torch.sqrt(1.0 / im),
+                  inv_mass=im, emit_proposal=proposal)
+        ran = steps if counted is None else min(max(steps, 1), counted)
+        if counted is not None:
+            kw.update(num_steps=count(steps), max_steps=counted)
+        else:
+            kw.update(num_steps=steps)
+        counter = 13
+
+        def run():
+            return kernels.fused_hmc_transition(form, SEED, counter, q, u, g,
+                                                **kw)
+
+        def run_plain():
+            return kernels.fused_hmc_transition_plain(form, SEED, counter, q,
+                                                      u, g, **kw)
+
+        out, again, plain = run(), run(), run_plain()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            fail(f"{case}: two launches on the same input differ")
+        if counted is not None:
+            fixed = kernels.fused_hmc_transition(
+                form, SEED, counter, q, u, g, **{
+                    **kw, "num_steps": ran, "max_steps": None,
+                    "emit_proposal": False})
+            if not all(torch.equal(a, b) for a, b in zip(out, fixed)):
+                fail(f"{case}: the device count {steps} (max {counted}) "
+                     f"does not give the fixed count {ran}'s bits")
+        log_u = torch.log(philox.accept_uniforms(SEED, counter, w_, dev))
+        err = compare(case, named(out, B_ORDER), named(plain, B_ORDER), log_u)
+        if proposal:
+            for key, k, pl in zip(("q_prop", "p_prop"), out[6:], plain[6:]):
+                if not torch.allclose(k, pl, rtol=1e-5, atol=1e-5):
+                    fail(f"{case}: {key} differs by up to "
+                         f"{(k - pl).abs().max().item()}")
+                err = max(err, (k - pl).abs().max().item())
+        line = {"case": case, "max_abs_err": err,
+                "accepted": out[4].float().mean().item(),
+                **bound(transition_bytes(w_, d_, True)
+                        + (8 * w_ * d_ if proposal else 0),
+                        w_ * (ran + 1) * (gradient_ops(form, d_) + 3 * d_))}
+        if time_it:
+            line["ms"] = median_ms(run)
+            # the plain version reads a tensor count on the host, which a
+            # graph capture cannot hold: it is timed at the int it holds
+            plain_kw = {**kw, "num_steps": ran, "max_steps": None}
+            line["plain_ms"] = median_ms(
+                lambda: kernels.fused_hmc_transition_plain(
+                    form, SEED, counter, q, u, g, **plain_kw),
+                reps=plain_reps, rounds=3)
+            if library is not None:
+                line["library_ms"] = median_ms(lambda: library(q, ran))
+        print(json.dumps(line))
+        return line
+
+    # the correlated Gaussian of phase 7 at the bench shape (walker tile 4)
+    q_corr = randn2(102400, 32)
+    n_errs = [check_b8(f"B counted n={n} max=16 correlated gaussian "
+                       f"W=102400 D=32", corr32, q_corr, n, 0.1, n == 16,
+                       counted=16, plain_reps=2) for n in (1, 7, 16, 40)]
+    b_counted = n_errs[2]
+    b_prop = check_b8("B counted+proposal n=16 correlated gaussian W=102400 "
+                      "D=32", corr32, q_corr, 16, 0.1, True, counted=16,
+                      proposal=True, plain_reps=2)
+    b8_errs = [line["max_abs_err"] for line in n_errs] + [
+        b_prop["max_abs_err"],
+        check_b8("B proposal (fixed count) funnel W=8192 D=10 L=16",
+                 pot.make_funnel(10, device=dev).device_form,
+                 0.5 * randn2(8192, 10), 16, 0.1, False,
+                 proposal=True)["max_abs_err"],
+        check_b8("B counted+proposal diag form W=8192 D=32 n=9 max=16",
+                 ("diag", (torch.ones(32, device=dev),
+                           torch.zeros(32, device=dev))),
+                 randn2(8192, 32), 9, 0.3, False, counted=16,
+                 proposal=True)["max_abs_err"]]
+
+    # kernel A with the count on the device: the fixed count's bits
+    q_a = randn2(102400, 32)
+    one = torch.ones(32, device=dev)
+    kw_a = dict(scalars=scalars(0.3), p_std=one, inv_mass=one, k_diag=one,
+                mean=torch.zeros(32, device=dev))
+    for n, ran in ((1, 1), (7, 7), (16, 16), (40, 16)):
+        a_dev = kernels.fused_hmc_diag_quadratic(
+            SEED, 7, q_a, num_steps=count(n), max_steps=16, **kw_a)
+        a_fix = kernels.fused_hmc_diag_quadratic(SEED, 7, q_a, num_steps=ran,
+                                                 **kw_a)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(a_dev, a_fix)):
+            fail(f"kernel A: the device count {n} (max 16) does not give "
+                 f"the fixed count {ran}'s bits")
+    count16 = count(16)  # made outside the timing's graph capture
+    a_plain = kernels.fused_hmc_diag_quadratic_plain(
+        SEED, 7, q_a, num_steps=count(40), max_steps=16, **kw_a)
+    a_counted = {
+        "case": "A counted n=16 max=16 std_normal W=102400 D=32",
+        "max_abs_err": compare(
+            "A counted", named(a_dev, A_ORDER), named(a_plain, A_ORDER),
+            torch.log(philox.accept_uniforms(SEED, 7, 102400, dev))),
+        **bound(transition_bytes(102400, 32, False),
+                102400 * 32 * (4 * 16 + 10)),
+        "ms": median_ms(lambda: kernels.fused_hmc_diag_quadratic(
+            SEED, 7, q_a, num_steps=count16, max_steps=16, **kw_a)),
+        "plain_ms": median_ms(
+            lambda: kernels.fused_hmc_diag_quadratic_plain(
+                SEED, 7, q_a, num_steps=16, **kw_a)),
+        "fixed_ms": median_ms(lambda: kernels.fused_hmc_diag_quadratic(
+            SEED, 7, q_a, num_steps=16, **kw_a))}
+    print(json.dumps(a_counted))
+
+    # the model forms, on the posterior states phase 8 left, under the
+    # metric and (for the logistic form) the step size it adapted
+    form_lr = mp_lr.potential.device_form
+    x_dev, y_dev = form_lr[1]
+
+    def logistic_library(q, steps):
+        """What one PyTorch call per product makes of the logistic form's
+        gradients over a transition: two torch.matmul and a sigmoid for
+        each of its steps + 1 gradients (the trajectory, the energies and
+        the Metropolis test left out)."""
+        for _ in range(steps + 1):
+            resid = torch.sigmoid(q[:, :-1] @ x_dev.T + q[:, -1:]) - y_dev
+            grad = torch.cat([q[:, :-1] + resid @ x_dev,
+                              q[:, -1:] + resid.sum(1, keepdim=True)], 1)
+        return grad
+
+    q_lr, mass_lr = res8a.state.ensemble.q, res8a.state.ensemble.mass
+    step_lr = res8a.step_size.item()
+    lr_main = check_b8("B logistic W=102400 D=32 N=256 L=16", form_lr, q_lr,
+                       16, step_lr, True, plain_reps=2,
+                       library=logistic_library, mass=mass_lr)
+    lr_errs = [lr_main["max_abs_err"]]
+    lr_errs.append(check_b8(
+        "B logistic W=8192 D=32 N=256 L=16", form_lr,
+        q_lr[:8192].contiguous(), 16, step_lr, True, plain_reps=2,
+        library=logistic_library, mass=mass_lr)["max_abs_err"])
+    lr_errs.append(check_b8(
+        "B logistic counted+proposal W=8192 D=31 N=256 n=9 max=16 (off the "
+        "16-byte path)", ("logistic", (x_dev[:, 1:].contiguous(), y_dev)),
+        q_lr[:8192, 1:].contiguous(), 9, step_lr, False, counted=16,
+        proposal=True, mass=mass_lr[1:])["max_abs_err"])
+    # A float32 trajectory through tau = e^q1 amplifies the last-bit
+    # differences between the kernel and its plain version: at the adapted
+    # step, after 16 steps, one walker in 102400 (a near-divergent one,
+    # energy error 29) passed the flat tolerance (1.3e-4 relative). So the
+    # comparison runs 16 steps of half the adapted step; the time is the
+    # same.
+    form_es = mp_es.potential.device_form
+    mass_es = res8b.state.ensemble.mass
+    step_es = 0.5 * res8b.step_size.item()
+    es_main = check_b8("B eight_schools_nc W=102400 D=10 L=16", form_es,
+                       res8b.state.ensemble.q, 16, step_es, True,
+                       mass=mass_es)
+    es_errs = [es_main["max_abs_err"], check_b8(
+        "B eight_schools_nc counted+proposal W=8192 D=10 n=40 max=16",
+        form_es, res8b.state.ensemble.q[:8192].contiguous(), 40, step_es,
+        False, counted=16, proposal=True, mass=mass_es)["max_abs_err"]]
+
     def entry(name, source, replaces, launches, errs, main):
         return {"name": name, "case": main["case"], "route": "cuda",
                 "source": source,
@@ -783,6 +1151,20 @@ def main() -> None:
               corr_launches["7b"], d_errs, d_corr),
         entry("nbody_accelerations_tiled", f"{CSRC}/nbody.cu", 252,
               launched_e, e_errs, e_main),
+        # this slice: the count read on the device (A: phase 8d's sampling;
+        # B: the sampling launches of 8a and 8b), the proposal outputs
+        # (their warmup launches), and the two model forms
+        entry("fused_hmc_diag_quadratic", SOURCE, 901, launched_a_counted,
+              [a_counted["max_abs_err"]], a_counted),
+        entry("fused_hmc_transition", SOURCE, 379,
+              by_lr["counted"] + by_es["counted"], b8_errs, b_counted),
+        entry("fused_hmc_transition", SOURCE, 380,
+              by_lr["counted+proposal"] + by_es["counted+proposal"], b8_errs,
+              b_prop),
+        entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576, launched_lr,
+              lr_errs, lr_main),
+        entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576, launched_es,
+              es_errs, es_main),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

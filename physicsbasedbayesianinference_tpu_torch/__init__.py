@@ -6,12 +6,15 @@ repository as the reference). It imports torch and never JAX. It covers
 fixed-length ensemble HMC through :func:`run_hmc` (constants, the ensemble
 state, the analytic potentials, the splitting integrators with kernel D's
 ``pallas_leapfrog``, warmup adaptation, the fused transition kernels and
-the diagnostics) and direct N-body simulation in :mod:`.physics`, whose
-accelerations run kernel E on CUDA.
+the diagnostics), the model DSL in :mod:`.models` with ChEES-HMC
+(:func:`run_chees_hmc`, trajectory-length adaptation, fused on models that
+have a device form), and direct N-body simulation in :mod:`.physics`,
+whose accelerations run kernel E on CUDA.
 """
 
-from . import (adaptation, constants, device, diagnostics, ensemble, hmc,
-               native, ops, physics, utils)
+from . import (adaptation, chees, constants, device, diagnostics, ensemble,
+               hmc, models, native, ops, physics, utils)
+from .chees import ChEESRunResult, run_chees_hmc
 from .constants import NATURAL, SI, Constants, solar_system_units
 from .device import default_device
 from .ensemble import (
@@ -26,11 +29,13 @@ from .hmc import (HMCInfo, HMCKernel, HMCRunResult, HMCState,
 
 __all__ = [
     "adaptation",
+    "chees",
     "constants",
     "device",
     "diagnostics",
     "ensemble",
     "hmc",
+    "models",
     "native",
     "ops",
     "physics",
@@ -52,4 +57,6 @@ __all__ = [
     "build_fused_hmc_kernel",
     "build_hmc_kernel",
     "run_hmc",
+    "ChEESRunResult",
+    "run_chees_hmc",
 ]

@@ -498,6 +498,211 @@ struct NbodyForm {
   }
 };
 
+// Bayesian logistic regression, q = (w [P], b), D = P + 1, over N rows of
+// data (x [N, P], y [N]):
+//   U = 0.5 |q|^2 + D log(2 pi) / 2 + sum_n softplus(z_n) - y_n z_n,
+//   z = x w + b;  dU/dw = w + x^T (sigmoid(z) - y),  dU/db = b + sum_n
+//   (sigmoid(z_n) - y_n):
+// the potential of models/examples.py logistic_regression (N(0, 1) priors on
+// w and b, Bernoulli-logits likelihood), constants included. It is the
+// data-matmul potential that the TPU ran through its walker-packed kernel.
+//
+// x is staged once a block with a column of ones appended (so that b is
+// one more weight), padded with zeros to 4 T columns plus 4 (a row stride of
+// 4 T + 4 floats keeps the rows that a walker's lanes read together in
+// different banks) and to a multiple of T rows; y after it. Both products
+// with x run here, in T-row chunks: lane l of the walker takes row c + l,
+// its z a full dot product against the walker's q in its shared buffer row
+// (index order), then the residual sigmoid(z) - y; the T residuals of the
+// chunk go from lane to lane by shuffle, in row order, and each lane adds
+// r_n x[n][its four dims] into its gradient. So the sums over n and over
+// dims run in index order, as in the plain version, and no residual is
+// stored. The value's sum over rows is per lane (rows l, l + T, ...) and
+// then a butterfly over the lanes.
+//
+// What holds it back: each multiply-add pair of the z pass loads 8 bytes
+// from shared memory (x and q), of the gradient pass 4, so the loop runs at
+// the shared-memory rate, several times under the arithmetic rate; a tile
+// of rows or walkers in registers, as the Gaussian form has, is the next
+// step.
+struct LogisticForm {
+  const float* x;  // [N, D - 1] row-major
+  const float* y;  // [N]
+  int n;
+
+  static constexpr bool kTiled = false;
+  static constexpr int kBufPad = 4;  // rows stay 16-byte aligned
+
+  __host__ __device__ int rows(int tpw) const {
+    return (n + tpw - 1) / tpw * tpw;
+  }
+  __host__ __device__ static int stride(int tpw) { return 4 * tpw + 4; }
+
+  // x rows and y, rounded up to whole 16 bytes
+  __host__ __device__ int shared_floats(int, int tpw) const {
+    return (rows(tpw) * (stride(tpw) + 1) + 3) / 4 * 4;
+  }
+
+  __device__ void stage(float* sh, int d, int tpw) const {
+    const int st = stride(tpw), nr = rows(tpw);
+    for (int i = threadIdx.x; i < nr * st; i += blockDim.x) {
+      const int r = i / st, c = i - r * st;
+      float v = 0.0f;
+      if (r < n) v = c < d - 1 ? x[r * (d - 1) + c] : (c == d - 1 ? 1.0f : 0.0f);
+      sh[i] = v;
+    }
+    for (int i = threadIdx.x; i < nr; i += blockDim.x)
+      sh[nr * st + i] = i < n ? y[i] : 0.0f;
+  }
+
+  // z of row `row` for the walker whose q lies in buf
+  __device__ __forceinline__ static float logit(const float* sh,
+                                                const float* buf, int row,
+                                                int st, int tpw) {
+    const float4* xr = reinterpret_cast<const float4*>(sh + row * st);
+    const float4* qs = reinterpret_cast<const float4*>(buf);
+    float z = 0.0f;
+    for (int k = 0; k < tpw; ++k) {
+      const float4 xv = xr[k], qq = qs[k];
+      z += xv.x * qq.x;
+      z += xv.y * qq.y;
+      z += xv.z * qq.z;
+      z += xv.w * qq.w;
+    }
+    return z;
+  }
+
+  __device__ __forceinline__ static void share(const float qv[4], int lane,
+                                               float* buf) {
+    *reinterpret_cast<float4*>(buf + 4 * lane) =
+        make_float4(qv[0], qv[1], qv[2], qv[3]);  // zeros past D
+    __syncwarp();
+  }
+
+  __device__ void grad(const float qv[4], float gv[4], int lane, int tpw,
+                       int, const float* sh, float* buf) const {
+    share(qv, lane, buf);
+    const int st = stride(tpw), nr = rows(tpw);
+    const float* ys = sh + nr * st;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int c = 0; c < nr; c += tpw) {
+      const int row = c + lane;
+      const float z = logit(sh, buf, row, st, tpw);
+      const float r = row < n ? 1.0f / (1.0f + expf(-z)) - ys[row] : 0.0f;
+      for (int j = 0; j < tpw; ++j) {
+        const float rj = __shfl_sync(0xffffffffu, r, j, tpw);
+        const float4 xv =
+            reinterpret_cast<const float4*>(sh + (c + j) * st)[lane];
+        acc[0] += rj * xv.x;
+        acc[1] += rj * xv.y;
+        acc[2] += rj * xv.z;
+        acc[3] += rj * xv.w;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gv[e] = qv[e] + acc[e];
+    __syncwarp();
+  }
+
+  __device__ float value(const float qv[4], const float[4], int lane, int tpw,
+                         int d, const float* sh, float* buf) const {
+    share(qv, lane, buf);
+    const int st = stride(tpw), nr = rows(tpw);
+    const float* ys = sh + nr * st;
+    float lik = 0.0f;
+    for (int row = lane; row < n; row += tpw) {
+      const float z = logit(sh, buf, row, st, tpw);
+      lik += (fmaxf(z, 0.0f) + log1pf(expf(-fabsf(z)))) - ys[row] * z;
+    }
+    __syncwarp();
+    float quad = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) quad += qv[e] * qv[e];
+    return (0.5f * segment_sum(quad, tpw) + segment_sum(lik, tpw)) +
+           0.918938533204672742f * (float)d;
+  }
+};
+
+// Non-centred eight schools over J groups, q = (mu, log tau, theta [J]),
+// D = J + 2, data y [J], sigma [J]: the potential of models/examples.py
+// eight_schools_noncentered in unconstrained coordinates,
+//   U = mu^2 / 50 + log1p((tau / 5)^2) - log tau + |theta|^2 / 2
+//       + sum_j ((y_j - mu - tau theta_j) / sigma_j)^2 / 2 + c,  tau = e^q1,
+// from mu ~ N(0, 5), tau ~ HalfCauchy(5) with the Jacobian of tau = e^q1,
+// theta ~ N(0, 1) and y_j ~ N(mu + tau theta_j, sigma_j); c collects the
+// normalising constants (consts[0], summed on the host in float64). Every
+// lane of the walker runs the J terms in index order.
+struct EightSchoolsForm {
+  const float* y;       // [J]
+  const float* sigma;   // [J]
+  const float* consts;  // [1]
+  int j;
+
+  static constexpr bool kTiled = false;
+  static constexpr int kBufPad = 1;
+
+  __host__ __device__ int shared_floats(int, int) const { return 2 * j + 1; }
+
+  __device__ void stage(float* sh, int, int) const {
+    for (int i = threadIdx.x; i < j; i += blockDim.x) {
+      sh[i] = y[i];
+      sh[j + i] = sigma[i];
+    }
+    if (threadIdx.x == 0) sh[2 * j] = consts[0];
+  }
+
+  // ((y_i - (mu + tau theta_i)) / sigma_i
+  __device__ __forceinline__ float resid(const float* sh, const float* buf,
+                                         int i, float mu, float tau) const {
+    return (sh[i] - (mu + tau * buf[2 + i])) / sh[j + i];
+  }
+
+  __device__ void grad(const float qv[4], float gv[4], int lane, int, int d,
+                       const float* sh, float* buf) const {
+    share_walker(qv, lane, d, buf);
+    const float mu = buf[0], tau = expf(buf[1]);
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int i = 0; i < j; ++i) {
+      const float e = resid(sh, buf, i, mu, tau) / sh[j + i];
+      s1 += e;
+      s2 += e * buf[2 + i];
+    }
+    const int base = 4 * lane;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int dim = base + e;
+      float v = 0.0f;
+      if (dim == 0) {
+        v = mu / 25.0f - s1;
+      } else if (dim == 1) {
+        const float t = tau / 5.0f;
+        v = ((2.0f * (t * t)) / (1.0f + t * t) - 1.0f) - tau * s2;
+      } else if (dim < d) {
+        const int i = dim - 2;
+        v = qv[e] - tau * (resid(sh, buf, i, mu, tau) / sh[j + i]);
+      }
+      gv[e] = v;
+    }
+    __syncwarp();
+  }
+
+  __device__ float value(const float qv[4], const float[4], int lane, int,
+                         int d, const float* sh, float* buf) const {
+    share_walker(qv, lane, d, buf);
+    const float mu = buf[0], lt = buf[1], tau = expf(buf[1]);
+    float st = 0.0f, sz = 0.0f;
+    for (int i = 0; i < j; ++i) {
+      const float z = resid(sh, buf, i, mu, tau);
+      st += buf[2 + i] * buf[2 + i];
+      sz += z * z;
+    }
+    __syncwarp();
+    const float t = tau / 5.0f;
+    return ((((mu * mu) / 50.0f + log1pf(t * t)) - lt) + 0.5f * st) +
+           0.5f * sz + sh[2 * j];
+  }
+};
+
 // The gradients and the values of a lane group's R walkers: a tiled form
 // takes them together, any other one walker after the other (R = 1 for
 // them, see with_tile).
@@ -556,9 +761,11 @@ int with_tile(int tile, Body body) {
 // (param0), 2 banana (param0; D = 2), 3 mixture (param0 means, param1 log
 // weights, param2 inv_var; count = K), 4 N-body (param0 masses, param1
 // (G, eps^2); count = N, D a multiple of N), 5 diagonal quadratic (param0
-// k, param1 mean; only where kWithDiag). Returns cudaErrorInvalidValue for
-// a form or parameter count the caller does not take.
-template <bool kWithDiag, class Body>
+// k, param1 mean), 6 logistic regression (param0 x, param1 y; count = N
+// rows, D - 1 columns), 7 non-centred eight schools (param0 y, param1
+// sigma, param2 the constant; count = J = D - 2). Returns
+// cudaErrorInvalidValue for a form or parameter count it does not take.
+template <class Body>
 int with_form(int form, const float* param0, const float* param1,
               const float* param2, int count, int num_dims, Body body) {
   switch (form) {
@@ -577,8 +784,14 @@ int with_form(int form, const float* param0, const float* param1,
         return (int)cudaErrorInvalidValue;
       return body(NbodyForm{param0, param1, count});
     case 5:
-      if constexpr (kWithDiag) return body(DiagQuadraticForm{param0, param1});
-      return (int)cudaErrorInvalidValue;
+      return body(DiagQuadraticForm{param0, param1});
+    case 6:
+      if (count <= 0) return (int)cudaErrorInvalidValue;
+      return body(LogisticForm{param0, param1, count});
+    case 7:
+      if (count <= 0 || num_dims != count + 2)
+        return (int)cudaErrorInvalidValue;
+      return body(EightSchoolsForm{param0, param1, param2, count});
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -44,6 +44,19 @@
 // Scalars (step size, beta, potential scale) come from a device array, so
 // adapting the step size never needs a host read-back. Outputs are
 // allocated by the caller; no kernel allocates or synchronises.
+//
+// The TPU kernels' dynamic_steps and emit_proposal (what ChEES-HMC needs)
+// are template flags here, so that the kernels without them are unchanged:
+// kDyn reads the leapfrog count from device memory and clips it to [1,
+// max_steps] (device_steps; uniform over the grid, so the trajectory loop,
+// whose bound was a run-time value already, stays as it was); kProp (kernel
+// B) stores every walker's endpoint (q1, -p1) before the accept-select, from
+// the registers that hold it, so that a rejected walker's start is still
+// read again and not kept. Kernel A has no proposal outputs, as on the TPU:
+// kernel B takes the diagonal form where they are asked for. The TPU's
+// kernel C was also its route for the models' data-matmul potentials; here
+// those are device forms of kernel B (forms.cuh: LogisticForm,
+// EightSchoolsForm).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,6 +72,14 @@ struct Decision {
   float accept_prob;
   bool accepted;
 };
+
+// The leapfrog count of a launch that takes it from device memory: the
+// value the caller's adaptation left there, clipped to [1, max_steps]; the
+// same for every thread of the grid, so the trajectory loops stay uniform.
+__device__ __forceinline__ int device_steps(const int* __restrict__ steps_dev,
+                                            int max_steps) {
+  return min(max(steps_dev[0], 1), max_steps);
+}
 
 // log_u: the log of the walker's Metropolis uniform.
 __device__ __forceinline__ Decision metropolis(float h0, float h1, float beta,
@@ -102,7 +123,7 @@ __device__ __forceinline__ Decision metropolis(float h0, float h1, float beta,
 #endif
 constexpr int kBlockA = PBBI_A_BLOCK;
 
-template <bool kVec>
+template <bool kVec, bool kDyn>
 __global__ void __launch_bounds__(kBlockA, PBBI_A_MIN_BLOCKS)
 diag_quadratic_kernel(
     const float* __restrict__ q, const float* __restrict__ kdiag,
@@ -111,8 +132,9 @@ diag_quadratic_kernel(
     float* __restrict__ q_out, float* __restrict__ g_out,
     float* __restrict__ u_out, float* __restrict__ acc_out,
     uint8_t* __restrict__ taken_out, float* __restrict__ derr_out,
-    int num_walkers, int num_dims, int tpw, int num_steps, float threshold,
-    uint32_t k0, uint32_t k1, uint32_t t) {
+    const int* __restrict__ steps_dev, int num_walkers, int num_dims, int tpw,
+    int num_steps, float threshold, uint32_t k0, uint32_t k1, uint32_t t) {
+  if (kDyn) num_steps = device_steps(steps_dev, num_steps);
   // k, mean, inv_mass, p_std, each padded with zeros to 4 * tpw floats
   __shared__ float4 params[kMaxGenericDims];
   // log of the Metropolis uniform of each of the block's walkers, drawn by
@@ -225,6 +247,7 @@ diag_quadratic_kernel(
   }
 }
 
+template <bool kDyn>
 __global__ void __launch_bounds__(kBlock) diag_quadratic_loop_kernel(
     const float* __restrict__ q, const float* __restrict__ kdiag,
     const float* __restrict__ mean, const float* __restrict__ inv_mass,
@@ -232,8 +255,9 @@ __global__ void __launch_bounds__(kBlock) diag_quadratic_loop_kernel(
     float* __restrict__ q_out, float* __restrict__ g_out,
     float* __restrict__ u_out, float* __restrict__ acc_out,
     uint8_t* __restrict__ taken_out, float* __restrict__ derr_out,
-    int num_walkers, int num_dims, int tpw, int num_steps, float threshold,
-    uint32_t k0, uint32_t k1, uint32_t t) {
+    const int* __restrict__ steps_dev, int num_walkers, int num_dims, int tpw,
+    int num_steps, float threshold, uint32_t k0, uint32_t k1, uint32_t t) {
+  if (kDyn) num_steps = device_steps(steps_dev, num_steps);
   const int lane = threadIdx.x % tpw;
   const long long w =
       (long long)blockIdx.x * (kBlock / tpw) + threadIdx.x / tpw;
@@ -333,7 +357,7 @@ __global__ void __launch_bounds__(kBlock) diag_quadratic_loop_kernel(
 // kVec.
 // ---------------------------------------------------------------------------
 
-template <class Form, int R, bool kVec>
+template <class Form, int R, bool kVec, bool kDyn, bool kProp>
 __global__ void __launch_bounds__(kBlock, kMinBlocks) generic_kernel(
     Form form, const float* __restrict__ q, const float* __restrict__ u,
     const float* __restrict__ g, const float* __restrict__ inv_mass,
@@ -341,8 +365,10 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) generic_kernel(
     float* __restrict__ q_out, float* __restrict__ u_out,
     float* __restrict__ g_out, float* __restrict__ acc_out,
     uint8_t* __restrict__ taken_out, float* __restrict__ derr_out,
-    int num_walkers, int num_dims, int tpw, int num_steps, float threshold,
-    uint32_t k0, uint32_t k1, uint32_t t) {
+    float* __restrict__ q_prop, float* __restrict__ p_prop,
+    const int* __restrict__ steps_dev, int num_walkers, int num_dims, int tpw,
+    int num_steps, float threshold, uint32_t k0, uint32_t k1, uint32_t t) {
+  if (kDyn) num_steps = device_steps(steps_dev, num_steps);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   form.stage(smem, num_dims, tpw);
@@ -430,6 +456,11 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) generic_kernel(
                    logf(pbbi::accept_uniform(t, (uint32_t)w, k0, k1)));
     if (w >= num_walkers) continue;
     const long long at = w * num_dims + base;
+    if (kProp) {  // the endpoint (q1, -p1), whatever the decision
+      const float flipped[4] = {-pv[r][0], -pv[r][1], -pv[r][2], -pv[r][3]};
+      store_group<kVec>(q_prop, at, left[r], qv[r]);
+      store_group<kVec>(p_prop, at, left[r], flipped);
+    }
     if (!dec.accepted) {  // back to the start, read once more
       load_group<kVec>(q, at, left[r], qv[r]);
       load_group<kVec>(g, at, left[r], gv[r]);
@@ -445,25 +476,47 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) generic_kernel(
   }
 }
 
+template <class Form, int R>
+auto pick_variant(bool vec, bool dyn, bool prop) {
+  using Kernel = decltype(&generic_kernel<Form, R, true, false, false>);
+  static const Kernel table[8] = {
+      &generic_kernel<Form, R, false, false, false>,
+      &generic_kernel<Form, R, false, false, true>,
+      &generic_kernel<Form, R, false, true, false>,
+      &generic_kernel<Form, R, false, true, true>,
+      &generic_kernel<Form, R, true, false, false>,
+      &generic_kernel<Form, R, true, false, true>,
+      &generic_kernel<Form, R, true, true, false>,
+      &generic_kernel<Form, R, true, true, true>};
+  return table[4 * vec + 2 * dyn + prop];
+}
+
 template <class Form>
 int launch_generic(Form form, const float* q, const float* u, const float* g,
                    const float* inv_mass, const float* p_std,
                    const float* scalars, float* q_out, float* u_out,
                    float* g_out, float* acc_out, uint8_t* taken_out,
-                   float* derr_out, int num_walkers, int num_dims,
+                   float* derr_out, float* q_prop, float* p_prop,
+                   const int* steps_dev, int num_walkers, int num_dims,
                    int num_steps, int walker_tile, float threshold,
                    uint64_t seed, uint32_t counter, void* stream) {
   if (num_walkers <= 0 || num_dims <= 0 || num_dims > kMaxGenericDims ||
-      num_steps < 0)
+      num_steps < 0 || (q_prop == nullptr) != (p_prop == nullptr))
     return (int)cudaErrorInvalidValue;
   const int tpw = threads_per_walker(num_dims);
+  // q_prop and p_prop may be null (no proposal outputs): null is aligned
   const bool vec = num_dims % 4 == 0 && !misaligned16(q) &&
                    !misaligned16(g) && !misaligned16(q_out) &&
-                   !misaligned16(g_out);
+                   !misaligned16(g_out) && !misaligned16(q_prop) &&
+                   !misaligned16(p_prop);
+  const bool dyn = steps_dev != nullptr, prop = q_prop != nullptr;
   return with_tile<Form>(walker_tile, [&](auto tile) {
     constexpr int R = decltype(tile)::value;
-    const auto kernel = vec ? &generic_kernel<Form, R, true>
-                            : &generic_kernel<Form, R, false>;
+    // the fixed count without proposals is run_hmc's kernel; the others
+    // are ChEES's: the count from device memory, with the proposal
+    // (warmup) or without (sampling)
+    const auto kernel =
+        pick_variant<Form, R>(vec, dyn, prop);
     const size_t smem = shared_bytes(form, num_dims, tpw, R);
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -472,8 +525,9 @@ int launch_generic(Form form, const float* q, const float* u, const float* g,
     const unsigned blocks = (unsigned)((num_walkers + wpb - 1) / wpb);
     kernel<<<blocks, kBlock, smem, (cudaStream_t)stream>>>(
         form, q, u, g, inv_mass, p_std, scalars, q_out, u_out, g_out, acc_out,
-        taken_out, derr_out, num_walkers, num_dims, tpw, num_steps, threshold,
-        (uint32_t)seed, (uint32_t)(seed >> 32), counter);
+        taken_out, derr_out, q_prop, p_prop, steps_dev, num_walkers, num_dims,
+        tpw, num_steps, threshold, (uint32_t)seed, (uint32_t)(seed >> 32),
+        counter);
     return (int)cudaGetLastError();
   });
 }
@@ -486,13 +540,15 @@ const char* pbbi_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// Kernel A. steps_dev: null, or a device int holding the leapfrog count,
+// and num_steps is then the most it may be.
 int pbbi_fused_hmc_diag_quadratic(
     const float* q, const float* kdiag, const float* mean,
     const float* inv_mass, const float* p_std, const float* scalars,
     float* q_out, float* g_out, float* u_out, float* acc_out,
-    uint8_t* taken_out, float* derr_out, int num_walkers, int num_dims,
-    int num_steps, float threshold, uint64_t seed, uint32_t counter,
-    void* stream) {
+    uint8_t* taken_out, float* derr_out, const int* steps_dev,
+    int num_walkers, int num_dims, int num_steps, float threshold,
+    uint64_t seed, uint32_t counter, void* stream) {
   if (num_walkers <= 0 || num_dims <= 0 || num_steps < 0)
     return (int)cudaErrorInvalidValue;
   const int tpw = threads_per_walker(num_dims);
@@ -501,35 +557,44 @@ int pbbi_fused_hmc_diag_quadratic(
   const unsigned blocks = (unsigned)((num_walkers + wpb - 1) / wpb);
   const bool vec = num_dims % 4 == 0 && !misaligned16(q) &&
                    !misaligned16(q_out) && !misaligned16(g_out);
-  using Kernel = decltype(&diag_quadratic_loop_kernel);
-  const Kernel kernel = looped ? &diag_quadratic_loop_kernel
-                        : vec  ? &diag_quadratic_kernel<true>
-                               : &diag_quadratic_kernel<false>;
+  using Kernel = decltype(&diag_quadratic_loop_kernel<false>);
+  const bool dyn = steps_dev != nullptr;
+  const Kernel fixed = looped ? &diag_quadratic_loop_kernel<false>
+                       : vec  ? &diag_quadratic_kernel<true, false>
+                              : &diag_quadratic_kernel<false, false>;
+  const Kernel counted = looped ? &diag_quadratic_loop_kernel<true>
+                         : vec  ? &diag_quadratic_kernel<true, true>
+                                : &diag_quadratic_kernel<false, true>;
+  const Kernel kernel = dyn ? counted : fixed;
   kernel<<<blocks, looped ? kBlock : kBlockA, 0, (cudaStream_t)stream>>>(
       q, kdiag, mean, inv_mass, p_std, scalars, q_out, g_out, u_out, acc_out,
-      taken_out, derr_out, num_walkers, num_dims, tpw, num_steps, threshold,
-      (uint32_t)seed, (uint32_t)(seed >> 32), counter);
+      taken_out, derr_out, steps_dev, num_walkers, num_dims, tpw, num_steps,
+      threshold, (uint32_t)seed, (uint32_t)(seed >> 32), counter);
   return (int)cudaGetLastError();
 }
 
 // Kernel B for the device form `form` (forms.cuh with_form; ops/kernels.py
-// FORM_IDS), every form but the diagonal quadratic (kernel A's).
-// walker_tile: walkers a lane group owns, 1, 2 or 4 for the Gaussian form
-// (ops/kernels.py walker_tile), 1 for any other.
+// FORM_IDS). walker_tile: walkers a lane group owns, 1, 2 or 4 for the
+// Gaussian form (ops/kernels.py walker_tile), 1 for any other. q_prop and
+// p_prop: both null, or where to write every walker's endpoint (q1, -p1).
+// steps_dev: null, or a device int holding the leapfrog count, and
+// num_steps is then the most it may be.
 int pbbi_fused_hmc_transition(
     int form, const float* param0, const float* param1, const float* param2,
     int count, const float* q, const float* u, const float* g,
     const float* inv_mass, const float* p_std, const float* scalars,
     float* q_out, float* u_out, float* g_out, float* acc_out,
-    uint8_t* taken_out, float* derr_out, int num_walkers, int num_dims,
-    int num_steps, int walker_tile, float threshold, uint64_t seed,
-    uint32_t counter, void* stream) {
-  return with_form<false>(
+    uint8_t* taken_out, float* derr_out, float* q_prop, float* p_prop,
+    const int* steps_dev, int num_walkers, int num_dims, int num_steps,
+    int walker_tile, float threshold, uint64_t seed, uint32_t counter,
+    void* stream) {
+  return with_form(
       form, param0, param1, param2, count, num_dims, [&](auto f) {
         return launch_generic(f, q, u, g, inv_mass, p_std, scalars, q_out,
                               u_out, g_out, acc_out, taken_out, derr_out,
-                              num_walkers, num_dims, num_steps, walker_tile,
-                              threshold, seed, counter, stream);
+                              q_prop, p_prop, steps_dev, num_walkers, num_dims,
+                              num_steps, walker_tile, threshold, seed, counter,
+                              stream);
       });
 }
 

@@ -13,9 +13,9 @@
 // q', p', g' and u' are written once at the end.
 //
 // The TPU traced any jnp potential into the kernel. Here the potential is
-// one of the device forms of forms.cuh (kernel B's Gaussian, funnel,
-// banana, mixture and N-body, plus the diagonal quadratic of kernel A's
-// targets), in kernel B's warp layout: T lanes per walker, one dim-group of
+// one of the device forms of forms.cuh (the Gaussian, funnel, banana,
+// mixture, N-body, diagonal quadratic, logistic regression and eight
+// schools), in kernel B's warp layout: T lanes per walker, one dim-group of
 // four per lane, so D <= 128; with the Gaussian form a lane group owns R
 // walkers (1, 2 or 4), whose 4 x R tile of the gradient a lane keeps in
 // registers (forms.cuh).
@@ -178,7 +178,7 @@ int pbbi_leapfrog_trajectory(
   if (num_walkers <= 0 || num_dims <= 0 || num_dims > kMaxGenericDims ||
       num_steps < 0 || (u == nullptr) != (g == nullptr))
     return (int)cudaErrorInvalidValue;
-  return with_form<true>(
+  return with_form(
       form, param0, param1, param2, count, num_dims, [&](auto f) {
         return launch_leapfrog(f, q, p, u, g, inv_mass, step, q_out, p_out,
                                u_out, g_out, num_walkers, num_dims, num_steps,

@@ -109,6 +109,54 @@ def _step_generator(key: StepKey, device) -> torch.Generator:
     return gen
 
 
+def init_state(vg, q, mass: Union[float, Tensor] = 1.0) -> HMCState:
+    """The sampler state at positions ``q`` ``[W, D]``: the ensemble and
+    the cached ``(U, grad)`` from ``vg``."""
+    q = torch.as_tensor(q)
+    if q.ndim != 2:
+        raise ValueError(
+            f"init positions must be [num_walkers, num_dims]; got shape "
+            f"{tuple(q.shape)}. For a single walker pass q[None, :].")
+    u, g = vg(q)
+    ens = EnsembleState(
+        q=q, p=torch.zeros_like(q),
+        mass=torch.as_tensor(mass, dtype=q.dtype, device=q.device),
+        log_weight=torch.zeros(q.shape[:1], dtype=q.dtype, device=q.device))
+    return HMCState(ensemble=ens, potential_energy=u, grad=g)
+
+
+def metropolis_select(state: HMCState, p0: Tensor, mass: Tensor, proposal,
+                      *, beta, divergence_threshold: float, uniform: Tensor,
+                      step_size) -> tuple[HMCState, HMCInfo]:
+    """Per-walker Metropolis test of ``proposal = (q1, p1, u1, g1)`` (p1
+    already flipped) against ``state`` with start momentum ``p0``, and the
+    selected state. ``uniform``: one draw in [0, 1) a walker."""
+    q1, p1, u1, g1 = proposal
+    ens = state.ensemble
+    h0 = kinetic_energy(p0, mass) + state.potential_energy
+    h1 = kinetic_energy(p1, mass) + u1
+    energy_error = beta * (h1 - h0)
+    energy_error = torch.where(torch.isfinite(energy_error),
+                               energy_error, torch.inf)
+    divergent = energy_error > divergence_threshold
+    log_u = torch.log(torch.clamp_min(uniform,
+                                      torch.finfo(uniform.dtype).tiny))
+    accepted = (log_u < -energy_error) & ~divergent
+    accept_prob = torch.where(
+        divergent, 0.0, torch.exp(torch.clamp_max(-energy_error, 0.0)))
+    sel = accepted[:, None]
+    new_state = HMCState(
+        ensemble=ens.replace(q=torch.where(sel, q1, ens.q),
+                             p=torch.where(sel, p1, p0), mass=mass),
+        potential_energy=torch.where(accepted, u1, state.potential_energy),
+        grad=torch.where(sel, g1, state.grad))
+    info = HMCInfo(accept_prob=accept_prob, accepted=accepted,
+                   energy_error=energy_error, divergent=divergent,
+                   potential_energy=new_state.potential_energy,
+                   step_size=torch.as_tensor(step_size))
+    return new_state, info
+
+
 def build_hmc_kernel(
     potential_fn: Callable[[Tensor], Tensor],
     *,
@@ -126,18 +174,7 @@ def build_hmc_kernel(
     beta = constants.beta(temperature)
 
     def init(q, *, mass: Union[float, Tensor] = 1.0) -> HMCState:
-        q = torch.as_tensor(q)
-        if q.ndim != 2:
-            raise ValueError(
-                f"init positions must be [num_walkers, num_dims]; got shape "
-                f"{tuple(q.shape)}. For a single walker pass q[None, :].")
-        u, g = vg(q)
-        ens = EnsembleState(
-            q=q, p=torch.zeros_like(q),
-            mass=torch.as_tensor(mass, dtype=q.dtype, device=q.device),
-            log_weight=torch.zeros(q.shape[:1], dtype=q.dtype,
-                                   device=q.device))
-        return HMCState(ensemble=ens, potential_energy=u, grad=g)
+        return init_state(vg, q, mass)
 
     def step(key: StepKey, state: HMCState, step_size,
              mass: Optional[Tensor] = None) -> tuple[HMCState, HMCInfo]:
@@ -153,38 +190,156 @@ def build_hmc_kernel(
             vg, q, p0, step_size=step_size, num_steps=num_steps,
             inv_mass=1.0 / mass, grad=state.grad,
             potential_energy=state.potential_energy)
-        p1 = -p1  # momentum flip: the proposal is its own inverse
-
-        h0 = kinetic_energy(p0, mass) + state.potential_energy
-        h1 = kinetic_energy(p1, mass) + u1
-        energy_error = beta * (h1 - h0)
-        energy_error = torch.where(torch.isfinite(energy_error),
-                                   energy_error, torch.inf)
-        divergent = energy_error > divergence_threshold
-
         uniform = torch.rand(q.shape[:1], generator=gen, dtype=q.dtype,
                              device=q.device)
-        log_u = torch.log(torch.clamp_min(uniform, torch.finfo(q.dtype).tiny))
-        accepted = (log_u < -energy_error) & ~divergent
-        accept_prob = torch.where(
-            divergent, 0.0, torch.exp(torch.clamp_max(-energy_error, 0.0)))
-
-        sel = accepted[:, None]
-        new_state = HMCState(
-            ensemble=ens.replace(q=torch.where(sel, q1, q),
-                                 p=torch.where(sel, p1, p0), mass=mass),
-            potential_energy=torch.where(accepted, u1,
-                                         state.potential_energy),
-            grad=torch.where(sel, g1, state.grad))
-        info = HMCInfo(accept_prob=accept_prob, accepted=accepted,
-                       energy_error=energy_error, divergent=divergent,
-                       potential_energy=new_state.potential_energy,
-                       step_size=torch.as_tensor(step_size))
-        return new_state, info
+        # momentum flip: the proposal is its own inverse
+        return metropolis_select(
+            state, p0, mass, (q1, -p1, u1, g1), beta=beta,
+            divergence_threshold=divergence_threshold, uniform=uniform,
+            step_size=step_size)
 
     return HMCKernel(init=init, step=step, num_steps=num_steps,
                      grad_evals_per_step=getattr(
                          integ, "grad_evals_per_step", 1))
+
+
+class FusedTransition:
+    """One fused CUDA transition (kernel A or B) of a potential, with what
+    a launch needs beside the sampler state prepared once: the routing,
+    the potential's parameters and the metric on the state's device, the
+    scalars. Shared by :func:`build_fused_hmc_kernel` (a fixed leapfrog
+    count) and ``chees.build_fused_jittered_step`` (a count on the device,
+    with or without the proposal outputs). On CPU tensors the kernels'
+    plain versions run the same function."""
+
+    def __init__(self, potential_fn, *, temperature: float = 1.0,
+                 constants: Constants = NATURAL,
+                 divergence_threshold: float = 1000.0):
+        self.temperature = temperature
+        self.constants = constants
+        self.divergence_threshold = divergence_threshold
+        self.beta = constants.beta(temperature)
+        self.diag = getattr(potential_fn, "diag_quadratic", None)
+        self.form = getattr(potential_fn, "device_form", None)
+        # Potential parameters and the metric, prepared on the state's
+        # device once (per device and D; the metric again only when its
+        # tensor changes), so a step issues no host-to-device copy.
+        self._prepared: dict = {}
+        self._metric_cache: dict = {}
+        self._beta_scale: dict = {}
+
+    def variant_for(self, num_walkers: int, num_dims: int,
+                    mass_ndim: int = 1) -> str:
+        """What a step runs: ``"diag"`` (kernel A; kernel B's diagonal
+        form where the proposal is asked for) for a potential with
+        ``diag_quadratic``, ``"generic"`` (kernel B) for one with a
+        ``device_form`` the kernel takes at this D
+        (``kernels.generic_unsupported``), else ``"composed"``. A
+        per-walker mass (``mass_ndim > 1``) is also ``"composed"``: the
+        kernels take a [D] metric."""
+        if mass_ndim > 1:
+            return "composed"
+        if self.diag is not None:
+            return "diag"
+        if (self.form is not None and kernels.generic_unsupported(
+                self.form, num_dims) is None):
+            return "generic"
+        return "composed"
+
+    def _params(self, device, d: int):
+        key = (str(device), d)
+        if key not in self._prepared:
+            def vec(v):
+                return torch.broadcast_to(
+                    torch.as_tensor(v, dtype=torch.float32).to(device),
+                    (d,)).contiguous()
+            if self.diag is not None:
+                self._prepared[key] = (vec(self.diag[0]), vec(self.diag[1]))
+            else:
+                name, params = self.form
+                self._prepared[key] = (name, tuple(
+                    p.to(device=device, dtype=torch.float32).contiguous()
+                    for p in params))
+        return self._prepared[key]
+
+    def _scalars(self, step_size, device) -> Tensor:
+        """(step size, beta, potential scale = 1) as a device tensor [3].
+        Writing a Python number into a CUDA tensor is a blocking
+        host-to-device copy, so (beta, 1) is made once per device and a
+        float step size is filled on the device."""
+        key = str(device)
+        if key not in self._beta_scale:
+            self._beta_scale[key] = torch.tensor(
+                [self.beta, 1.0], dtype=torch.float32, device=device)
+        if isinstance(step_size, Tensor):
+            step = step_size.reshape(1).to(device=device, dtype=torch.float32)
+        else:
+            step = torch.full((1,), float(step_size), dtype=torch.float32,
+                              device=device)
+        return torch.cat((step, self._beta_scale[key]))
+
+    def _metric(self, mass: Tensor, d: int):
+        cache = self._metric_cache
+        if cache.get("mass") is not mass:
+            p_std = thermal_momentum_std(mass, self.temperature,
+                                         self.constants)
+            cache.update(
+                mass=mass,
+                p_std=torch.broadcast_to(p_std, (d,)).contiguous(),
+                inv_mass=torch.broadcast_to(1.0 / mass, (d,)).contiguous())
+        return cache["p_std"], cache["inv_mass"]
+
+    def __call__(self, key: StepKey, state: HMCState, step_size,
+                 mass: Optional[Tensor] = None, *, num_steps,
+                 max_steps: Optional[int] = None,
+                 emit_proposal: bool = False):
+        """``(state', info, proposal)``: one transition with ``num_steps``
+        leapfrog steps (an int, or an int32 tensor [1] on the state's
+        device with ``max_steps``); ``proposal`` is ``(q1, -p1)`` with
+        ``emit_proposal``, else None."""
+        ens = state.ensemble
+        if mass is None:
+            mass = ens.mass
+        w, d = ens.q.shape
+        variant = self.variant_for(w, d, mass.ndim)
+        if variant == "composed":
+            raise ValueError(
+                "no fused kernel for this state: the potential has no "
+                f"diag_quadratic and no device_form for D={d}, or the mass "
+                f"is per walker (mass.ndim={mass.ndim})")
+        seed, counter = key
+        q = ens.q.contiguous()
+        p_std, inv_mass = self._metric(mass, d)
+        common = dict(scalars=self._scalars(step_size, q.device),
+                      p_std=p_std, inv_mass=inv_mass, num_steps=num_steps,
+                      max_steps=max_steps,
+                      divergence_threshold=self.divergence_threshold)
+        proposal = None
+        if variant == "diag" and not emit_proposal:
+            k_diag, mean = self._params(q.device, d)
+            q1, g1, u1, accept_prob, accepted, energy_error = \
+                kernels.fused_hmc_diag_quadratic(
+                    seed, counter, q, k_diag=k_diag, mean=mean, **common)
+        else:
+            form = self._params(q.device, d)
+            if variant == "diag":  # kernel A has no proposal outputs
+                form = ("diag", form)
+            out = kernels.fused_hmc_transition(
+                form, seed, counter, q, state.potential_energy.contiguous(),
+                state.grad.contiguous(), emit_proposal=emit_proposal,
+                **common)
+            q1, u1, g1, accept_prob, accepted, energy_error = out[:6]
+            if emit_proposal:
+                proposal = (out[6], out[7])
+        new_state = HMCState(ensemble=ens.replace(q=q1, mass=mass),
+                             potential_energy=u1, grad=g1)
+        info = HMCInfo(
+            accept_prob=accept_prob, accepted=accepted,
+            energy_error=energy_error,
+            divergent=torch.isinf(energy_error)
+            | (energy_error > self.divergence_threshold),
+            potential_energy=u1, step_size=torch.as_tensor(step_size))
+        return new_state, info, proposal
 
 
 def build_fused_hmc_kernel(
@@ -199,122 +354,31 @@ def build_fused_hmc_kernel(
     leapfrog, Metropolis select) is one CUDA launch on CUDA tensors; on CPU
     tensors the kernels' plain versions run the same function.
 
-    ``variant_for`` names what a step runs: ``"diag"`` (kernel A) for a
-    potential with ``diag_quadratic``, ``"generic"`` (kernel B) for one
-    with a ``device_form`` the kernel takes at this D
-    (``kernels.generic_unsupported``), else
-    ``"composed"`` (the :func:`build_hmc_kernel` step). A per-walker mass
-    (``mass.ndim > 1``) is also ``"composed"``: the kernels take a [D]
-    metric.
+    ``variant_for`` (:meth:`FusedTransition.variant_for`) names what a
+    step runs; where it says ``"composed"`` the step is the
+    :func:`build_hmc_kernel` step.
     """
     base = build_hmc_kernel(
         potential_fn, num_steps=num_steps, temperature=temperature,
         constants=constants, divergence_threshold=divergence_threshold)
-    beta = constants.beta(temperature)
-    diag = getattr(potential_fn, "diag_quadratic", None)
-    form = getattr(potential_fn, "device_form", None)
-
-    def variant_for(num_walkers: int, num_dims: int,
-                    mass_ndim: int = 1) -> str:
-        if mass_ndim > 1:
-            return "composed"
-        if diag is not None:
-            return "diag"
-        if (form is not None
-                and kernels.generic_unsupported(form, num_dims) is None):
-            return "generic"
-        return "composed"
-
-    # Potential parameters and the metric, prepared on the state's device
-    # once (per device and D; the metric again only when its tensor
-    # changes), so a step issues no host-to-device copy.
-    prepared: dict = {}
-
-    def _params(device, d: int):
-        key = (str(device), d)
-        if key not in prepared:
-            def vec(v):
-                return torch.broadcast_to(
-                    torch.as_tensor(v, dtype=torch.float32).to(device),
-                    (d,)).contiguous()
-            if diag is not None:
-                prepared[key] = (vec(diag[0]), vec(diag[1]))
-            else:
-                name, params = form
-                prepared[key] = (name, tuple(
-                    p.to(device=device, dtype=torch.float32).contiguous()
-                    for p in params))
-        return prepared[key]
-
-    metric_cache: dict = {}
-    beta_scale: dict = {}
-
-    def _scalars(step_size, device) -> Tensor:
-        """(step size, beta, potential scale = 1) as a device tensor [3].
-        Writing a Python number into a CUDA tensor is a blocking
-        host-to-device copy, so (beta, 1) is made once per device and a
-        float step size is filled on the device."""
-        key = str(device)
-        if key not in beta_scale:
-            beta_scale[key] = torch.tensor([beta, 1.0], dtype=torch.float32,
-                                           device=device)
-        if isinstance(step_size, Tensor):
-            step = step_size.reshape(1).to(device=device, dtype=torch.float32)
-        else:
-            step = torch.full((1,), float(step_size), dtype=torch.float32,
-                              device=device)
-        return torch.cat((step, beta_scale[key]))
-
-    def _metric(mass: Tensor, d: int):
-        if metric_cache.get("mass") is not mass:
-            p_std = thermal_momentum_std(mass, temperature, constants)
-            metric_cache.update(
-                mass=mass,
-                p_std=torch.broadcast_to(p_std, (d,)).contiguous(),
-                inv_mass=torch.broadcast_to(1.0 / mass, (d,)).contiguous())
-        return metric_cache["p_std"], metric_cache["inv_mass"]
+    fused = FusedTransition(
+        potential_fn, temperature=temperature, constants=constants,
+        divergence_threshold=divergence_threshold)
 
     def step(key: StepKey, state: HMCState, step_size,
              mass: Optional[Tensor] = None) -> tuple[HMCState, HMCInfo]:
         ens = state.ensemble
         if mass is None:
             mass = ens.mass
-        w, d = ens.q.shape
-        variant = variant_for(w, d, mass.ndim)
-        if variant == "composed":
+        if fused.variant_for(*ens.q.shape, mass.ndim) == "composed":
             return base.step(key, state, step_size, mass=mass)
-        seed, counter = key
-        q = ens.q.contiguous()
-        device = q.device
-        p_std, inv_mass = _metric(mass, d)
-        common = dict(scalars=_scalars(step_size, device),
-                      p_std=p_std, inv_mass=inv_mass,
-                      num_steps=num_steps,
-                      divergence_threshold=divergence_threshold)
-        if variant == "diag":
-            k_diag, mean = _params(device, d)
-            q1, g1, u1, accept_prob, accepted, energy_error = \
-                kernels.fused_hmc_diag_quadratic(
-                    seed, counter, q, k_diag=k_diag, mean=mean, **common)
-        else:
-            q1, u1, g1, accept_prob, accepted, energy_error = \
-                kernels.fused_hmc_transition(
-                    _params(device, d), seed, counter, q,
-                    state.potential_energy.contiguous(),
-                    state.grad.contiguous(), **common)
-        new_state = HMCState(ensemble=ens.replace(q=q1, mass=mass),
-                             potential_energy=u1, grad=g1)
-        info = HMCInfo(
-            accept_prob=accept_prob, accepted=accepted,
-            energy_error=energy_error,
-            divergent=torch.isinf(energy_error)
-            | (energy_error > divergence_threshold),
-            potential_energy=u1, step_size=torch.as_tensor(step_size))
+        new_state, info, _ = fused(key, state, step_size, mass,
+                                   num_steps=num_steps)
         return new_state, info
 
     return HMCKernel(init=base.init, step=step, num_steps=num_steps,
                      grad_evals_per_step=1, kind="fused",
-                     variant_for=variant_for)
+                     variant_for=fused.variant_for)
 
 
 @dataclasses.dataclass

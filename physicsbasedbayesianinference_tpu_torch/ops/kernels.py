@@ -11,6 +11,13 @@ the kernel for CUDA tensors; any other device, a bad dtype, shape or
 layout, a failed build or a failed launch raises. ``wrapper.launches``
 counts the kernel's launches.
 
+The transition kernels take the leapfrog count ``num_steps`` as an int,
+or as an int32 tensor ``[1]`` on q's device together with ``max_steps``:
+the kernel then reads the count from device memory and clips it to
+``[1, max_steps]``, so a caller that adapts the trajectory length on the
+device (ChEES) never reads it back. The plain versions read the tensor on
+the host.
+
 The transition kernels' plain versions draw the same Philox bits
 (``ops/philox.py``), so for the same seed and transition index they agree
 to float rounding. Their shared arguments: ``seed`` (64-bit run seed) and
@@ -45,9 +52,13 @@ MAX_FORM_FLOATS = 32768
 WALKER_TILES = (1, 2, 4)
 _BLOCK_THREADS = 256
 _FILL_BLOCKS = 128
+# All the shared memory a block may have on an H100 (227 KiB).
+MAX_SHARED_BYTES = 232448
 # device form -> (its id at the C entries, its parameter tensors' names)
-# (csrc/forms.cuh with_form). Kernel D takes every form; kernel B all but
-# "diag", the diagonal quadratic that kernel A runs.
+# (csrc/forms.cuh with_form). Kernels B and D take every form; a potential
+# with ``diag_quadratic`` is routed to kernel A before its form is looked at
+# (hmc.variant_for), so B runs "diag" only where A cannot serve: with the
+# proposal outputs.
 FORM_IDS = {
     "gaussian": (0, ("mean", "precision")),
     "funnel": (1, ("params",)),
@@ -55,8 +66,10 @@ FORM_IDS = {
     "mixture": (3, ("means", "log_weights", "inv_var")),
     "nbody": (4, ("mass", "consts")),
     "diag": (5, ("k_diag", "mean")),
+    "logistic": (6, ("x", "y")),
+    "eight_schools_nc": (7, ("y", "sigma", "consts")),
 }
-GENERIC_FORMS = {k: v for k, v in FORM_IDS.items() if k != "diag"}
+_HALF_LOG_2PI = 0.9189385332046727
 
 
 def _metropolis(seed: int, counter: int, h0: Tensor, h1: Tensor,
@@ -105,6 +118,41 @@ def _outputs(q: Tensor):
             torch.empty(w, dtype=q.dtype, device=q.device))
 
 
+def _counted(num_steps, max_steps: Optional[int]) -> bool:
+    """Whether the leapfrog count comes as a tensor; a tensor goes with
+    ``max_steps``, an int without."""
+    counted = isinstance(num_steps, Tensor)
+    if counted and (max_steps is None or max_steps < 1):
+        raise ValueError("a tensor num_steps needs max_steps >= 1")
+    if not counted and max_steps is not None:
+        raise ValueError("max_steps goes with a tensor num_steps")
+    return counted
+
+
+def _host_steps(num_steps, max_steps: Optional[int]) -> int:
+    """The leapfrog count the plain versions run: an int as it is, a
+    one-element tensor read on the host and clipped to ``[1, max_steps]``
+    as the kernels clip it."""
+    if not _counted(num_steps, max_steps):
+        return int(num_steps)
+    return min(max(int(num_steps.reshape(()).item()), 1), int(max_steps))
+
+
+def _device_steps(num_steps, max_steps: Optional[int], q: Tensor):
+    """``(pointer to the count or None, the int the kernel is given)`` of a
+    launch: ``(None, num_steps)`` for an int, ``(its address, max_steps)``
+    for an int32 tensor ``[1]`` on q's device."""
+    if not _counted(num_steps, max_steps):
+        return None, int(num_steps)
+    if (num_steps.dtype != torch.int32 or num_steps.numel() != 1
+            or num_steps.device != q.device):
+        raise ValueError(
+            f"a tensor num_steps must be one int32 on {q.device}, got "
+            f"{tuple(num_steps.shape)} {num_steps.dtype} on "
+            f"{num_steps.device}")
+    return num_steps.data_ptr(), int(max_steps)
+
+
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         msg = load_library().pbbi_error_string(rc).decode()
@@ -118,8 +166,8 @@ def _raise_on(rc: int, name: str) -> None:
 
 def fused_hmc_diag_quadratic_plain(
     seed: int, counter: int, q: Tensor, *, scalars: Tensor, p_std: Tensor,
-    inv_mass: Tensor, k_diag: Tensor, mean: Tensor, num_steps: int,
-    divergence_threshold: float = 1000.0,
+    inv_mass: Tensor, k_diag: Tensor, mean: Tensor, num_steps,
+    divergence_threshold: float = 1000.0, max_steps: Optional[int] = None,
 ):
     """One HMC transition for ``U = 0.5 sum_d k_d (q_d - mean_d)^2``.
 
@@ -127,6 +175,7 @@ def fused_hmc_diag_quadratic_plain(
     are computed from q (no cached values in), g' is the gradient of the
     selected state.
     """
+    num_steps = _host_steps(num_steps, max_steps)
     dt, beta, s = scalars[0], scalars[1], scalars[2]
     p0 = _momenta(seed, counter, q, p_std)
     qc0 = q - mean
@@ -152,24 +201,28 @@ def fused_hmc_diag_quadratic_plain(
 
 def fused_hmc_diag_quadratic(
     seed: int, counter: int, q: Tensor, *, scalars: Tensor, p_std: Tensor,
-    inv_mass: Tensor, k_diag: Tensor, mean: Tensor, num_steps: int,
-    divergence_threshold: float = 1000.0,
+    inv_mass: Tensor, k_diag: Tensor, mean: Tensor, num_steps,
+    divergence_threshold: float = 1000.0, max_steps: Optional[int] = None,
 ):
     """Kernel A. Replaces ``make_fused_hmc_diag_quadratic``
-    (physicsbasedbayesianinference_tpu/ops/pallas_kernels.py:893); see
-    :func:`fused_hmc_diag_quadratic_plain` for the contract. Any D; up to
-    D = 128 each walker's q' and g' are stored once, in 16-byte accesses
-    when D % 4 == 0 and the tensors' storage is 16-byte aligned."""
+    (physicsbasedbayesianinference_tpu/ops/pallas_kernels.py:893), its
+    ``dynamic_steps`` variant with a tensor ``num_steps`` (module
+    docstring); see :func:`fused_hmc_diag_quadratic_plain` for the
+    contract. Any D; up to D = 128 each walker's q' and g' are stored once,
+    in 16-byte accesses when D % 4 == 0 and the tensors' storage is 16-byte
+    aligned."""
     if q.device.type == "cpu":
         return fused_hmc_diag_quadratic_plain(
             seed, counter, q, scalars=scalars, p_std=p_std,
             inv_mass=inv_mass, k_diag=k_diag, mean=mean,
-            num_steps=num_steps, divergence_threshold=divergence_threshold)
+            num_steps=num_steps, divergence_threshold=divergence_threshold,
+            max_steps=max_steps)
     d = q.shape[-1]
     _check(q, {"q": q, "scalars": scalars, "p_std": p_std,
                "inv_mass": inv_mass, "k_diag": k_diag, "mean": mean},
            {"q": tuple(q.shape), "scalars": (3,), "p_std": (d,),
             "inv_mass": (d,), "k_diag": (d,), "mean": (d,)})
+    steps_ptr, steps = _device_steps(num_steps, max_steps, q)
     outs = _outputs(q)
     q_out, g_out, u_out, acc, taken, derr = outs
     with torch.cuda.device(q.device):
@@ -177,7 +230,7 @@ def fused_hmc_diag_quadratic(
         rc = load_library().pbbi_fused_hmc_diag_quadratic(
             *map(Tensor.data_ptr,
                  (q, k_diag, mean, inv_mass, p_std, scalars, *outs)),
-            q.shape[0], d, num_steps, divergence_threshold,
+            steps_ptr, q.shape[0], d, steps, divergence_threshold,
             seed & 0xFFFFFFFFFFFFFFFF, counter & 0xFFFFFFFF, stream)
     _raise_on(rc, "fused_hmc_diag_quadratic")
     fused_hmc_diag_quadratic.launches += 1
@@ -205,18 +258,35 @@ def _param_shapes(device_form, d: int):
     if name == "mixture":
         k = params[0].shape[0]
         return {"means": (k, d), "log_weights": (k,), "inv_var": (1,)}, k
+    if name == "logistic":
+        n = params[1].shape[0]
+        return {"x": (n, d - 1), "y": (n,)}, n
+    if name == "eight_schools_nc":
+        j = params[0].shape[0]
+        return {"y": (j,), "sigma": (j,), "consts": (1,)}, j
     n = params[0].shape[0]
     return {"mass": (n,), "consts": (2,)}, n
 
 
-def _unsupported(device_form, num_dims: int, forms: dict,
-                 kernel: str) -> Optional[str]:
+def logistic_shared_bytes(num_rows: int, num_dims: int) -> int:
+    """Dynamic shared memory of a block of kernels B and D with the
+    logistic form (csrc/forms.cuh LogisticForm): x with its column of ones,
+    padded to a multiple of T rows of 4 T + 4 floats, y, and a buffer row
+    of 4 T + 4 floats for each of the block's walkers."""
+    t = threads_per_walker(num_dims)
+    rows = -(-num_rows // t) * t
+    form = -(-rows * (4 * t + 5) // 4) * 4
+    return 4 * (form + _BLOCK_THREADS // t * (4 * t + 4))
+
+
+def _unsupported(device_form, num_dims: int, kernel: str) -> Optional[str]:
     name, params = device_form
-    if name not in forms:
-        return f"unknown device form {name!r}; want one of {tuple(forms)}"
-    if len(params) != len(forms[name][1]):
+    if name not in FORM_IDS:
+        return (f"unknown device form {name!r}; want one of "
+                f"{tuple(FORM_IDS)}")
+    if len(params) != len(FORM_IDS[name][1]):
         return (f"device form {name!r} takes parameters "
-                f"{forms[name][1]}, got {len(params)}")
+                f"{FORM_IDS[name][1]}, got {len(params)}")
     if not 1 <= num_dims <= MAX_GENERIC_DIMS:
         return (f"the {kernel} takes D <= {MAX_GENERIC_DIMS}, "
                 f"got D={num_dims}")
@@ -225,25 +295,33 @@ def _unsupported(device_form, num_dims: int, forms: dict,
     if name == "nbody" and num_dims % params[0].shape[0]:
         return (f"D={num_dims} is not a multiple of the "
                 f"{params[0].shape[0]} bodies")
+    if name == "eight_schools_nc" and num_dims != params[0].shape[0] + 2:
+        return (f"the eight_schools_nc form of {params[0].shape[0]} groups "
+                f"takes D={params[0].shape[0] + 2}, got D={num_dims}")
     shapes, _ = _param_shapes(device_form, num_dims)
     floats = sum(math.prod(shape) for shape in shapes.values())
     if floats > MAX_FORM_FLOATS:
         return (f"the {name} form's {floats} parameter floats exceed "
                 f"{MAX_FORM_FLOATS} in shared memory")
+    if name == "logistic":
+        need = logistic_shared_bytes(params[1].shape[0], num_dims)
+        if need > MAX_SHARED_BYTES:
+            return (f"the logistic form at N={params[1].shape[0]}, "
+                    f"D={num_dims} needs {need} bytes of shared memory a "
+                    f"block, over {MAX_SHARED_BYTES}")
     return None
 
 
 def generic_unsupported(device_form, num_dims: int) -> Optional[str]:
     """Why kernel B cannot run ``device_form`` at ``num_dims``, or None
     when it can (the routing test of ``hmc.variant_for``)."""
-    return _unsupported(device_form, num_dims, GENERIC_FORMS,
-                        "generic fused kernel")
+    return _unsupported(device_form, num_dims, "generic fused kernel")
 
 
 def leapfrog_unsupported(device_form, num_dims: int) -> Optional[str]:
     """Why kernel D cannot run ``device_form`` at ``num_dims``, or None
     when it can."""
-    return _unsupported(device_form, num_dims, FORM_IDS, "leapfrog kernel")
+    return _unsupported(device_form, num_dims, "leapfrog kernel")
 
 
 def threads_per_walker(num_dims: int) -> int:
@@ -387,9 +465,98 @@ def _nbody_vg(mass, consts):
     return vg
 
 
+def _segment_sum(lanes: Tensor) -> Tensor:
+    """The kernels' sum over a walker's T lanes, ``lanes`` ``[W, T]`` (T a
+    power of two): an xor butterfly, offsets T/2 .. 1."""
+    idx = torch.arange(lanes.shape[1], device=lanes.device)
+    off = lanes.shape[1] >> 1
+    while off:
+        lanes = lanes + lanes[:, idx ^ off]
+        off >>= 1
+    return lanes[:, 0]
+
+
+def _lane_partials(terms: Tensor, t: int) -> Tensor:
+    """``terms`` ``[W, K]`` summed as T lanes sum them, lane l taking terms
+    l, l + T, ... in turn: ``[W, T]``."""
+    w, k = terms.shape
+    padded = -(-k // t) * t
+    if padded > k:
+        terms = torch.cat([terms, terms.new_zeros(w, padded - k)], 1)
+    terms = terms.reshape(w, padded // t, t)
+    partial = terms.new_zeros(w, t)
+    for c in range(terms.shape[1]):
+        partial = partial + terms[:, c]
+    return partial
+
+
+def _logistic_vg(x, y):
+    """Bayesian logistic regression over ``x`` ``[N, D - 1]``, ``y``
+    ``[N]``, q = (w, b): z = x w + b summed over the dims in index order,
+    the gradient's sum over the rows in index order, the value's as the
+    walker's T lanes take the rows (csrc/forms.cuh LogisticForm)."""
+    n = y.shape[0]
+
+    def vg(q):
+        w, d = q.shape
+        t = threads_per_walker(d)
+        xa = torch.cat([x, x.new_ones(n, 1)], dim=1)  # b's column of ones
+        z = q.new_zeros(w, n)
+        for k in range(d):
+            z = z + xa[:, k] * q[:, k:k + 1]
+        r = 1.0 / (1.0 + torch.exp(-z)) - y
+        acc = torch.zeros_like(q)
+        for i in range(n):
+            acc = acc + r[:, i:i + 1] * xa[i]
+        lik = (torch.clamp_min(z, 0.0)
+               + torch.log1p(torch.exp(-torch.abs(z)))) - y * z
+        q4 = torch.cat([q, q.new_zeros(w, 4 * t - d)], 1).reshape(w, t, 4)
+        quad = q.new_zeros(w, t)
+        for e in range(4):
+            quad = quad + q4[:, :, e] * q4[:, :, e]
+        # filled on q's device: no host-to-device copy
+        const = torch.full((), _HALF_LOG_2PI, dtype=q.dtype,
+                           device=q.device) * float(d)
+        u = (0.5 * _segment_sum(quad)
+             + _segment_sum(_lane_partials(lik, t))) + const
+        return u, q + acc
+    return vg
+
+
+def _eight_schools_vg(y, sigma, consts):
+    """Non-centred eight schools, q = (mu, log tau, theta [J]), its J terms
+    in index order (csrc/forms.cuh EightSchoolsForm)."""
+    j = y.shape[0]
+
+    def vg(q):
+        mu, lt, th = q[:, 0], q[:, 1], q[:, 2:]
+        tau = torch.exp(lt)
+        s1, s2, st, sz = (torch.zeros_like(mu) for _ in range(4))
+        es = []
+        for i in range(j):
+            z = (y[i] - (mu + tau * th[:, i])) / sigma[i]
+            e = z / sigma[i]
+            s1 = s1 + e
+            s2 = s2 + e * th[:, i]
+            st = st + th[:, i] * th[:, i]
+            sz = sz + z * z
+            es.append(e)
+        t = tau / 5.0
+        g = torch.cat([
+            (mu / 25.0 - s1)[:, None],
+            (((2.0 * (t * t)) / (1.0 + t * t) - 1.0) - tau * s2)[:, None],
+            th - tau[:, None] * torch.stack(es, dim=1)], dim=1)
+        u = (((((mu * mu) / 50.0 + torch.log1p(t * t)) - lt) + 0.5 * st)
+             + 0.5 * sz + consts[0])
+        return u, g
+    return vg
+
+
 _PLAIN_FORMS = {"gaussian": _gaussian_vg, "funnel": _funnel_vg,
                 "banana": _banana_vg, "mixture": _mixture_vg,
-                "nbody": _nbody_vg, "diag": _diag_vg}
+                "nbody": _nbody_vg, "diag": _diag_vg,
+                "logistic": _logistic_vg,
+                "eight_schools_nc": _eight_schools_vg}
 
 
 def device_value_and_grad(device_form):
@@ -405,12 +572,16 @@ def device_value_and_grad(device_form):
 
 def fused_hmc_transition_plain(
     device_form, seed: int, counter: int, q: Tensor, u: Tensor, g: Tensor,
-    *, scalars: Tensor, p_std: Tensor, inv_mass: Tensor, num_steps: int,
-    divergence_threshold: float = 1000.0,
+    *, scalars: Tensor, p_std: Tensor, inv_mass: Tensor, num_steps,
+    divergence_threshold: float = 1000.0, max_steps: Optional[int] = None,
+    emit_proposal: bool = False,
 ):
     """One HMC transition for the potential named by ``device_form``, from
     cached unscaled ``(u, g)``. Returns ``(q', u', g', accept_prob,
-    accepted, energy_error)``."""
+    accepted, energy_error)`` and, with ``emit_proposal``, the trajectory's
+    endpoint with its momentum flipped, ``(q1, -p1)``, for every walker
+    whatever its decision."""
+    num_steps = _host_steps(num_steps, max_steps)
     vg = device_value_and_grad(device_form)
     dt, beta, s = scalars[0], scalars[1], scalars[2]
     p0 = _momenta(seed, counter, q, p_std)
@@ -428,29 +599,34 @@ def fused_hmc_transition_plain(
     derr, accepted, accept_prob = _metropolis(
         seed, counter, h0, h1, beta, divergence_threshold)
     sel = accepted[:, None]
-    return (torch.where(sel, q1, q), torch.where(accepted, u1, u),
-            torch.where(sel, g1, g), accept_prob, accepted, derr)
+    out = (torch.where(sel, q1, q), torch.where(accepted, u1, u),
+           torch.where(sel, g1, g), accept_prob, accepted, derr)
+    return out + (q1, -p) if emit_proposal else out
 
 
 def fused_hmc_transition(
     device_form, seed: int, counter: int, q: Tensor, u: Tensor, g: Tensor,
-    *, scalars: Tensor, p_std: Tensor, inv_mass: Tensor, num_steps: int,
+    *, scalars: Tensor, p_std: Tensor, inv_mass: Tensor, num_steps,
     divergence_threshold: float = 1000.0, tile: Optional[int] = None,
+    max_steps: Optional[int] = None, emit_proposal: bool = False,
 ):
     """Kernel B. Replaces ``make_fused_hmc_transition``
     (physicsbasedbayesianinference_tpu/ops/pallas_kernels.py:373) and, as
     one layout serves every D here, its walker-packed variant
-    ``make_fused_hmc_packed`` (:576); see :func:`fused_hmc_transition_plain`
-    and :func:`generic_unsupported` for what it takes. ``tile`` forces the
-    Gaussian form's walker tile (:func:`walker_tile` of the shape unless
-    given); the result does not depend on it."""
+    ``make_fused_hmc_packed`` (:576), with their ``dynamic_steps`` (a
+    tensor ``num_steps``, module docstring) and ``emit_proposal``; see
+    :func:`fused_hmc_transition_plain` and :func:`generic_unsupported` for
+    what it takes. ``tile`` forces the Gaussian form's walker tile
+    (:func:`walker_tile` of the shape unless given); the result does not
+    depend on it."""
     if q.device.type == "cpu":
         if tile is not None:
             _tile_for(device_form, *q.shape, tile)
         return fused_hmc_transition_plain(
             device_form, seed, counter, q, u, g, scalars=scalars,
             p_std=p_std, inv_mass=inv_mass, num_steps=num_steps,
-            divergence_threshold=divergence_threshold)
+            divergence_threshold=divergence_threshold, max_steps=max_steps,
+            emit_proposal=emit_proposal)
     name, params = device_form
     w, d = q.shape if q.ndim == 2 else (0, 0)
     why = generic_unsupported(device_form, d)
@@ -464,9 +640,13 @@ def fused_hmc_transition(
            {"q": (w, d), "u": (w,), "g": (w, d), **shapes, "scalars": (3,),
             "p_std": (d,), "inv_mass": (d,)})
     tile = _tile_for(device_form, w, d, tile)
+    steps_ptr, steps = _device_steps(num_steps, max_steps, q)
     param_ptrs = [t.data_ptr() for t in params]
     param_ptrs += [None] * (3 - len(param_ptrs))
     q_out, g_out, u_out, acc, taken, derr = _outputs(q)
+    proposal = ((torch.empty_like(q), torch.empty_like(q)) if emit_proposal
+                else ())
+    prop_ptrs = [t.data_ptr() for t in proposal] or [None, None]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = load_library().pbbi_fused_hmc_transition(
@@ -474,14 +654,28 @@ def fused_hmc_transition(
             *map(Tensor.data_ptr,
                  (q, u, g, inv_mass, p_std, scalars,
                   q_out, u_out, g_out, acc, taken, derr)),
-            w, d, num_steps, tile, divergence_threshold,
+            *prop_ptrs, steps_ptr, w, d, steps, tile, divergence_threshold,
             seed & 0xFFFFFFFFFFFFFFFF, counter & 0xFFFFFFFF, stream)
     _raise_on(rc, f"fused_hmc_transition[{name}]")
     fused_hmc_transition.launches += 1
-    return q_out, u_out, g_out, acc, taken.view(torch.bool), derr
+    fused_hmc_transition.launches_by[
+        _variant_name(steps_ptr is not None, emit_proposal)] += 1
+    return (q_out, u_out, g_out, acc, taken.view(torch.bool), derr,
+            *proposal)
 
 
+def _variant_name(counted: bool, proposal: bool) -> str:
+    return (("counted" if counted else "fixed")
+            + ("+proposal" if proposal else ""))
+
+
+B_VARIANTS = tuple(_variant_name(c, p) for c in (False, True)
+                   for p in (False, True))
 fused_hmc_transition.launches = 0  # type: ignore[attr-defined]
+# the same launches by the kernel's variant: the count fixed or read from
+# device memory, with or without the proposal outputs
+fused_hmc_transition.launches_by = dict.fromkeys(  # type: ignore
+    B_VARIANTS, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -787,6 +981,7 @@ KERNELS = (fused_hmc_diag_quadratic, fused_hmc_transition,
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    fused_hmc_transition.launches_by = dict.fromkeys(B_VARIANTS, 0)
 
 
 def launch_counts() -> dict:

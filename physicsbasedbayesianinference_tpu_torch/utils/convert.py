@@ -1,6 +1,6 @@
-"""Carry sampler state, N-body systems and potential parameters between the
-JAX package and the port as numpy arrays (neither side imports the
-other).
+"""Carry sampler state, adaptation state, N-body systems, potential
+parameters and model data between the JAX package and the port as numpy
+arrays (neither side imports the other).
 
 The numpy form of an HMC state is a dict with keys ``q``, ``p``, ``mass``,
 ``log_weight``, ``potential_energy`` and ``grad``: for a JAX state,
@@ -14,13 +14,16 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from ..chees import ChEESAdaptState
 from ..device import resolve_device
 from ..ensemble import EnsembleState
 from ..hmc import HMCState
+from ..models.potential import data_to_device
 from ..ops import potentials
 from ..physics.nbody import NBodySystem
 
 STATE_KEYS = ("q", "p", "mass", "log_weight", "potential_energy", "grad")
+CHEES_KEYS = ("log_tau", "m", "v", "count")
 NBODY_KEYS = ("x", "v", "mass", "time")
 
 
@@ -94,3 +97,32 @@ def potential_params_from_numpy(kind: str, params: Mapping,
             softening=float(params.get("softening", 0.0)), device=device)
     raise ValueError(f"unknown potential kind {kind!r} "
                      f"(want gaussian|funnel|banana|mixture|nbody)")
+
+
+def chees_adapt_from_numpy(state: Mapping[str, np.ndarray],
+                           device=None) -> ChEESAdaptState:
+    """The port's ``ChEESAdaptState`` from a JAX one given as numpy values
+    (``{"log_tau": np.asarray(st.log_tau), "m": ..., "v": ..., "count":
+    ...}``), copied exactly onto ``device`` (the default device unless
+    given)."""
+    missing = [k for k in CHEES_KEYS if k not in state]
+    if missing:
+        raise KeyError(f"ChEES state dict lacks {missing}")
+    device = resolve_device(device)
+    return ChEESAdaptState(**{
+        k: torch.as_tensor(np.array(state[k])).to(device)
+        for k in CHEES_KEYS})
+
+
+def chees_adapt_to_numpy(state: ChEESAdaptState) -> dict:
+    """The numpy form of a ``ChEESAdaptState`` (host copies)."""
+    return {k: getattr(state, k).detach().cpu().numpy() for k in CHEES_KEYS}
+
+
+def model_data_from_numpy(args, device=None) -> tuple:
+    """A model's positional arguments for the port: numpy arrays become
+    tensors on ``device`` (the default device unless given; floats as
+    float32), anything else (a Python int such as a plate size) stays as
+    it is."""
+    device = resolve_device(device)
+    return tuple(data_to_device(a, device) for a in args)

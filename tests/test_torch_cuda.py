@@ -587,3 +587,251 @@ def test_physics_simulate_runs_kernel_e(dev):
         softening=0.05)
     torch.testing.assert_close(traj.x.cpu(), cpu.x, rtol=1e-10, atol=1e-12)
     assert float(physics.energy_drift(traj).max()) < 1e-6
+
+
+# ---------------------------------------------------------------------------
+# The device step count, the proposal outputs, the model forms, ChEES
+# ---------------------------------------------------------------------------
+
+
+def _count(n, dev):
+    return torch.tensor([n], dtype=torch.int32, device=dev)
+
+
+def _logistic_form(n, d, dev):
+    from physicsbasedbayesianinference_tpu_torch import models
+    x, y = models.logistic_regression_data(n, d - 1, seeds=(n, d, 9))
+    return ("logistic", (_t(x, dev), _t(y, dev)))
+
+
+def _schools_form(j, dev):
+    rng = np.random.default_rng(j)
+    return ("eight_schools_nc", (_t(10.0 * rng.normal(size=j), dev),
+                                 _t(rng.uniform(5.0, 20.0, j), dev),
+                                 _t([3.0 * j], dev)))
+
+
+def _b_case(form, w, d, dev, spread=0.5, step=0.1):
+    rng = np.random.default_rng(w + 7 * d)
+    q = _t(spread * rng.normal(size=(w, d)), dev)
+    u, g = kernels.device_value_and_grad(form)(q)
+    im = _t(rng.uniform(0.5, 2.0, d), dev)
+    return q, u, g, dict(scalars=_t([step, 1.0, 1.0], dev),
+                         p_std=torch.sqrt(1 / im), inv_mass=im)
+
+
+@pytest.mark.parametrize("n", [1, 7, 16, 40])
+@pytest.mark.parametrize("case", ["gaussian tile 4", "gaussian D=33",
+                                  "funnel", "diag", "logistic", "schools"])
+def test_counted_kernel_b_with_proposal_matches_plain(dev, case, n):
+    """Kernel B with the count read on the device (1, 7, max_steps and one
+    above it, which clips) and the proposal outputs, against its plain
+    version; the first six outputs are the fixed-count kernel's bits, and a
+    second launch gives the same bits."""
+    w, d = 777, 32
+    if case == "gaussian tile 4":
+        form, tile = _forms(d, dev)[0], 4
+    elif case == "gaussian D=33":
+        w, d = 203, 33
+        form, tile = _forms(d, dev)[0], 2
+    elif case == "funnel":
+        w, d = 301, 10
+        form, tile = pot.make_funnel(d, device=dev).device_form, None
+    elif case == "diag":
+        w, d = 130, 7
+        form, tile = ("diag", (_t(np.linspace(0.5, 2, d), dev),
+                               _t(np.zeros(d), dev))), None
+    elif case == "logistic":
+        w, d = 95, 12
+        form, tile = _logistic_form(40, d, dev), None
+    else:
+        w, d = 1001, 10
+        form, tile = _schools_form(8, dev), None
+    q, u, g, kw = _b_case(form, w, d, dev)
+    max_steps = 16
+    extra = dict(num_steps=_count(n, dev), max_steps=max_steps,
+                 emit_proposal=True)
+    out = kernels.fused_hmc_transition(form, 7, 3, q, u, g, tile=tile, **kw,
+                                       **extra)
+    again = kernels.fused_hmc_transition(form, 7, 3, q, u, g, tile=tile,
+                                         **kw, **extra)
+    fixed = kernels.fused_hmc_transition(form, 7, 3, q, u, g, tile=tile,
+                                         num_steps=min(n, max_steps), **kw)
+    plain = kernels.fused_hmc_transition_plain(form, 7, 3, q, u, g, **kw,
+                                               **extra)
+    torch.cuda.synchronize()
+    assert len(out) == 8 and len(fixed) == 6
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    for a, b in zip(out, fixed):
+        assert torch.equal(a, b)
+    _assert_match(dict(zip(B_ORDER, out)), dict(zip(B_ORDER, plain)), 7, 3)
+    torch.testing.assert_close(out[6], plain[6], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out[7], plain[7], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [3, 32, 33, 200])
+def test_counted_kernel_a_gives_the_fixed_counts_bits(dev, d):
+    q, kw = _diag_case(77, d, dev)
+    kw.pop("num_steps", None)
+    for n, want in ((1, 1), (7, 7), (16, 16), (99, 16), (0, 1)):
+        a = kernels.fused_hmc_diag_quadratic(
+            3, 5, q, num_steps=_count(n, dev), max_steps=16, **kw)
+        b = kernels.fused_hmc_diag_quadratic(3, 5, q, num_steps=want, **kw)
+        p = kernels.fused_hmc_diag_quadratic_plain(
+            3, 5, q, num_steps=_count(n, dev), max_steps=16, **kw)
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+        _assert_match(dict(zip(A_ORDER, a)), dict(zip(A_ORDER, p)), 3, 5)
+    with pytest.raises(ValueError, match="one int32"):
+        kernels.fused_hmc_diag_quadratic(
+            3, 5, q, num_steps=torch.tensor([4]), max_steps=16, **kw)
+
+
+@pytest.mark.parametrize("n", [1, 7, 256])
+@pytest.mark.parametrize("d", list(range(1, 34)))
+def test_logistic_form_matches_plain(dev, d, n):
+    """Kernels B and D with the logistic form, at every D up to 33 (P = 0
+    to 32 features; 1 to 16 lanes a walker, on and off the 16-byte path)
+    and N = 1, 7, 256 rows, W no multiple of the block."""
+    form = _logistic_form(n, d, dev)
+    w = 75
+    q, u, g, kw = _b_case(form, w, d, dev, spread=0.3, step=0.03)
+    out_k = dict(zip(B_ORDER, kernels.fused_hmc_transition(
+        form, 7, 3, q, u, g, num_steps=6, **kw)))
+    out_p = dict(zip(B_ORDER, kernels.fused_hmc_transition_plain(
+        form, 7, 3, q, u, g, num_steps=6, **kw)))
+    torch.cuda.synchronize()
+    _assert_match(out_k, out_p, 7, 3)
+    p = _t(np.random.default_rng(d).normal(size=(w, d)), dev)
+    lk = dict(step_size=_t([0.03], dev), num_steps=5,
+              inv_mass=kw["inv_mass"])
+    for a, b in zip(kernels.leapfrog_trajectory(form, q, p, **lk),
+                    kernels.leapfrog_trajectory_plain(form, q, p, **lk)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("w,j", [(1, 1), (37, 3), (1001, 8), (64, 30)])
+def test_eight_schools_form_matches_plain(dev, w, j):
+    form = _schools_form(j, dev)
+    d = j + 2
+    q, u, g, kw = _b_case(form, w, d, dev)
+    out_k = dict(zip(B_ORDER, kernels.fused_hmc_transition(
+        form, 7, 3, q, u, g, num_steps=8, **kw)))
+    out_p = dict(zip(B_ORDER, kernels.fused_hmc_transition_plain(
+        form, 7, 3, q, u, g, num_steps=8, **kw)))
+    torch.cuda.synchronize()
+    _assert_match(out_k, out_p, 7, 3)
+    with pytest.raises(ValueError, match="takes D="):
+        kernels.fused_hmc_transition(form, 7, 3, torch.zeros(4, d + 1,
+                                                             device=dev),
+                                     u[:4], torch.zeros(4, d + 1, device=dev),
+                                     num_steps=2, **kw)
+
+
+def _models_on(dev):
+    from physicsbasedbayesianinference_tpu_torch import models
+    x, y = models.logistic_regression_data(64, 7)
+    return {
+        "logistic": models.make_model_potential(
+            models.logistic_regression, (x, y), {}, device=dev),
+        "schools": models.make_model_potential(
+            models.eight_schools_noncentered, (), models.EIGHT_SCHOOLS_DATA,
+            device=dev)}
+
+
+@pytest.mark.parametrize("name", ["logistic", "schools"])
+def test_run_chees_on_a_model_runs_both_phases_in_kernel_b(dev, name):
+    mp = _models_on(dev)[name]
+    assert mp.potential.device_form[1][0].device.type == "cuda"
+    q0 = 0.3 * torch.randn(4096, mp.num_dims, device=dev,
+                           generator=torch.Generator(dev).manual_seed(0))
+    kw = dict(num_warmup=100, num_samples=60, max_steps=64,
+              init_step_size=0.1, collect="moments")
+    kernels.reset_launch_counts()
+    res = pt.run_chees_hmc(4, mp.potential, q0, **kw)
+    assert (res.kernel_used, res.warmup_kernel_used) == ("fused", "fused")
+    assert kernels.launch_counts() == {
+        "fused_hmc_diag_quadratic": 0, "fused_hmc_transition": 160,
+        "leapfrog_trajectory": 0, "nbody_accelerations_tiled": 0}
+    assert kernels.fused_hmc_transition.launches_by == {
+        "fixed": 0, "fixed+proposal": 0, "counted": 60,
+        "counted+proposal": 100}
+    assert 0.6 < float(res.accept_rate) < 0.99
+    assert float(res.divergence_rate) < 0.01
+    # the composed engine samples the same posterior (autograd through the
+    # DSL, its own random stream): 4096 walkers x 60 draws each
+    ref = pt.run_chees_hmc(4, mp.potential, q0, kernel="composed", **kw)
+    assert ref.kernel_used == "composed"
+    sd = torch.sqrt(ref.var)
+    assert float(((res.mean - ref.mean) / sd).abs().max()) < 0.1
+    assert float((res.var / ref.var - 1).abs().max()) < 0.15
+
+
+def test_chees_routes_on_cuda(dev):
+    """auto keeps a diag-quadratic target's warmup composed and samples it
+    in kernel A; fused forces warmup through kernel B's diagonal form; a
+    model without a form runs composed, one host read a transition."""
+    from physicsbasedbayesianinference_tpu_torch import chees, models
+    q0 = torch.randn(2048, 6, device=dev)
+    kw = dict(num_warmup=40, num_samples=30, max_steps=32, collect="moments")
+    kernels.reset_launch_counts()
+    res = pt.run_chees_hmc(1, pot.make_standard_normal(6), q0, **kw)
+    assert (res.kernel_used, res.warmup_kernel_used) == ("fused", "composed")
+    assert kernels.launch_counts()["fused_hmc_diag_quadratic"] == 30
+    assert kernels.launch_counts()["fused_hmc_transition"] == 0
+    kernels.reset_launch_counts()
+    res = pt.run_chees_hmc(1, pot.make_standard_normal(6), q0,
+                           kernel="fused", **kw)
+    assert (res.kernel_used, res.warmup_kernel_used) == ("fused", "fused")
+    assert kernels.launch_counts()["fused_hmc_diag_quadratic"] == 30
+    assert kernels.fused_hmc_transition.launches_by[
+        "counted+proposal"] == 40
+    assert float((res.var - 1).abs().max()) < 0.1
+    mp = models.make_model_potential(models.funnel, (), {"dim": 3},
+                                     reparam="auto", device=dev)
+    kernels.reset_launch_counts()
+    before = chees._host_count.reads
+    res = pt.run_chees_hmc(1, mp.potential, mp.init(0, 512), **kw)
+    assert (res.kernel_used, res.warmup_kernel_used) == ("composed",
+                                                         "composed")
+    assert chees._host_count.reads - before == 70
+    assert sum(kernels.launch_counts().values()) == 0
+    with pytest.raises(ValueError, match="cannot run"):
+        pt.run_chees_hmc(1, mp.potential, mp.init(0, 64), kernel="fused",
+                         **kw)
+
+
+@pytest.mark.parametrize("name", ["logistic", "schools", "diag fused"])
+def test_fused_chees_loops_never_synchronise(dev, name):
+    """run_chees_hmc with the fused engine in both phases: the blocking
+    calls of a whole run (its set-up copies, the synchronisations around
+    its two timed phases) do not grow with the number of transitions, so
+    neither loop reads anything back."""
+    from torch.profiler import ProfilerActivity, profile
+    if name == "diag fused":
+        fn, d, kernel = pot.make_standard_normal(8), 8, "fused"
+    else:
+        mp = _models_on(dev)[name]
+        fn, d, kernel = mp.potential, mp.num_dims, "auto"
+    q0 = 0.3 * torch.randn(512, d, device=dev)
+    kw = dict(max_steps=16, init_step_size=0.1, collect="moments",
+              kernel=kernel)
+    pt.run_chees_hmc(2, fn, q0, num_warmup=3, num_samples=3, **kw)  # builds
+
+    def blocking(num_warmup, num_samples):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            res = pt.run_chees_hmc(2, fn, q0, num_warmup=num_warmup,
+                                   num_samples=num_samples, **kw)
+        assert (res.kernel_used, res.warmup_kernel_used) == ("fused",
+                                                             "fused")
+        calls = {e.key: e.count for e in prof.key_averages()}
+        assert calls.get("cudaLaunchKernel", 0) > num_warmup + num_samples
+        return {k: calls.get(k, 0) for k in (
+            "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy",
+            "cudaMemcpyAsync")}
+
+    # 8 and 19 warmup transitions are one segment each
+    assert blocking(8, 5) == blocking(19, 25)

@@ -1,5 +1,6 @@
 """The port imports and runs without JAX (HMC with both integrator routes,
-the physics package, the native parser and every kernel wrapper), and
+the model DSL and ChEES-HMC on a model, the physics package, the native
+parser and every kernel wrapper), and
 ``chip_smoke.py`` refuses to run (printing no result) where there is no CUDA
 device."""
 
@@ -40,6 +41,17 @@ def test_port_imports_and_samples_without_jax():
         "               torch.zeros(64, 2), num_warmup=5, num_samples=5,\n"
         "               num_steps=2, integrator='pallas_leapfrog')\n"
         "assert r.samples.shape == (5, 64, 2)\n"
+        "from physicsbasedbayesianinference_tpu_torch import chees, models\n"
+        "from physicsbasedbayesianinference_tpu_torch.models import (core,\n"
+        "    device_forms, distributions, examples, potential, transforms)\n"
+        "mp = models.make_model_potential(\n"
+        "    models.eight_schools_noncentered, (),\n"
+        "    models.EIGHT_SCHOOLS_DATA, device='cpu')\n"
+        "assert mp.potential.device_form[0] == 'eight_schools_nc'\n"
+        "c = pt.run_chees_hmc(0, mp.potential, mp.init(0, 32),\n"
+        "                     num_warmup=5, num_samples=5, max_steps=8)\n"
+        "assert c.samples.shape == (5, 32, 10)\n"
+        "assert 'numpyro' not in sys.modules\n"
         "s, tmax, dt = physics.load_nbody_text('examples/nbody/pl3.txt')\n"
         "tr = physics.simulate(s, dt, 4, save_every=2)\n"
         "assert tr.num_valid == 2 and tr.x.shape == (2, 3, 3)\n"

@@ -298,3 +298,135 @@ def test_run_hmc_pallas_leapfrog_end_to_end():
     np.testing.assert_allclose(res.var.numpy(), 1.0, atol=0.15)
     assert float(res.accept_rate) > 0.6
     assert res.num_grad_evals == 200 * 256 * 9
+
+
+# ---------------------------------------------------------------------------
+# The leapfrog count on the device and the proposal outputs
+# ---------------------------------------------------------------------------
+
+
+def _count(n):
+    return torch.tensor([n], dtype=torch.int32)
+
+
+@pytest.mark.parametrize("kernel", ["A", "B"])
+def test_tensor_count_is_the_int_count_bit_for_bit_and_clips(kernel):
+    """A tensor num_steps gives the bits of the int it holds, and is
+    clipped to [1, max_steps] at both ends; an int takes no max_steps."""
+    rng = np.random.default_rng(6)
+    q = torch.as_tensor(rng.normal(size=(50, 6)).astype(np.float32))
+    kw = dict(scalars=torch.tensor([0.2, 1.0, 1.0]), p_std=torch.ones(6),
+              inv_mass=torch.full((6,), 1.3))
+    if kernel == "A":
+        kw.update(k_diag=torch.linspace(0.5, 2.0, 6), mean=torch.zeros(6))
+
+        def run(**steps):
+            return tk.fused_hmc_diag_quadratic(4, 2, q, **kw, **steps)
+    else:
+        form = tp.make_funnel(6).device_form
+        u, g = tk.device_value_and_grad(form)(q)
+
+        def run(**steps):
+            return tk.fused_hmc_transition(form, 4, 2, q, u, g, **kw, **steps)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    assert same(run(num_steps=_count(7), max_steps=16), run(num_steps=7))
+    assert same(run(num_steps=_count(40), max_steps=16), run(num_steps=16))
+    assert same(run(num_steps=_count(0), max_steps=16), run(num_steps=1))
+    assert same(run(num_steps=_count(-3), max_steps=16), run(num_steps=1))
+    assert not same(run(num_steps=7), run(num_steps=8))
+    with pytest.raises(ValueError, match="needs max_steps"):
+        run(num_steps=_count(7))
+    with pytest.raises(ValueError, match="goes with a tensor"):
+        run(num_steps=7, max_steps=16)
+
+
+def test_proposal_is_the_flipped_endpoint_for_every_walker():
+    """emit_proposal adds (q1, -p1), the trajectory's endpoint from the
+    transition's own momentum draw, for accepted and rejected walkers
+    alike; the first six outputs are those without it, bit for bit."""
+    rng = np.random.default_rng(8)
+    form = tp.make_gaussian(np.zeros(5, np.float32),
+                            cov=(np.eye(5) + 0.3).astype(np.float32)
+                            ).device_form
+    q = torch.as_tensor(rng.normal(size=(200, 5)).astype(np.float32))
+    u, g = tk.device_value_and_grad(form)(q)
+    im = torch.as_tensor(rng.uniform(0.5, 2.0, 5).astype(np.float32))
+    kw = dict(scalars=torch.tensor([0.45, 1.0, 1.0]),
+              p_std=torch.sqrt(1.0 / im), inv_mass=im, num_steps=6)
+    plain = tk.fused_hmc_transition(form, 9, 1, q, u, g, **kw)
+    out = tk.fused_hmc_transition(form, 9, 1, q, u, g, emit_proposal=True,
+                                  **kw)
+    assert len(plain) == 6 and len(out) == 8
+    for a, b in zip(plain, out):
+        assert torch.equal(a, b)
+    accepted = out[4]
+    assert 20 < int(accepted.sum()) < 200  # both kinds are there
+    p0 = tk._momenta(9, 1, q, kw["p_std"])
+    q1, p1, _, _ = tk.leapfrog_trajectory_plain(
+        form, q, p0, step_size=torch.tensor(0.45), num_steps=6, inv_mass=im)
+    np.testing.assert_allclose(out[6].numpy(), q1.numpy(), **TOL)
+    np.testing.assert_allclose(out[7].numpy(), -p1.numpy(), **TOL)
+    assert torch.equal(out[6][accepted], out[0][accepted])
+    assert torch.equal(out[0][~accepted], q[~accepted])
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "funnel"])
+def test_counted_plain_with_proposal_matches_pallas(kind):
+    """Kernel B's plain version with a tensor count and emit_proposal
+    against the TPU kernel with dynamic_steps=True, emit_proposal=True in
+    interpret mode, from rest (p_std = 0), so that nothing depends on
+    either side's draws: energy_error, accept_prob and the proposal of
+    every walker, to rtol=atol=1e-5; a count over max_steps clips on both
+    sides."""
+    w, max_steps = 64, 6
+    rng = np.random.default_rng(1)
+    jfn, params, q, step = _target(kind, rng, w)
+    q = q.astype(np.float32)
+    d = q.shape[1]
+    vg = jp.batched_value_and_grad(jfn)
+    u, g = (np.array(x) for x in vg(jnp.asarray(q)))
+    im = rng.uniform(0.5, 2.0, d).astype(np.float32)
+    trans = jk.make_fused_hmc_transition(
+        vg, num_steps=max_steps, dynamic_steps=True, emit_proposal=True)
+    form = convert.potential_params_from_numpy(kind, params).device_form
+    for n in (1, 4, 9):
+        jout = trans(jnp.int32(3), jnp.asarray(q), jnp.asarray(u),
+                     jnp.asarray(g), step_size=jnp.float32(step), p_std=0.0,
+                     inv_mass=jnp.asarray(im), beta=1.0,
+                     num_steps=jnp.int32(min(n, max_steps)))
+        tout = tk.fused_hmc_transition_plain(
+            form, 3, 0, torch.as_tensor(q), torch.as_tensor(u),
+            torch.as_tensor(g), scalars=torch.tensor([step, 1.0, 1.0]),
+            p_std=torch.zeros(d), inv_mass=torch.as_tensor(im),
+            num_steps=_count(n), max_steps=max_steps, emit_proposal=True)
+        _compare(jout[:6], tout[:6], ("q", "u", "g", "accept_prob",
+                                      "accepted", "energy_error"))
+        np.testing.assert_allclose(tout[6].numpy(), np.asarray(jout[6]),
+                                   **TOL)
+        np.testing.assert_allclose(tout[7].numpy(), np.asarray(jout[7]),
+                                   **TOL)
+
+
+def test_kernel_b_takes_the_diagonal_form_for_the_proposal():
+    """Kernel A has no proposal outputs, so the fused engine sends a
+    diag-quadratic target through kernel B's diagonal form when the
+    proposal is asked for; both give the same transition."""
+    from physicsbasedbayesianinference_tpu_torch import hmc
+    target = tp.make_harmonic(np.float32([0.5, 1.0, 2.0]))
+    fused = hmc.FusedTransition(target)
+    assert fused.variant_for(100, 3) == "diag"
+    state = hmc.init_state(tp.batched_value_and_grad(target),
+                           torch.randn(100, 3,
+                                       generator=torch.Generator(
+                                       ).manual_seed(0)))
+    a, info_a, none = fused((5, 0), state, 0.3, num_steps=4)
+    b, info_b, prop = fused((5, 0), state, 0.3, num_steps=4,
+                            emit_proposal=True)
+    assert none is None and prop[0].shape == (100, 3)
+    assert torch.equal(info_a.accepted, info_b.accepted)
+    np.testing.assert_allclose(a.ensemble.q.numpy(), b.ensemble.q.numpy(),
+                               **TOL)
+    np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), **TOL)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Kernels B and D of this checkout against those of another checkout of the
+"""Kernels A, B and D of this checkout against those of another checkout of the
 repository (the parent commit, say), on one card and in one process.
 
     python3 tools/compare_builds.py PATH_TO_OTHER_CHECKOUT
@@ -9,9 +9,9 @@ under another name, builds both kernel libraries, and at each row of the
 kernel table (``PERF.md`` section 6) runs both on the same inputs and the
 same Philox draws:
 
-* says whether the outputs are the same bits (expected for every form but
-  the Gaussian, whose matvec this checkout rounds once per multiply-add)
-  and the largest absolute difference otherwise;
+* says whether the outputs are the same bits and the largest absolute
+  difference otherwise (every row runs the fixed leapfrog count without
+  the proposal outputs, which both checkouts have);
 * times both in the order other, this, this, other (CUDA-graph replays
   timed with CUDA events, ``chip_smoke.median_ms``), since two cards or
   two calls differ by more than most changes.
@@ -106,7 +106,21 @@ def main() -> None:
                lambda: this.leapfrog_trajectory(form, q, p, **kw),
                lambda: other.leapfrog_trajectory(form, q, p, **kw))
 
+    def row_a(row, w, d):
+        q = randn(w, d)
+        im = (0.5 + 1.5 * torch.rand(d, generator=gen)).to(dev)
+        kw = dict(scalars=torch.tensor([0.2, 1.0, 1.0], device=dev),
+                  p_std=torch.sqrt(1.0 / im), inv_mass=im,
+                  k_diag=(0.5 + 1.5 * torch.rand(d, generator=gen)).to(dev),
+                  mean=randn(d), num_steps=16)
+        report(row,
+               lambda: this.fused_hmc_diag_quadratic(SEED, 7, q, **kw),
+               lambda: other.fused_hmc_diag_quadratic(SEED, 7, q, **kw))
+
     w = 8192
+    row_a("A random metric W=102400 D=32 L=16", 102400, 32)
+    row_a("A random metric W=1000 D=33 L=16 (scalar accesses)", 1000, 33)
+    row_a("A random metric W=1000 D=200 L=16 (loop over groups)", 1000, 200)
     row_b("B funnel W=8192 D=10 L=16",
           pot.make_funnel(10, device=dev).device_form, 0.5 * randn(w, 10), 0.1)
     row_b("B nbody W=8192 N=8 D=24 L=16", pot.make_nbody_potential(

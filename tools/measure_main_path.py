@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Where a transition of ``run_hmc``'s main path spends its time, on the card.
+"""Where a transition of the main paths spends its time, on the card.
 
-    python3 tools/measure_main_path.py [--repeats 4] [--target correlated]
+    python3 tools/measure_main_path.py [--repeats 4] [--target TARGET]
 
-from the repository root, on a GPU. At the bench configuration (32-dim
-standard normal, 102400 walkers, 16 leapfrog steps, fused kernel A) or,
-with ``--target correlated``, at the same shape on the correlated 32-dim
-Gaussian of ``chip_smoke.py`` phase 7 (cov = a a^T + 0.5 I, the generic
-fused kernel B):
+from the repository root, on a GPU. ``run_hmc`` at the bench configuration
+(32-dim standard normal, 102400 walkers, 16 leapfrog steps, fused kernel
+A) or, with ``--target correlated``, at the same shape on the correlated
+32-dim Gaussian of ``chip_smoke.py`` phase 7 (cov = a a^T + 0.5 I, the
+generic fused kernel B); with ``--target logreg`` or ``--target
+eight_schools``, ``run_chees_hmc`` on the model of ``chip_smoke.py`` phase
+8a or 8b (102400 walkers, ``max_steps=256``, both phases in kernel B):
 
-1. the run-to-run spread of the sampling phase: ``--repeats`` rounds of
-   ``run_hmc`` with 200 warmup and 256 sampling transitions, once with
-   collect="moments" and once with collect="none", one JSON line per run
-   (ms per sampling transition from ``HMCRunResult.sampling_seconds``);
+1. the run-to-run spread of the sampling phase: ``--repeats`` rounds with
+   200 warmup and 256 sampling transitions, once with collect="moments"
+   and once with collect="none", one JSON line per run (ms per sampling
+   transition from the result's ``sampling_seconds``; for ChEES also the
+   warmup's, the adapted step size, tau and the mean leapfrog count);
 2. one ``torch.profiler`` trace of 100 warmup + 100 sampling transitions
    (collect="moments"): wall time, device time summed over the kernels
    and copies, the device's busy share, the counts of host launches and
@@ -36,7 +39,8 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from physicsbasedbayesianinference_tpu_torch import run_hmc  # noqa: E402
+from physicsbasedbayesianinference_tpu_torch import (  # noqa: E402
+    models, run_chees_hmc, run_hmc)
 from physicsbasedbayesianinference_tpu_torch.ops import _build  # noqa: E402
 from physicsbasedbayesianinference_tpu_torch.ops import potentials as pot  # noqa: E402,E501
 
@@ -48,8 +52,9 @@ HOST_CALLS = ("cudaLaunchKernel", "cudaStreamSynchronize",
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--repeats", type=int, default=4)
-    parser.add_argument("--target", choices=("std_normal", "correlated"),
-                        default="std_normal")
+    parser.add_argument("--target", default="std_normal",
+                        choices=("std_normal", "correlated", "logreg",
+                                 "eight_schools"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tools/measure_main_path.py needs a CUDA device")
@@ -59,33 +64,60 @@ def main() -> None:
         capture_output=True, text=True, check=True).stdout.strip())
     _build.load_library()
     dev = torch.device("cuda", 0)
+    init_step = None  # a model: run_chees_hmc from this step size
     if args.target == "correlated":
         gen = torch.Generator().manual_seed(7)
         a = torch.randn(D, D, generator=gen) / D**0.5
         target = pot.make_gaussian(torch.randn(D, generator=gen),
                                    cov=a @ a.T + 0.5 * torch.eye(D))
+    elif args.target == "logreg":
+        target = models.make_model_potential(
+            models.logistic_regression,
+            models.logistic_regression_data(256, 31), {}).potential
+        init_step = 0.05
+    elif args.target == "eight_schools":
+        target = models.make_model_potential(
+            models.eight_schools_noncentered, (),
+            models.EIGHT_SCHOOLS_DATA).potential
+        init_step = 0.22
     else:
         target = pot.make_standard_normal(D)
     print(json.dumps({"target": args.target}))
-    q0 = torch.randn(W, D, generator=torch.Generator(device=dev).manual_seed(0),
+    d = 10 if args.target == "eight_schools" else D
+    q0 = torch.randn(W, d, generator=torch.Generator(device=dev).manual_seed(0),
                      device=dev)
-    run_hmc(0, target, q0, num_warmup=20, num_samples=20, num_steps=STEPS)
 
+    def run(seed, num_warmup, num_samples, collect="moments"):
+        if init_step is None:
+            return run_hmc(seed, target, q0, num_warmup=num_warmup,
+                           num_samples=num_samples, num_steps=STEPS,
+                           collect=collect)
+        return run_chees_hmc(seed, target, 0.3 * q0, num_warmup=num_warmup,
+                             num_samples=num_samples, max_steps=256,
+                             init_step_size=init_step, collect=collect)
+
+    run(0, 20, 20)
     for rep in range(args.repeats):
         for collect in ("moments", "none"):
-            res = run_hmc(1 + rep, target, q0, num_warmup=200,
-                          num_samples=256, num_steps=STEPS, collect=collect)
-            print(json.dumps({
+            res = run(1 + rep, 200, 256, collect)
+            line = {
                 "rep": rep, "collect": collect,
                 "ms_per_transition": 1e3 * res.sampling_seconds / 256,
-                "walker_transitions_per_s": W * 256 / res.sampling_seconds}))
+                "walker_transitions_per_s": W * 256 / res.sampling_seconds}
+            if init_step is not None:
+                line.update(
+                    warmup_ms_per_transition=1e3 * res.warmup_seconds / 200,
+                    step_size=res.step_size.item(),
+                    trajectory_time=res.trajectory_time.item(),
+                    mean_num_steps=res.mean_num_steps.item(),
+                    engines=[res.warmup_kernel_used, res.kernel_used])
+            print(json.dumps(line))
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run_hmc(1, target, q0, num_warmup=100, num_samples=100,
-                num_steps=STEPS, collect="moments")
+        run(1, 100, 100)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     table = prof.key_averages()
