@@ -53,15 +53,23 @@
    walkers); 8c the funnel model under ``reparam="auto"``, which has no
    device form, through the composed engine (no kernel launch); 8d the
    32-dim standard normal, whose sampling runs kernel A with the count
-   read on the device.
+   read on the device; 8e the model of 8a through
+   ``run_hmc(integrator="pallas_leapfrog")`` from 8a's posterior state:
+   kernel D with the logistic form, one launch a transition, moments held
+   to 8a's.
 2, once more. Holds kernel B with the device step count (1, 7, max_steps
    and a count above it, which must clip) and with the proposal outputs,
    kernel A with the device step count, and the two model forms (the
    logistic form at W = 8192 and 102400 and at a D off the 16-byte path,
-   the eight-schools form at W = 102400) against their plain versions, on
+   each at the walker tile ``kernels.logistic_tile`` picks, the
+   eight-schools form at W = 102400) against their plain versions, on
    the posterior states phase 8 left, each with a second launch that must
-   give the same bits; times them, and for the logistic form the two
-   ``torch.matmul`` calls and the sigmoid that its gradients amount to.
+   give the same bits; kernel D with the logistic form at W = 102400 too.
+   The logistic form's q', u', g' (and proposal, and kernel D's q', p',
+   u', g') must be the plain version's bits, as both sum in the same order
+   and round each multiply-add once. Times them, and for the logistic form
+   the two ``torch.matmul`` calls and the sigmoid that its gradients
+   amount to.
 
 The line before the last is a JSON object with one entry per kernel, with
 its time beside its bound (``bound_ms``: the larger of the bytes it must
@@ -500,18 +508,29 @@ def main() -> None:
     def randn2(*shape):
         return torch.randn(*shape, generator=gen2).to(dev)
 
-    def check_d(case, form, w, d, steps, step, inv_mass, time_it=True):
-        q, p = randn2(w, d), randn2(w, d)
+    def check_d(case, form, w, d, steps, step, inv_mass, time_it=True, *,
+                q=None, p=None, library=None, bits=False):
+        """Kernel D against its plain version on ``q``, ``p`` (random
+        unless given); ``bits``: every output must be the plain version's
+        bits, and a second launch's."""
+        if q is None:
+            q, p = randn2(w, d), randn2(w, d)
         kw = dict(step_size=torch.tensor([step], device=dev),
                   num_steps=steps, inv_mass=inv_mass)
         out_k = kernels.leapfrog_trajectory(form, q, p, **kw)
         out_p = kernels.leapfrog_trajectory_plain(form, q, p, **kw)
+        again = (kernels.leapfrog_trajectory(form, q, p, **kw) if bits
+                 else out_k)
         torch.cuda.synchronize()
         worst = 0.0
-        for key, k, pl in zip(("q", "p", "u", "g"), out_k, out_p):
+        for key, k, pl, k2 in zip(("q", "p", "u", "g"), out_k, out_p, again):
             if not torch.allclose(k, pl, rtol=1e-5, atol=1e-5):
                 fail(f"{case}: {key}' differs by up to "
                      f"{(k - pl).abs().max().item()}")
+            if bits and not (torch.equal(k, pl) and torch.equal(k, k2)):
+                fail(f"{case}: {key}' is not the plain version's bits, or "
+                     f"a second launch's ({(k != pl).sum().item()} "
+                     f"differ)")
             worst = max(worst, (k - pl).abs().max().item())
         # q, p in; q', p', g' and u' out
         line = {"case": case, "max_abs_err": worst,
@@ -521,7 +540,12 @@ def main() -> None:
             line["ms"] = median_ms(lambda: kernels.leapfrog_trajectory(
                 form, q, p, **kw))
             line["plain_ms"] = median_ms(
-                lambda: kernels.leapfrog_trajectory_plain(form, q, p, **kw))
+                lambda: kernels.leapfrog_trajectory_plain(form, q, p, **kw),
+                **({} if library is None else dict(reps=2, rounds=3)))
+            if library is not None:
+                line["library_ms"] = median_ms(lambda: library(q, steps))
+        if bits:
+            line["same_bits_as_plain"] = True
         print(json.dumps(line))
         return line
 
@@ -869,6 +893,7 @@ def main() -> None:
             "warmup_seconds": res.warmup_seconds,
             "sampling_seconds": res.sampling_seconds,
             "ms_per_transition": 1e3 * res.sampling_seconds / n_samp8,
+            "warmup_ms_per_transition": 1e3 * res.warmup_seconds / n_warm8,
             "walker_transitions_per_s": w * n_samp8 / res.sampling_seconds,
             "grad_evals_per_s": (w * n_samp8 * mean_steps
                                  / res.sampling_seconds),
@@ -953,6 +978,40 @@ def main() -> None:
         "mean_num_steps": res8d.mean_num_steps.item(),
         "ms_per_transition": 1e3 * res8d.sampling_seconds / n_samp8}))
 
+    # 8e: kernel D with the logistic form, as a user reaches it: run_hmc
+    # with integrator="pallas_leapfrog" on the model of 8a, from the
+    # posterior state 8a left (so no burn-in), 16 steps a transition;
+    # moments held to 8a's with 8a's gates
+    n_warm8e, n_samp8e = 100, 100
+    kernels.reset_launch_counts()
+    res8e = run_hmc(SEED + 12, mp_lr.potential,
+                    res8a.state.ensemble.q.clone(), num_warmup=n_warm8e,
+                    num_samples=n_samp8e, num_steps=steps,
+                    init_step_size=res8a.step_size.item(),
+                    collect="moments", integrator="pallas_leapfrog")
+    counts8e = kernels.launch_counts()
+    launched_d_lr = counts8e["leapfrog_trajectory"]
+    sd_8a = torch.sqrt(res8a.var)
+    mean_err = ((res8e.mean - res8a.mean) / sd_8a).abs().max().item()
+    var_err = (res8e.var / res8a.var - 1.0).abs().max().item()
+    accept = res8e.accept_rate.item()
+    if not (res8e.kernel_used == "composed"
+            and launched_d_lr == n_warm8e + n_samp8e
+            and sum(counts8e.values()) == launched_d_lr
+            and mean_err < 0.044 and var_err < 0.0625
+            and 0.6 <= accept <= 0.99):
+        fail(f"phase 8e off: ran {res8e.kernel_used} with {counts8e}, mean "
+             f"{mean_err} sd from 8a (limit 0.044), var {var_err} (limit "
+             f"0.0625), accept {accept}")
+    print(json.dumps({
+        "phase": f"8e run_hmc logistic regression N=256 W={w} D=32 L={steps} "
+                 f"integrator=pallas_leapfrog from 8a's posterior",
+        "kernel_used": res8e.kernel_used, "launches": launched_d_lr,
+        "max_mean_err_sd_vs_8a": mean_err, "max_rel_var_err_vs_8a": var_err,
+        "accept_rate": accept, "step_size": res8e.step_size.item(),
+        "ms_per_transition": 1e3 * res8e.sampling_seconds / n_samp8e,
+        "walker_transitions_per_s": w * n_samp8e / res8e.sampling_seconds}))
+
     # ---- 2, once more: the count on the device, the proposal, the forms ---
     gen8 = torch.Generator(device="cpu").manual_seed(SEED + 8)
 
@@ -960,11 +1019,14 @@ def main() -> None:
         return torch.tensor([n], dtype=torch.int32, device=dev)
 
     def check_b8(case, form, q, steps, step, time_it, *, counted=None,
-                 proposal=False, plain_reps=20, library=None, mass=None):
+                 proposal=False, plain_reps=20, library=None, mass=None,
+                 bits=False):
         """Kernel B against its plain version; ``counted``: the count goes
         as a device tensor with this max_steps (and the fixed-count
         kernel's first six outputs must be the same bits); ``mass``: the
-        metric [D] (a random one unless given)."""
+        metric [D] (a random one unless given); ``bits``: q', u', g' of
+        every walker whose decision agrees, and the proposal, must be the
+        plain version's bits."""
         w_, d_ = q.shape
         u, g = kernels.device_value_and_grad(form)(q)
         im = ((0.5 + 1.5 * torch.rand(d_, generator=gen8)).to(dev)
@@ -1000,6 +1062,15 @@ def main() -> None:
                      f"does not give the fixed count {ran}'s bits")
         log_u = torch.log(philox.accept_uniforms(SEED, counter, w_, dev))
         err = compare(case, named(out, B_ORDER), named(plain, B_ORDER), log_u)
+        if bits:
+            agree = out[4] == plain[4]
+            pairs = [(k, a[agree], b[agree]) for k, a, b in zip(
+                ("q", "u", "g"), out[:3], plain[:3])]
+            pairs += list(zip(("q_prop", "p_prop"), out[6:], plain[6:]))
+            for key, a, b in pairs:
+                if not torch.equal(a, b):
+                    fail(f"{case}: {key} is not the plain version's bits "
+                         f"({(a != b).sum().item()} differ)")
         if proposal:
             for key, k, pl in zip(("q_prop", "p_prop"), out[6:], plain[6:]):
                 if not torch.allclose(k, pl, rtol=1e-5, atol=1e-5):
@@ -1008,6 +1079,7 @@ def main() -> None:
                 err = max(err, (k - pl).abs().max().item())
         line = {"case": case, "max_abs_err": err,
                 "accepted": out[4].float().mean().item(),
+                **({"same_bits_as_plain": True} if bits else {}),
                 **bound(transition_bytes(w_, d_, True)
                         + (8 * w_ * d_ if proposal else 0),
                         w_ * (ran + 1) * (gradient_ops(form, d_) + 3 * d_))}
@@ -1097,19 +1169,36 @@ def main() -> None:
 
     q_lr, mass_lr = res8a.state.ensemble.q, res8a.state.ensemble.mass
     step_lr = res8a.step_size.item()
-    lr_main = check_b8("B logistic W=102400 D=32 N=256 L=16", form_lr, q_lr,
+
+    def tile_lr(w_, d_):
+        return f"(tile {kernels.logistic_tile(w_, 256, d_)})"
+
+    lr_main = check_b8(f"B logistic W=102400 D=32 N=256 L=16 "
+                       f"{tile_lr(102400, 32)}", form_lr, q_lr,
                        16, step_lr, True, plain_reps=2,
-                       library=logistic_library, mass=mass_lr)
+                       library=logistic_library, mass=mass_lr, bits=True)
     lr_errs = [lr_main["max_abs_err"]]
     lr_errs.append(check_b8(
-        "B logistic W=8192 D=32 N=256 L=16", form_lr,
+        f"B logistic W=8192 D=32 N=256 L=16 {tile_lr(8192, 32)}", form_lr,
         q_lr[:8192].contiguous(), 16, step_lr, True, plain_reps=2,
-        library=logistic_library, mass=mass_lr)["max_abs_err"])
+        library=logistic_library, mass=mass_lr, bits=True)["max_abs_err"])
     lr_errs.append(check_b8(
-        "B logistic counted+proposal W=8192 D=31 N=256 n=9 max=16 (off the "
-        "16-byte path)", ("logistic", (x_dev[:, 1:].contiguous(), y_dev)),
+        f"B logistic counted+proposal W=8192 D=31 N=256 n=9 max=16 (off the "
+        f"16-byte path) {tile_lr(8192, 31)}",
+        ("logistic", (x_dev[:, 1:].contiguous(), y_dev)),
         q_lr[:8192, 1:].contiguous(), 9, step_lr, False, counted=16,
-        proposal=True, mass=mass_lr[1:])["max_abs_err"])
+        proposal=True, mass=mass_lr[1:], bits=True)["max_abs_err"])
+    lr_errs.append(check_b8(
+        f"B logistic counted+proposal W=102400 D=32 N=256 n=40 max=16 "
+        f"{tile_lr(102400, 32)}", form_lr, q_lr, 40, step_lr, False,
+        counted=16, proposal=True, plain_reps=2, mass=mass_lr,
+        bits=True)["max_abs_err"])
+    # kernel D with the logistic form at the same shape and state (its
+    # launches: phase 8e)
+    d_lr = check_d(f"D logistic W=102400 D=32 N=256 L=16 "
+                   f"{tile_lr(102400, 32)}", form_lr, 102400, 32, 16,
+                   step_lr, (1.0 / mass_lr).contiguous(), q=q_lr,
+                   p=randn2(102400, 32), library=logistic_library, bits=True)
     # A float32 trajectory through tau = e^q1 amplifies the last-bit
     # differences between the kernel and its plain version: at the adapted
     # step, after 16 steps, one walker in 102400 (a near-divergent one,
@@ -1165,6 +1254,9 @@ def main() -> None:
               lr_errs, lr_main),
         entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576, launched_es,
               es_errs, es_main),
+        # the logistic form in kernel D (phase 8e)
+        entry("leapfrog_trajectory", f"{CSRC}/forms.cuh", 140,
+              launched_d_lr, [d_lr["max_abs_err"]], d_lr),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

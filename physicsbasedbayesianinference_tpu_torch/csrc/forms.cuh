@@ -18,12 +18,15 @@
 // of 4 T + kBufPad floats; the rows of a lane group's R walkers lie
 // row_step floats apart.
 //
-// The Gaussian is the form with arithmetic enough to bound a kernel (a
-// D x D matvec per leapfrog step: D^2 multiply-adds a walker against 4 D
-// floats moved), and the only one that takes R > 1 (kTiled): a thread
-// keeps the [R][4] tile of the gradient in registers and reads each row of
-// P once for its R walkers (GaussianForm::grad). The other forms take one
-// walker a lane group, as written for it.
+// The Gaussian and the logistic regression are the forms with arithmetic
+// enough to bound a kernel (a D x D matvec, or two N x D products, per
+// leapfrog step against 4 D floats moved), and the ones that take R > 1
+// (kTiled): a thread keeps the [R][4] tile of the gradient in registers
+// and reads each operand from shared memory once for its R walkers
+// (GaussianForm::grad, LogisticForm::grad). A tiled form may keep scratch
+// for each lane group after the walkers' buffer rows (scratch_floats), and
+// may evaluate the R values together (kTiledValue). The other forms take
+// one walker a lane group, as written for it.
 
 #pragma once
 
@@ -53,6 +56,11 @@ constexpr int kMaxGenericDims = 128;
 #define PBBI_G_UNROLL 4
 #endif
 constexpr int kGaussianUnroll = PBBI_G_UNROLL;
+// rows of x that a lane of the logistic form takes together (its row tile)
+#ifndef PBBI_L_ROWS
+#define PBBI_L_ROWS 4
+#endif
+constexpr int kLogisticRows = PBBI_L_ROWS;
 
 int threads_per_walker(int num_dims) {
   const int groups = (num_dims + 3) / 4;
@@ -189,6 +197,7 @@ struct GaussianForm {
   const float* mean;  // [D]
   const float* prec;  // [D, D] row-major
   static constexpr bool kTiled = true;
+  static constexpr bool kTiledValue = false;
   static constexpr int kBufPad = 4;  // rows stay 16-byte aligned
 
   __host__ __device__ static int chunks(int d) { return (d + 3) / 4; }
@@ -196,6 +205,7 @@ struct GaussianForm {
   __host__ __device__ int shared_floats(int d, int tpw) const {
     return 4 * tpw * (4 * chunks(d) + 1);
   }
+  __host__ __device__ static int scratch_floats(int, int) { return 0; }
 
   __device__ void stage(float* sh, int d, int tpw) const {
     const int cols = 4 * tpw, rows = 4 * chunks(d);
@@ -508,39 +518,77 @@ struct NbodyForm {
 // data-matmul potential that the TPU ran through its walker-packed kernel.
 //
 // x is staged once a block with a column of ones appended (so that b is
-// one more weight), padded with zeros to 4 T columns plus 4 (a row stride of
-// 4 T + 4 floats keeps the rows that a walker's lanes read together in
-// different banks) and to a multiple of T rows; y after it. Both products
-// with x run here, in T-row chunks: lane l of the walker takes row c + l,
-// its z a full dot product against the walker's q in its shared buffer row
-// (index order), then the residual sigmoid(z) - y; the T residuals of the
-// chunk go from lane to lane by shuffle, in row order, and each lane adds
-// r_n x[n][its four dims] into its gradient. So the sums over n and over
-// dims run in index order, as in the plain version, and no residual is
-// stored. The value's sum over rows is per lane (rows l, l + T, ...) and
-// then a butterfly over the lanes.
+// one more weight), padded with zeros to 4 T columns plus 4 (a row stride
+// of 4 T + 4 floats puts the rows that a lane group reads together in
+// different banks) and to a multiple of a chunk of C = T kRows rows; y
+// after it. A lane group owns R walkers (the walker tile) and takes the
+// rows a chunk at a time, each chunk in two passes, both register-tiled:
 //
-// What holds it back: each multiply-add pair of the z pass loads 8 bytes
-// from shared memory (x and q), of the gradient pass 4, so the loop runs at
-// the shared-memory rate, several times under the arithmetic rate; a tile
-// of rows or walkers in registers, as the Gaussian form has, is the next
-// step.
+// * z pass: lane l takes the kRows rows c + m T + l (m < kRows) for all R
+//   walkers, a [kRows][R] tile of accumulators. Per dim-group k it loads
+//   the four floats of x of each of its rows and the four of q of each
+//   walker (from the walkers' buffer rows; the same address for the
+//   group's lanes) and does 4 kRows R multiply-adds: every operand feeds
+//   R or kRows of them. Each z sums its dims in index order, one fmaf a
+//   dim. The residuals sigmoid(z) - y go to the group's scratch, a
+//   [C][R] tile (rows past N give 0).
+// * gradient pass: lane l keeps its four dims of the R walkers' gradient
+//   (the [R][4] tile the kernels hold) and, per row j of the chunk, loads
+//   the row's four x floats (one load) and its R residuals (one load, the
+//   same address for the group's lanes): 4 R multiply-adds, summed over
+//   the rows in index order, one fmaf each. g = q + that sum.
+//
+// So every sum runs in index order as the plain version's does, which
+// rounds each multiply-add once as well (ops/kernels.py _logistic_vg). The
+// value takes the z pass alone; lane l's likelihood terms are its rows l,
+// l + T, ... in turn, then a butterfly over the lanes.
+//
+// What bounds it, at kRows = R = 4 (the chooser's tile at W = 102400, D =
+// 32): a z-pass dim-group is 8 16-byte loads a lane for 64 multiply-adds,
+// a gradient-pass row 2 for 16: 2 bytes from shared memory a multiply-add
+// in both passes (the residual tile adds 1/16 of a load a row). A warp's
+// 16-byte load costs four wavefronts of 128 bytes, broadcast or not (the
+// Gaussian form's sweep, tools/kernel_sweeps.py), and an SM takes one
+// wavefront and four warp-wide FP32 instructions a clock, so both passes
+// run 2 warp-wide multiply-add instructions a wavefront: half the FP32
+// rate (8 a wavefront if a broadcast cost one). The sigmoid adds about 8
+// instructions a row and walker. x, y, the buffer rows and the residual
+// tiles take 72.5 KB a block at N = 256, D = 32, R = 4; the registers (q,
+// g, p: 12 R floats, the z tile 16, its operands 20) cap it at 2 blocks,
+// 128 registers a thread with 16-28 bytes of spill at R = 4 (none at R =
+// 1, 2; nvcc -Xptxas -v). Measured on an H100 at 700 W: kernel B 2.71 ms
+// at W = 102400, D = 32, N = 256, L = 16 (5.11 before the tile), 36% of
+// its FP32 bound; the row tile (2, 4, 8) and the step from R = 2 to 4 move
+// it by 6% or less, an approximate sigmoid by 10%, and 8 warps an SM in
+// place of 16 (no register cap) make it 25% slower (tools/kernel_sweeps.py
+// --only logistic): at R = 4 a warp waits on each dim-group's loads
+// before its multiply-adds, more than on the shared-memory rate (PERF.md).
 struct LogisticForm {
   const float* x;  // [N, D - 1] row-major
   const float* y;  // [N]
   int n;
 
-  static constexpr bool kTiled = false;
+  static constexpr bool kTiled = true;
+  static constexpr bool kTiledValue = true;
   static constexpr int kBufPad = 4;  // rows stay 16-byte aligned
 
+  __host__ __device__ static int chunk(int tpw) { return kLogisticRows * tpw; }
   __host__ __device__ int rows(int tpw) const {
-    return (n + tpw - 1) / tpw * tpw;
+    return (n + chunk(tpw) - 1) / chunk(tpw) * chunk(tpw);
   }
   __host__ __device__ static int stride(int tpw) { return 4 * tpw + 4; }
+  // a lane group's residual tile; the 4 floats more put neighbouring
+  // groups' tiles in different banks
+  __host__ __device__ static int tile_floats(int tpw, int tile) {
+    return chunk(tpw) * tile + 4;
+  }
 
   // x rows and y, rounded up to whole 16 bytes
   __host__ __device__ int shared_floats(int, int tpw) const {
     return (rows(tpw) * (stride(tpw) + 1) + 3) / 4 * 4;
+  }
+  __host__ __device__ static int scratch_floats(int tpw, int tile) {
+    return kBlock / tpw * tile_floats(tpw, tile);
   }
 
   __device__ void stage(float* sh, int d, int tpw) const {
@@ -555,71 +603,175 @@ struct LogisticForm {
       sh[nr * st + i] = i < n ? y[i] : 0.0f;
   }
 
-  // z of row `row` for the walker whose q lies in buf
-  __device__ __forceinline__ static float logit(const float* sh,
-                                                const float* buf, int row,
-                                                int st, int tpw) {
-    const float4* xr = reinterpret_cast<const float4*>(sh + row * st);
-    const float4* qs = reinterpret_cast<const float4*>(buf);
-    float z = 0.0f;
-    for (int k = 0; k < tpw; ++k) {
-      const float4 xv = xr[k], qq = qs[k];
-      z += xv.x * qq.x;
-      z += xv.y * qq.y;
-      z += xv.z * qq.z;
-      z += xv.w * qq.w;
-    }
-    return z;
-  }
-
-  __device__ __forceinline__ static void share(const float qv[4], int lane,
-                                               float* buf) {
-    *reinterpret_cast<float4*>(buf + 4 * lane) =
-        make_float4(qv[0], qv[1], qv[2], qv[3]);  // zeros past D
+  // the R walkers' q into their buffer rows (zeros past D)
+  template <int R>
+  __device__ __forceinline__ static void share(const float (*qv)[4], int lane,
+                                               float* buf, int row_step) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      *reinterpret_cast<float4*>(buf + r * row_step + 4 * lane) =
+          make_float4(qv[r][0], qv[r][1], qv[r][2], qv[r][3]);
     __syncwarp();
   }
 
-  __device__ void grad(const float qv[4], float gv[4], int lane, int tpw,
-                       int, const float* sh, float* buf) const {
-    share(qv, lane, buf);
-    const int st = stride(tpw), nr = rows(tpw);
-    const float* ys = sh + nr * st;
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int c = 0; c < nr; c += tpw) {
-      const int row = c + lane;
-      const float z = logit(sh, buf, row, st, tpw);
-      const float r = row < n ? 1.0f / (1.0f + expf(-z)) - ys[row] : 0.0f;
-      for (int j = 0; j < tpw; ++j) {
-        const float rj = __shfl_sync(0xffffffffu, r, j, tpw);
-        const float4 xv =
-            reinterpret_cast<const float4*>(sh + (c + j) * st)[lane];
-        acc[0] += rj * xv.x;
-        acc[1] += rj * xv.y;
-        acc[2] += rj * xv.z;
-        acc[3] += rj * xv.w;
+  // z[m][r] of row row0 + m T for walker r, over the dims in index order
+  template <int R>
+  __device__ __forceinline__ static void logits(const float* sh,
+                                                const float* buf,
+                                                int row_step, int row0,
+                                                int st, int tpw, int d,
+                                                float (*z)[R]) {
+#pragma unroll
+    for (int m = 0; m < kLogisticRows; ++m)
+#pragma unroll
+      for (int r = 0; r < R; ++r) z[m][r] = 0.0f;
+    const float* xr = sh + row0 * st;
+    const int groups = (d + 3) / 4;  // the dim-groups past D add zeros
+    for (int k = 0; k < groups; ++k) {
+      float4 xv[kLogisticRows];
+#pragma unroll
+      for (int m = 0; m < kLogisticRows; ++m)
+        xv[m] = reinterpret_cast<const float4*>(xr + m * tpw * st)[k];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4 qq =
+            reinterpret_cast<const float4*>(buf + r * row_step)[k];
+#pragma unroll
+        for (int m = 0; m < kLogisticRows; ++m)
+          z[m][r] = fmaf(xv[m].w, qq.w,
+                         fmaf(xv[m].z, qq.z,
+                              fmaf(xv[m].y, qq.y,
+                                   fmaf(xv[m].x, qq.x, z[m][r]))));
       }
     }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) gv[e] = qv[e] + acc[e];
-    __syncwarp();
   }
 
-  __device__ float value(const float qv[4], const float[4], int lane, int tpw,
-                         int d, const float* sh, float* buf) const {
-    share(qv, lane, buf);
-    const int st = stride(tpw), nr = rows(tpw);
+  // this lane group's residual tile, after the block's walker buffer rows
+  template <int R>
+  __device__ __forceinline__ float* residuals(const float* sh, int d,
+                                              int tpw, int row_step) const {
+    const int slot = threadIdx.x / tpw;
+    return const_cast<float*>(sh) + shared_floats(d, tpw) + R * row_step +
+           slot * tile_floats(tpw, R);
+  }
+
+  template <int R>
+  __device__ __forceinline__ static void store_tile(float* at,
+                                                    const float v[R]) {
+    if constexpr (R == 4) {
+      *reinterpret_cast<float4*>(at) = make_float4(v[0], v[1], v[2], v[3]);
+    } else if constexpr (R == 2) {
+      *reinterpret_cast<float2*>(at) = make_float2(v[0], v[1]);
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) at[r] = v[r];
+    }
+  }
+
+  template <int R>
+  __device__ __forceinline__ static void load_tile(const float* at,
+                                                   float v[R]) {
+    if constexpr (R == 4) {
+      const float4 t = *reinterpret_cast<const float4*>(at);
+      v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+    } else if constexpr (R == 2) {
+      const float2 t = *reinterpret_cast<const float2*>(at);
+      v[0] = t.x, v[1] = t.y;
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[r] = at[r];
+    }
+  }
+
+  template <int R>
+  __device__ __forceinline__ void grad(const float (*qv)[4], float (*gv)[4],
+                                       int lane, int tpw, int d,
+                                       const float* sh, float* buf,
+                                       int row_step) const {
+    share<R>(qv, lane, buf, row_step);
+    const int st = stride(tpw), nr = rows(tpw), ch = chunk(tpw);
     const float* ys = sh + nr * st;
-    float lik = 0.0f;
-    for (int row = lane; row < n; row += tpw) {
-      const float z = logit(sh, buf, row, st, tpw);
-      lik += (fmaxf(z, 0.0f) + log1pf(expf(-fabsf(z)))) - ys[row] * z;
+    float* res = residuals<R>(sh, d, tpw, row_step);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gv[r][e] = 0.0f;
+    for (int c = 0; c < nr; c += ch) {
+      float z[kLogisticRows][R];
+      logits<R>(sh, buf, row_step, c + lane, st, tpw, d, z);
+#pragma unroll
+      for (int m = 0; m < kLogisticRows; ++m) {
+        const int row = c + m * tpw + lane;
+        float rv[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#ifdef PBBI_L_FAST_SIGMOID  // tools/kernel_sweeps.py only: not the plain's
+          rv[r] = row < n ? __fdividef(1.0f, 1.0f + __expf(-z[m][r])) - ys[row]
+                          : 0.0f;
+#else
+          rv[r] = row < n ? 1.0f / (1.0f + expf(-z[m][r])) - ys[row] : 0.0f;
+#endif
+        store_tile<R>(res + (m * tpw + lane) * R, rv);
+      }
+      __syncwarp();
+      const float4* xc = reinterpret_cast<const float4*>(sh + c * st) + lane;
+#pragma unroll 4
+      for (int j = 0; j < ch; ++j) {
+        const float4 xv = xc[j * (st / 4)];
+        float rv[R];
+        load_tile<R>(res + j * R, rv);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          gv[r][0] = fmaf(rv[r], xv.x, gv[r][0]);
+          gv[r][1] = fmaf(rv[r], xv.y, gv[r][1]);
+          gv[r][2] = fmaf(rv[r], xv.z, gv[r][2]);
+          gv[r][3] = fmaf(rv[r], xv.w, gv[r][3]);
+        }
+      }
+      __syncwarp();  // the tile is rewritten by the next chunk
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gv[r][e] = qv[r][e] + gv[r][e];
+  }
+
+  template <int R>
+  __device__ __forceinline__ void values(const float (*qv)[4], int lane,
+                                         int tpw, int d, const float* sh,
+                                         float* buf, int row_step,
+                                         float u[R]) const {
+    share<R>(qv, lane, buf, row_step);
+    const int st = stride(tpw), nr = rows(tpw), ch = chunk(tpw);
+    const float* ys = sh + nr * st;
+    float lik[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) lik[r] = 0.0f;
+    for (int c = 0; c < nr; c += ch) {
+      float z[kLogisticRows][R];
+      logits<R>(sh, buf, row_step, c + lane, st, tpw, d, z);
+#pragma unroll
+      for (int m = 0; m < kLogisticRows; ++m) {
+        const int row = c + m * tpw + lane;
+        if (row < n) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float zz = z[m][r];
+            lik[r] += (fmaxf(zz, 0.0f) + log1pf(expf(-fabsf(zz)))) -
+                      ys[row] * zz;
+          }
+        }
+      }
     }
     __syncwarp();
-    float quad = 0.0f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) quad += qv[e] * qv[e];
-    return (0.5f * segment_sum(quad, tpw) + segment_sum(lik, tpw)) +
-           0.918938533204672742f * (float)d;
+    for (int r = 0; r < R; ++r) {
+      float quad = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) quad += qv[r][e] * qv[r][e];
+      u[r] = (0.5f * segment_sum(quad, tpw) + segment_sum(lik[r], tpw)) +
+             0.918938533204672742f * (float)d;
+    }
   }
 };
 
@@ -721,6 +873,16 @@ __device__ __forceinline__ void grad_walkers(const Form& form,
   }
 }
 
+// Whether a form evaluates its R values together (values<R>).
+template <class Form>
+__host__ __device__ constexpr bool tiled_value() {
+  if constexpr (Form::kTiled) {
+    return Form::kTiledValue;
+  } else {
+    return false;
+  }
+}
+
 template <int R, class Form>
 __device__ __forceinline__ void value_walkers(const Form& form,
                                               const float (*qv)[4],
@@ -728,17 +890,24 @@ __device__ __forceinline__ void value_walkers(const Form& form,
                                               int tpw, int d, const float* sh,
                                               float* buf, int row_step,
                                               float u[R]) {
+  if constexpr (tiled_value<Form>()) {
+    form.template values<R>(qv, lane, tpw, d, sh, buf, row_step, u);
+  } else {
 #pragma unroll
-  for (int r = 0; r < R; ++r)
-    u[r] = form.value(qv[r], gv[r], lane, tpw, d, sh, buf + r * row_step);
+    for (int r = 0; r < R; ++r)
+      u[r] = form.value(qv[r], gv[r], lane, tpw, d, sh, buf + r * row_step);
+  }
 }
 
 // Bytes of dynamic shared memory of a block: the form's parameters, then
-// a buffer row for each of its kBlock / T * R walkers.
+// a buffer row for each of its kBlock / T * R walkers, then a tiled form's
+// scratch.
 template <class Form>
 size_t shared_bytes(const Form& form, int num_dims, int tpw, int tile) {
-  return sizeof(float) * (form.shared_floats(num_dims, tpw) +
-                          kBlock / tpw * tile * (4 * tpw + Form::kBufPad));
+  size_t floats = form.shared_floats(num_dims, tpw) +
+                  kBlock / tpw * tile * (4 * tpw + Form::kBufPad);
+  if constexpr (Form::kTiled) floats += Form::scratch_floats(tpw, tile);
+  return sizeof(float) * floats;
 }
 
 // Run `body(std::integral_constant<int, R>)` for the walker tile R = `tile`:

@@ -39,7 +39,9 @@
 // R-walker tile of the gradient in registers (R = 4: 2 bytes a
 // multiply-add, forms.cuh), and the kernel runs at the shared-memory rate:
 // 0.137 ms on an H100 80GB HBM3 at 700 W, from 0.334 ms without the tile
-// (tools/compare_builds.py, tools/kernel_sweeps.py).
+// (tools/compare_builds.py, tools/kernel_sweeps.py). The logistic form is
+// bound the same way by its two N x D products per step, and tiled the
+// same way (forms.cuh LogisticForm).
 //
 // Scalars (step size, beta, potential scale) come from a device array, so
 // adapting the step size never needs a host read-back. Outputs are
@@ -347,9 +349,10 @@ __global__ void __launch_bounds__(kBlock) diag_quadratic_loop_kernel(
 // A lane keeps its dim-group of the lane group's R walkers in registers
 // (q, g, p: 12 R floats) for the whole transition; a rejected walker's
 // start (q, g) is read again at the end, so that the registers go to the
-// tile and not to a copy of the start. R > 1 is for the Gaussian form,
-// whose D x D matvec per step bounds the kernel by arithmetic and not by
-// bytes: its gradient reads each row of P once for R walkers (forms.cuh).
+// tile and not to a copy of the start. R > 1 is for the tiled forms, the
+// Gaussian and the logistic regression, whose products per step bound the
+// kernel by arithmetic and not by bytes: their gradients read each operand
+// once for R walkers (forms.cuh).
 // With kVec (D % 4 == 0 and q, g, q', g' 16-byte aligned, checked by the
 // launcher) the lane's four floats of each are one 16-byte access;
 // otherwise scalar accesses with a bound test. The Philox counter names
@@ -575,7 +578,8 @@ int pbbi_fused_hmc_diag_quadratic(
 
 // Kernel B for the device form `form` (forms.cuh with_form; ops/kernels.py
 // FORM_IDS). walker_tile: walkers a lane group owns, 1, 2 or 4 for the
-// Gaussian form (ops/kernels.py walker_tile), 1 for any other. q_prop and
+// Gaussian and logistic forms (ops/kernels.py walker_tile, logistic_tile),
+// 1 for any other. q_prop and
 // p_prop: both null, or where to write every walker's endpoint (q1, -p1).
 // steps_dev: null, or a device int holding the leapfrog count, and
 // num_steps is then the most it may be.

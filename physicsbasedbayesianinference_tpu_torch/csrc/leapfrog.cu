@@ -16,9 +16,9 @@
 // one of the device forms of forms.cuh (the Gaussian, funnel, banana,
 // mixture, N-body, diagonal quadratic, logistic regression and eight
 // schools), in kernel B's warp layout: T lanes per walker, one dim-group of
-// four per lane, so D <= 128; with the Gaussian form a lane group owns R
-// walkers (1, 2 or 4), whose 4 x R tile of the gradient a lane keeps in
-// registers (forms.cuh).
+// four per lane, so D <= 128; with the Gaussian and logistic forms a lane
+// group owns R walkers (1, 2 or 4), whose 4 x R tile of the gradient a lane
+// keeps in registers (forms.cuh).
 //
 // The gradient on entry: the TPU kernel recomputes (u, g) at q
 // (pallas_kernels.py:186). This one takes the caller's cached (u, g) when
@@ -168,7 +168,8 @@ extern "C" {
 // Kernel D for the device form `form` (forms.cuh with_form, every form).
 // u and g are both given (the cached pair at q) or both null. step is a
 // device float holding dt. walker_tile: walkers a lane group owns, 1, 2 or
-// 4 for the Gaussian form (ops/kernels.py walker_tile), 1 for any other.
+// 4 for the Gaussian and logistic forms (ops/kernels.py walker_tile,
+// logistic_tile), 1 for any other.
 int pbbi_leapfrog_trajectory(
     int form, const float* param0, const float* param1, const float* param2,
     int count, const float* q, const float* p, const float* u, const float* g,

@@ -35,10 +35,11 @@ SOURCES = CU_SOURCES + ("forms.cuh", "philox.cuh")
 # Gaussian form's matvec (forms.cuh, fmaf), whose plain version rounds each
 # multiply-add once as well.
 # -split-compile 0: nvcc optimises a source's kernels on all the host's
-# cores; fused_hmc.cu holds some 90 instantiations of kernel B (8 forms, the
-# Gaussian's 3 walker tiles, the 16-byte path or not, the count fixed or on
-# the device, with or without the proposal) and builds in 25 s with it
-# against 55 s without, on the 8 cores of an H100 host with CUDA 12.9.
+# cores; fused_hmc.cu holds some 100 instantiations of kernel B (8 forms,
+# the Gaussian's and the logistic form's 3 walker tiles, the 16-byte path or
+# not, the count fixed or on the device, with or without the proposal); at
+# some 80 it built in 25 s with it against 55 s without, on the 8 cores of
+# an H100 host with CUDA 12.9.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "--fmad=false",
               "-split-compile", "0")

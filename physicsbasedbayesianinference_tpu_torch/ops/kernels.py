@@ -43,15 +43,19 @@ Tensor = torch.Tensor
 MAX_GENERIC_DIMS = 128
 # Parameter floats a device form may stage in shared memory (128 KiB).
 MAX_FORM_FLOATS = 32768
-# Kernels B and D with the Gaussian form: walkers a lane group may own
-# (the register tile of the matvec, csrc/forms.cuh), and the blocks of 256
+# Kernels B and D with the Gaussian and logistic forms (the tiled forms):
+# walkers a lane group may own (the register tile of their products,
+# csrc/forms.cuh), and the blocks of 256
 # threads that fill the card: 128, all but 4 of an H100's 132 SMs, since
 # walker counts are powers of two more often than multiples of 132 (at
 # W = 8192, D = 32 tile 2 makes 128 blocks and takes 0.017 ms where tile 1
 # with 256 blocks takes 0.025; tools/kernel_sweeps.py).
 WALKER_TILES = (1, 2, 4)
+TILED_FORMS = ("gaussian", "logistic")
 _BLOCK_THREADS = 256
 _FILL_BLOCKS = 128
+# rows of x a lane of the logistic form takes together (kLogisticRows)
+LOGISTIC_ROWS = 4
 # All the shared memory a block may have on an H100 (227 KiB).
 MAX_SHARED_BYTES = 232448
 # device form -> (its id at the C entries, its parameter tensors' names)
@@ -268,15 +272,21 @@ def _param_shapes(device_form, d: int):
     return {"mass": (n,), "consts": (2,)}, n
 
 
-def logistic_shared_bytes(num_rows: int, num_dims: int) -> int:
+def logistic_shared_bytes(num_rows: int, num_dims: int,
+                          tile: int = 1) -> int:
     """Dynamic shared memory of a block of kernels B and D with the
-    logistic form (csrc/forms.cuh LogisticForm): x with its column of ones,
-    padded to a multiple of T rows of 4 T + 4 floats, y, and a buffer row
-    of 4 T + 4 floats for each of the block's walkers."""
+    logistic form at walker tile ``tile`` (csrc/forms.cuh LogisticForm):
+    x with its column of ones, padded to a multiple of a chunk of
+    ``LOGISTIC_ROWS`` T rows of 4 T + 4 floats, y, a buffer row of 4 T + 4
+    floats for each of the block's walkers, and each lane group's residual
+    tile of a chunk's rows times ``tile`` walkers, plus 4 floats."""
     t = threads_per_walker(num_dims)
-    rows = -(-num_rows // t) * t
+    chunk = LOGISTIC_ROWS * t
+    rows = -(-num_rows // chunk) * chunk
     form = -(-rows * (4 * t + 5) // 4) * 4
-    return 4 * (form + _BLOCK_THREADS // t * (4 * t + 4))
+    groups = _BLOCK_THREADS // t
+    return 4 * (form + groups * tile * (4 * t + 4)
+                + groups * (chunk * tile + 4))
 
 
 def _unsupported(device_form, num_dims: int, kernel: str) -> Optional[str]:
@@ -304,12 +314,21 @@ def _unsupported(device_form, num_dims: int, kernel: str) -> Optional[str]:
         return (f"the {name} form's {floats} parameter floats exceed "
                 f"{MAX_FORM_FLOATS} in shared memory")
     if name == "logistic":
-        need = logistic_shared_bytes(params[1].shape[0], num_dims)
-        if need > MAX_SHARED_BYTES:
-            return (f"the logistic form at N={params[1].shape[0]}, "
-                    f"D={num_dims} needs {need} bytes of shared memory a "
-                    f"block, over {MAX_SHARED_BYTES}")
+        # at walker tile 1, the least that logistic_tile falls back to
+        return _logistic_too_large(params[1].shape[0], num_dims, 1)
     return None
+
+
+def _logistic_too_large(num_rows: int, num_dims: int,
+                        tile: int) -> Optional[str]:
+    """Why a block of the logistic form at walker tile ``tile`` does not
+    fit in shared memory, or None when it does."""
+    need = logistic_shared_bytes(num_rows, num_dims, tile)
+    if need <= MAX_SHARED_BYTES:
+        return None
+    return (f"the logistic form at N={num_rows}, D={num_dims}, tile {tile} "
+            f"needs {need} bytes of shared memory a block, over "
+            f"{MAX_SHARED_BYTES}")
 
 
 def generic_unsupported(device_form, num_dims: int) -> Optional[str]:
@@ -335,11 +354,11 @@ def threads_per_walker(num_dims: int) -> int:
 
 
 def walker_tile(num_walkers: int, num_dims: int) -> int:
-    """Walkers a lane group owns in kernels B and D with the Gaussian form:
+    """Walkers a lane group owns in kernels B and D with a tiled form:
     the largest of 4, 2, 1 that still leaves ``_FILL_BLOCKS`` blocks, one
     for nearly every SM of the card; 1 where not even that does. A larger
-    tile reads each row of the precision matrix once for more walkers, but
-    makes fewer threads."""
+    tile reads each operand (a row of the precision matrix, a row of x)
+    once for more walkers, but makes fewer threads."""
     if num_walkers < 1 or num_dims < 1:
         raise ValueError(f"need at least one walker and one dim, got "
                          f"W={num_walkers}, D={num_dims}")
@@ -350,19 +369,38 @@ def walker_tile(num_walkers: int, num_dims: int) -> int:
     return 1
 
 
+def logistic_tile(num_walkers: int, num_rows: int, num_dims: int) -> int:
+    """:func:`walker_tile` for the logistic form over ``num_rows`` rows,
+    or the largest smaller tile whose block fits in shared memory
+    (:func:`logistic_shared_bytes`); 1 where none does, which
+    :func:`generic_unsupported` refuses."""
+    tile = walker_tile(num_walkers, num_dims)
+    while tile > 1 and logistic_shared_bytes(num_rows, num_dims,
+                                             tile) > MAX_SHARED_BYTES:
+        tile //= 2
+    return tile
+
+
 def _tile_for(device_form, num_walkers: int, num_dims: int,
               tile: Optional[int]) -> int:
     """The walker tile a launch takes: the chooser's unless one is forced;
-    only the Gaussian form takes more than 1."""
-    if device_form[0] != "gaussian":
+    only the tiled forms take more than 1."""
+    name, params = device_form
+    if name not in TILED_FORMS:
         if tile not in (None, 1):
-            raise ValueError(f"only the gaussian form takes a walker tile, "
-                             f"got {tile} for {device_form[0]!r}")
+            raise ValueError(f"only the gaussian form and the logistic form "
+                             f"take a walker tile, got {tile} for {name!r}")
         return 1
     if tile is None:
+        if name == "logistic":
+            return logistic_tile(num_walkers, params[1].shape[0], num_dims)
         return walker_tile(num_walkers, num_dims)
     if tile not in WALKER_TILES:
         raise ValueError(f"tile must be one of {WALKER_TILES}, got {tile}")
+    why = (_logistic_too_large(params[1].shape[0], num_dims, tile)
+           if name == "logistic" else None)
+    if why:
+        raise ValueError(why)
     return tile
 
 
@@ -390,6 +428,26 @@ def _gaussian_vg(mean, prec):
             g = (d64[:, j:j + 1] * prec64[j] + g.double()).to(q.dtype)
         return 0.5 * torch.sum(d * g, dim=1), g
     return vg
+
+
+def _fma32(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
+    """``fmaf(a, b, c)`` of float32 tensors (broadcast), rounded once as the
+    card's fused multiply-add rounds it: the product is exact in float64,
+    the float64 sum is taken to round-to-odd (from its exact error, by
+    TwoSum) and then rounded to float32, which with 53 >= 24 + 2 bits gives
+    the correctly rounded result with no double rounding."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)  # p + c = s + err exactly
+    bits = s.view(torch.int64)
+    # an inexact sum whose last bit is even moves one ulp toward p + c (an
+    # infinite operand leaves err NaN and the sum as it is)
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    inexact = (err != 0) & err.isfinite()
+    bits = torch.where(inexact & ((bits & 1) == 0), bits + step, bits)
+    return bits.view(torch.float64).to(torch.float32)
 
 
 def _funnel_vg(fp):
@@ -492,9 +550,13 @@ def _lane_partials(terms: Tensor, t: int) -> Tensor:
 
 def _logistic_vg(x, y):
     """Bayesian logistic regression over ``x`` ``[N, D - 1]``, ``y``
-    ``[N]``, q = (w, b): z = x w + b summed over the dims in index order,
-    the gradient's sum over the rows in index order, the value's as the
-    walker's T lanes take the rows (csrc/forms.cuh LogisticForm)."""
+    ``[N]``, q = (w, b), as kernels B and D evaluate it (csrc/forms.cuh
+    LogisticForm): ``z_n = fma(x_nk, q_k, z_n)`` over the dims k in index
+    order, the gradient's ``acc_k = fma(r_n, x_nk, acc_k)`` over the rows n
+    in index order (each multiply-add rounded once, :func:`_fma32`), and
+    the value's likelihood terms summed as the walker's T lanes take the rows
+    (lane l: rows l, l + T, ...). Neither the walker tile nor the row tile
+    changes an order."""
     n = y.shape[0]
 
     def vg(q):
@@ -503,11 +565,11 @@ def _logistic_vg(x, y):
         xa = torch.cat([x, x.new_ones(n, 1)], dim=1)  # b's column of ones
         z = q.new_zeros(w, n)
         for k in range(d):
-            z = z + xa[:, k] * q[:, k:k + 1]
+            z = _fma32(xa[:, k], q[:, k:k + 1], z)
         r = 1.0 / (1.0 + torch.exp(-z)) - y
         acc = torch.zeros_like(q)
         for i in range(n):
-            acc = acc + r[:, i:i + 1] * xa[i]
+            acc = _fma32(r[:, i:i + 1], xa[i], acc)
         lik = (torch.clamp_min(z, 0.0)
                + torch.log1p(torch.exp(-torch.abs(z)))) - y * z
         q4 = torch.cat([q, q.new_zeros(w, 4 * t - d)], 1).reshape(w, t, 4)
@@ -616,9 +678,9 @@ def fused_hmc_transition(
     ``make_fused_hmc_packed`` (:576), with their ``dynamic_steps`` (a
     tensor ``num_steps``, module docstring) and ``emit_proposal``; see
     :func:`fused_hmc_transition_plain` and :func:`generic_unsupported` for
-    what it takes. ``tile`` forces the Gaussian form's walker tile
-    (:func:`walker_tile` of the shape unless given); the result does not
-    depend on it."""
+    what it takes. ``tile`` forces a tiled form's walker tile
+    (:func:`walker_tile` or :func:`logistic_tile` of the shape unless
+    given); the result does not depend on it."""
     if q.device.type == "cpu":
         if tile is not None:
             _tile_for(device_form, *q.shape, tile)
@@ -722,7 +784,7 @@ def leapfrog_trajectory(
     float32 tensor on the device (read there, never on the host),
     ``inv_mass`` ``[D]``. Uses the cached ``(potential_energy, grad)``
     when given (both or neither), where the TPU kernel recomputed them at
-    q; u' is the form's value at the final q. ``tile`` forces the Gaussian
+    q; u' is the form's value at the final q. ``tile`` forces a tiled
     form's walker tile, as in :func:`fused_hmc_transition`."""
     if q.device.type == "cpu":
         if tile is not None:

@@ -319,6 +319,8 @@ def test_gaussian_kernels_with_no_steps_return_the_cached_values(dev, tile,
 
 
 def test_walker_tile_is_for_the_gaussian_form_only(dev):
+    """Only the tiled forms (the Gaussian and, since its register tile,
+    the logistic regression) take a walker tile above 1."""
     q, u = torch.zeros(8, 4, device=dev), torch.zeros(8, device=dev)
     kw = dict(scalars=_t([0.1, 1.0, 1.0], dev),
               p_std=torch.ones(4, device=dev),
@@ -326,6 +328,12 @@ def test_walker_tile_is_for_the_gaussian_form_only(dev):
     funnel = pot.make_funnel(4, device=dev).device_form
     with pytest.raises(ValueError, match="only the gaussian form"):
         kernels.fused_hmc_transition(funnel, 0, 0, q, u, q, tile=2,
+                                     **kw)
+    logistic = _logistic_form(16, 4, dev)
+    lu, lg = kernels.device_value_and_grad(logistic)(q)
+    kernels.fused_hmc_transition(logistic, 0, 0, q, lu, lg, tile=2, **kw)
+    with pytest.raises(ValueError, match="tile must be one of"):
+        kernels.fused_hmc_transition(logistic, 0, 0, q, lu, lg, tile=3,
                                      **kw)
     gauss = pot.make_gaussian(np.zeros(4), precision=np.eye(4),
                               device=dev).device_form
@@ -689,27 +697,100 @@ def test_counted_kernel_a_gives_the_fixed_counts_bits(dev, d):
             3, 5, q, num_steps=torch.tensor([4]), max_steps=16, **kw)
 
 
-@pytest.mark.parametrize("n", [1, 7, 256])
+def _same_bits(got, want, where=None):
+    if where is not None:
+        got, want = got[where], want[where]
+    assert torch.equal(got, want), (got - want).abs().max()
+
+
+@pytest.mark.parametrize("n", [1, 7, 40, 256, 257])
 @pytest.mark.parametrize("d", list(range(1, 34)))
 def test_logistic_form_matches_plain(dev, d, n):
-    """Kernels B and D with the logistic form, at every D up to 33 (P = 0
-    to 32 features; 1 to 16 lanes a walker, on and off the 16-byte path)
-    and N = 1, 7, 256 rows, W no multiple of the block."""
+    """Kernels B and D with the logistic form at every walker tile the
+    chooser can return (1, 2, 4, forced), every D up to 33 (P = 0 to 32
+    features; 1 to 16 lanes a walker, on and off the 16-byte path), N = 1,
+    7, 40, 256 and 257 rows (257: one past a whole number of row chunks), W
+    no multiple of the block; kernel B in its four variants (the count
+    fixed or on the device, with or without the proposal outputs). Kernel
+    and plain version sum in the same order and round each multiply-add
+    once, so D's q', p', u', g', B's proposal and B's q', u', g' (where the
+    decisions agree) are the plain version's bits; B's energy error sums
+    the kinetic energy in another order (``_assert_match``). A second
+    launch and every other tile give the same bits."""
     form = _logistic_form(n, d, dev)
     w = 75
     q, u, g, kw = _b_case(form, w, d, dev, spread=0.3, step=0.03)
-    out_k = dict(zip(B_ORDER, kernels.fused_hmc_transition(
-        form, 7, 3, q, u, g, num_steps=6, **kw)))
-    out_p = dict(zip(B_ORDER, kernels.fused_hmc_transition_plain(
-        form, 7, 3, q, u, g, num_steps=6, **kw)))
-    torch.cuda.synchronize()
-    _assert_match(out_k, out_p, 7, 3)
+    plain = {}
+    for counted in (False, True):
+        for prop in (False, True):
+            extra = dict(emit_proposal=prop)
+            extra.update(dict(num_steps=_count(6, dev), max_steps=8)
+                         if counted else dict(num_steps=6))
+            plain[counted, prop] = kernels.fused_hmc_transition_plain(
+                form, 7, 3, q, u, g, **kw, **extra)
+            first = None
+            for tile in kernels.WALKER_TILES:
+                out = kernels.fused_hmc_transition(form, 7, 3, q, u, g,
+                                                   tile=tile, **kw, **extra)
+                again = kernels.fused_hmc_transition(
+                    form, 7, 3, q, u, g, tile=tile, **kw, **extra)
+                torch.cuda.synchronize()
+                for a, b in zip(out, again):
+                    _same_bits(a, b)
+                if first is None:
+                    first = out
+                    ref = dict(zip(B_ORDER, plain[counted, prop]))
+                    got = dict(zip(B_ORDER, out))
+                    _assert_match(got, ref, 7, 3)
+                    agree = got["accepted"] == ref["accepted"]
+                    for key in ("q", "u", "g"):
+                        _same_bits(got[key], ref[key], agree)
+                    for a, b in zip(out[6:], plain[counted, prop][6:]):
+                        _same_bits(a, b)
+                else:
+                    for a, b in zip(out, first):
+                        _same_bits(a, b)
     p = _t(np.random.default_rng(d).normal(size=(w, d)), dev)
-    lk = dict(step_size=_t([0.03], dev), num_steps=5,
-              inv_mass=kw["inv_mass"])
-    for a, b in zip(kernels.leapfrog_trajectory(form, q, p, **lk),
-                    kernels.leapfrog_trajectory_plain(form, q, p, **lk)):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    for cached in (False, True):
+        lk = dict(step_size=_t([0.03], dev), num_steps=5,
+                  inv_mass=kw["inv_mass"])
+        if cached:
+            lk.update(grad=g, potential_energy=u)
+        want = kernels.leapfrog_trajectory_plain(form, q, p, **lk)
+        for tile in kernels.WALKER_TILES:
+            out = kernels.leapfrog_trajectory(form, q, p, tile=tile, **lk)
+            again = kernels.leapfrog_trajectory(form, q, p, tile=tile, **lk)
+            torch.cuda.synchronize()
+            for a, b, c in zip(out, again, want):
+                _same_bits(a, b)
+                _same_bits(a, c)
+
+
+def test_logistic_tile_chooser_on_cuda(dev):
+    """Without a forced tile the wrappers take ``kernels.logistic_tile``:
+    at W = 8192 and D = 32, tile 2, the same bits as tile 2 forced; a tile
+    whose block would not fit in shared memory is refused before any
+    launch."""
+    form = _logistic_form(256, 32, dev)
+    assert kernels.logistic_tile(8192, 256, 32) == 2
+    q, u, g, kw = _b_case(form, 8192, 32, dev, spread=0.3, step=0.03)
+    auto = kernels.fused_hmc_transition(form, 7, 3, q, u, g, num_steps=4,
+                                        **kw)
+    two = kernels.fused_hmc_transition(form, 7, 3, q, u, g, num_steps=4,
+                                       tile=2, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(auto, two):
+        _same_bits(a, b)
+    # 768 rows at D = 33 (16 lanes a walker) fit at tile 2, not at 4
+    big = _logistic_form(768, 33, dev)
+    assert kernels.generic_unsupported(big, 33) is None
+    assert kernels.logistic_tile(102400, 768, 33) == 2
+    qb, ub, gb, kwb = _b_case(big, 64, 33, dev, spread=0.3, step=0.03)
+    before = kernels.fused_hmc_transition.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.fused_hmc_transition(big, 7, 3, qb, ub, gb, num_steps=2,
+                                     tile=4, **kwb)
+    assert kernels.fused_hmc_transition.launches == before
 
 
 @pytest.mark.parametrize("w,j", [(1, 1), (37, 3), (1001, 8), (64, 30)])

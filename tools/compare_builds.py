@@ -11,7 +11,9 @@ same Philox draws:
 
 * says whether the outputs are the same bits and the largest absolute
   difference otherwise (every row runs the fixed leapfrog count without
-  the proposal outputs, which both checkouts have);
+  the proposal outputs, which both checkouts have); the logistic rows
+  (``models.logistic_regression_data(256, 31)``, the data of phase 8a)
+  differ wherever the two checkouts' logistic forms round differently;
 * times both in the order other, this, this, other (CUDA-graph replays
   timed with CUDA events, ``chip_smoke.median_ms``), since two cards or
   two calls differ by more than most changes.
@@ -35,6 +37,7 @@ sys.path.insert(0, str(ROOT))
 from chip_smoke import median_ms  # noqa: E402
 from physicsbasedbayesianinference_tpu_torch.ops import kernels as this  # noqa: E402,E501
 from physicsbasedbayesianinference_tpu_torch.ops import potentials as pot  # noqa: E402,E501
+from physicsbasedbayesianinference_tpu_torch import models  # noqa: E402
 
 PACKAGE = "physicsbasedbayesianinference_tpu_torch"
 SEED = 20261016
@@ -145,6 +148,13 @@ def main() -> None:
           ("diag", (one, 0.0 * one)), 102400, 32, 0.3)
     row_d("D funnel W=8192 D=10 L=16",
           pot.make_funnel(10, device=dev).device_form, w, 10, 0.05)
+    x, y = models.logistic_regression_data(256, 31)
+    logistic = ("logistic", (torch.as_tensor(x).to(dev),
+                             torch.as_tensor(y).to(dev)))
+    for w_ in (102400, 8192):
+        row_b(f"B logistic W={w_} D=32 N=256 L=16", logistic,
+              0.3 * randn(w_, 32), 0.05)
+    row_d("D logistic W=102400 D=32 N=256 L=16", logistic, 102400, 32, 0.05)
 
 
 if __name__ == "__main__":

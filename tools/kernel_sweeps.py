@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """The measured sweeps behind the design constants of kernels E and A and
-of the Gaussian form's matvec in kernels B and D.
+of the Gaussian and logistic forms' register tiles in kernels B and D.
 
-    python3 tools/kernel_sweeps.py [--only e|a|gaussian]
+    python3 tools/kernel_sweeps.py [--only e|a|gaussian|logistic|registers]
 
 from the repository root, on a GPU (every sweep unless ``--only`` names one).
 
@@ -34,7 +34,23 @@ build is hashed by its flags, ``ops/_build.py``) and times, as
   chooser never takes) varied; kernel D with the
   diagonal form at W = 102400, D = 32; and, as context for the matvec
   alone, 17 calls of ``torch.matmul(q - mu, P)`` at W = 102400, D = 32 (the
-  gradients of one 16-step transition; the port never calls it).
+  gradients of one 16-step transition; the port never calls it);
+* kernels B and D with the logistic form (``csrc/forms.cuh``
+  LogisticForm) on ``models.logistic_regression_data(256, 31)`` (N = 256,
+  D = 32) at W = 102400 and W = 8192, L = 16, for every walker tile (1,
+  2, 4) forced, in the default build (4 rows a lane) and with
+  ``PBBI_L_ROWS`` = 2 and 8 (the row tile), ``PBBI_BD_MIN_BLOCKS=1`` (no
+  cap of 128 registers, so no spill, 8 warps an SM) and
+  ``PBBI_L_FAST_SIGMOID`` (the residual's exponential and division by the
+  approximate intrinsics, which the plain version does not follow: the
+  share of the sigmoid's instructions); and, as context, the two
+  ``torch.matmul`` calls and the sigmoid of each of the 17 gradients of a
+  transition (the port never calls them);
+* the registers, stack and spills of every instantiation of kernels B and D
+  (``nvcc -Xptxas -v``, the library's flags without ``-split-compile``,
+  whose parallel ptxas runs interleave their reports), one line each with
+  the form, the walker tile and the variant, and the seconds each source
+  took.
 
 Prints the card, then one JSON line per measurement.
 """
@@ -43,8 +59,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
+import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -54,6 +73,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from chip_smoke import median_ms  # noqa: E402
 from physicsbasedbayesianinference_tpu_torch.ops import _build  # noqa: E402
 from physicsbasedbayesianinference_tpu_torch.ops import kernels  # noqa: E402
+from physicsbasedbayesianinference_tpu_torch import models  # noqa: E402
 
 SEED = 20261016
 # (partial sums per lane, threads per block), the default first
@@ -69,6 +89,9 @@ G_VARIANTS = ((), ("-DPBBI_BD_MIN_BLOCKS=1",), ("-DPBBI_G_UNROLL=1",),
               ("-DPBBI_G_TILE8", "-DPBBI_BD_MIN_BLOCKS=1"),
               ("-DPBBI_G_TILE8", "-DPBBI_BLOCK=128",
                "-DPBBI_BD_MIN_BLOCKS=1"))
+# extra nvcc flags of the logistic sweep's builds, the default first
+L_VARIANTS = ((), ("-DPBBI_L_ROWS=2",), ("-DPBBI_L_ROWS=8",),
+              ("-DPBBI_BD_MIN_BLOCKS=1",), ("-DPBBI_L_FAST_SIGMOID",))
 
 
 def use(flags=()):
@@ -85,7 +108,8 @@ def bodies(n, dtype, gen, dev):
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=("e", "a", "gaussian"))
+    parser.add_argument("--only", choices=("e", "a", "gaussian", "logistic",
+                                           "registers"))
     only = parser.parse_args().only
     if not torch.cuda.is_available():
         raise SystemExit("tools/kernel_sweeps.py needs a CUDA device")
@@ -96,7 +120,9 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(SEED)
     for name, sweep in (("e", sweep_e), ("a", sweep_a),
-                        ("gaussian", sweep_gaussian)):
+                        ("gaussian", sweep_gaussian),
+                        ("logistic", sweep_logistic),
+                        ("registers", sweep_registers)):
         if only in (None, name):
             sweep(gen, dev)
     kernels.load_library = _build.load_library
@@ -245,6 +271,115 @@ def sweep_gaussian(gen, dev) -> None:
         "yardstick": "torch.matmul(q - mu, P) x 17 (the gradients of one "
                      "L=16 transition, nothing else of it)",
         "W": 102400, "D": 32, "allow_tf32": False, "ms": median_ms(matvecs)}))
+
+
+def sweep_logistic(gen, dev) -> None:
+    steps = 16
+    x, y = models.logistic_regression_data(256, 31)
+    form = ("logistic", (torch.as_tensor(x).to(dev),
+                         torch.as_tensor(y).to(dev)))
+    xd, yd = form[1]
+    d = 32
+    cases = {}
+    for w in (102400, 8192):
+        q = 0.3 * torch.randn(w, d, generator=gen).to(dev)
+        u, g = kernels.device_value_and_grad(form)(q)
+        cases[w] = (q, torch.randn(w, d, generator=gen).to(dev), u, g)
+    scalars = torch.tensor([0.05, 1.0, 1.0], device=dev)
+    step = torch.tensor([0.05], device=dev)
+    one = torch.ones(d, device=dev)
+    rows = kernels.LOGISTIC_ROWS
+
+    def time_b(w, tile):
+        q, _, u, g = cases[w]
+        return median_ms(lambda: kernels.fused_hmc_transition(
+            form, SEED, 7, q, u, g, scalars=scalars, p_std=one, inv_mass=one,
+            num_steps=steps, tile=tile))
+
+    def time_d(w, tile):
+        q, p, u, g = cases[w]
+        return median_ms(lambda: kernels.leapfrog_trajectory(
+            form, q, p, step_size=step, num_steps=steps, inv_mass=one,
+            grad=g, potential_energy=u, tile=tile))
+
+    for flags in L_VARIANTS:
+        use(flags)
+        # the wrappers' shared-memory check follows the build's row tile
+        kernels.LOGISTIC_ROWS = next(
+            (int(f.split("=")[1]) for f in flags
+             if f.startswith("-DPBBI_L_ROWS=")), rows)
+        for w in cases:
+            print(json.dumps({
+                "kernel": "B and D, logistic form", "flags": list(flags),
+                "W": w, "D": d, "N": 256, "L": steps,
+                "chosen_tile": kernels.logistic_tile(w, 256, d),
+                "B_ms_by_tile": {t: time_b(w, t)
+                                 for t in kernels.WALKER_TILES},
+                "D_ms_by_tile": {t: time_d(w, t)
+                                 for t in kernels.WALKER_TILES}}))
+    kernels.LOGISTIC_ROWS = rows
+    use()
+    for w, (q, *_) in cases.items():
+        def library():
+            for _ in range(steps + 1):
+                r = torch.sigmoid(q[:, :-1] @ xd.T + q[:, -1:]) - yd
+                torch.cat([q[:, :-1] + r @ xd,
+                           q[:, -1:] + r.sum(1, keepdim=True)], 1)
+        print(json.dumps({
+            "yardstick": "two torch.matmul and a sigmoid x 17 (the "
+                         "gradients of one L=16 transition, nothing else)",
+            "W": w, "D": d, "N": 256, "allow_tf32": False,
+            "ms": median_ms(library)}))
+
+
+def _ptxas_report(text: str):
+    """(mangled entry, registers, stack, spill stores, spill loads) of each
+    kernel in nvcc -Xptxas -v output."""
+    entry, props, out = None, {}, []
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and entry:
+            props[entry] = tuple(map(int, m.groups()))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out.append((entry, int(m.group(1)), *props.get(entry, (0, 0, 0))))
+            entry = None
+    return out
+
+
+def sweep_registers(gen, dev) -> None:
+    del gen, dev
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-split-compile", "0")]
+    nvcc = _build.nvcc_path()
+    demangle = shutil.which("cu++filt") or str(
+        Path(nvcc).parent / "cu++filt")
+    out_dir = _build.BUILD_DIR / "ptxas"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for src in ("fused_hmc.cu", "leapfrog.cu"):
+        t0 = time.perf_counter()
+        done = subprocess.run(
+            [nvcc, *flags, "-Xptxas", "-v", "-c", "-o",
+             str(out_dir / f"{src}.o"), str(_build.CSRC / src)],
+            capture_output=True, text=True, check=True)
+        seconds = time.perf_counter() - t0
+        report = _ptxas_report(done.stdout + done.stderr)
+        names = subprocess.run([demangle], input="\n".join(
+            r[0] for r in report), capture_output=True, text=True,
+            check=True).stdout.splitlines()
+        print(json.dumps({"source": src, "seconds_without_split_compile":
+                          seconds, "kernels": len(report)}))
+        for (_, regs, stack, st, ld), name in zip(report, names):
+            print(json.dumps({"source": src, "kernel": name,
+                              "registers": regs, "stack_bytes": stack,
+                              "spill_store_bytes": st,
+                              "spill_load_bytes": ld}))
+    shutil.rmtree(out_dir)
 
 
 if __name__ == "__main__":
