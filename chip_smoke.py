@@ -70,6 +70,30 @@
    and round each multiply-add once. Times them, and for the logistic form
    the two ``torch.matmul`` calls and the sigmoid that its gradients
    amount to.
+2, at the tempered shapes. Holds kernel A (W = 102400, D = 32) and kernel
+   B's N-body form (W = 102400, D = 24) with a potential scale of 0.37 in
+   their device scalars, and B's mixture form (W = 16384, D = 2) at beta =
+   0.21 with momenta thermal at it, against their plain versions; times
+   them.
+9. Runs tempered SMC, ``run_smc(kernel="auto")``, at 102400 walkers, each
+   mutation one launch with the stage beta as the kernel's potential scale
+   and the stage loop's condition the one host read a stage: 9a the 32-dim
+   standard normal from N(0, I / 0.1) in kernel A, held to the closed-form
+   log-evidence (16 ln 0.1) and moments; 9b BASELINE config 4 (8 unit-mass
+   bodies, softening 0.3, D = 24) in kernel B's N-body form. A second run
+   of each with the same seed must give the same bits, and two more
+   stages under the profiler must make no blocking call.
+10. Runs parallel tempering, ``run_parallel_tempering``, on the bimodal
+   mixture with modes at (+-6, 0), 6 replicas down to beta = 0.02, 16384
+   walkers a replica all started in the left mode: one launch of kernel
+   B's mixture form per replica and transition at the replica's beta;
+   checks the cold replica's share of the right mode, the acceptance and
+   swap rates, and that the run's blocking calls do not grow with its
+   transitions.
+11. Runs lockstep NUTS, ``run_nuts``, on the sampler-matrix target (the
+   16-dim Gaussian with sd logspace(0, 1, 16)) at 65536 walkers: no fused
+   kernel; checks moments, acceptance and mean depth, and prints the host
+   reads a transition.
 
 The line before the last is a JSON object with one entry per kernel, with
 its time beside its bound (``bound_ms``: the larger of the bytes it must
@@ -232,7 +256,8 @@ def main() -> None:
              "a CUDA GPU")
     from physicsbasedbayesianinference_tpu_torch import (
         adaptation, chees, default_device, diagnostics, models, new_ensemble,
-        physics, run_chees_hmc, run_hmc)
+        nuts, physics, run_chees_hmc, run_hmc, run_nuts,
+        run_parallel_tempering, run_smc, smc)
     from physicsbasedbayesianinference_tpu_torch.ops import _build, kernels
     from physicsbasedbayesianinference_tpu_torch.ops import philox
     from physicsbasedbayesianinference_tpu_torch.ops import potentials as pot
@@ -292,14 +317,17 @@ def main() -> None:
 
     # ---- 2. kernels against their plain versions ---------------------------
     def check_a(case, w, d, steps, step, random_metric, time_it,
-                threshold=1000.0):
+                threshold=1000.0, beta=1.0, scale=1.0):
+        """Kernel A against its plain version; ``beta``, ``scale``: the
+        device scalars' (momenta thermal at beta, std sqrt(m / beta))."""
         q = randn(w, d)
         if random_metric:
             k, mu, im = uniform(0.5, 2, d), randn(d), uniform(0.5, 2, d)
         else:
             k, mu = torch.ones(d, device=dev), torch.zeros(d, device=dev)
             im = torch.ones(d, device=dev)
-        kw = dict(scalars=scalars(step), p_std=torch.sqrt(1.0 / im),
+        kw = dict(scalars=scalars(step, beta, scale),
+                  p_std=torch.sqrt(1.0 / (im * beta)),
                   inv_mass=im, k_diag=k, mean=mu, num_steps=steps,
                   divergence_threshold=threshold)
         counter = 7
@@ -329,13 +357,16 @@ def main() -> None:
         print(json.dumps(line))
         return line
 
-    def check_b(case, form, q, steps, step, time_it):
+    def check_b(case, form, q, steps, step, time_it, beta=1.0, scale=1.0,
+                plain_reps=20):
+        """Kernel B against its plain version, as ``check_a``."""
         w, d = q.shape
         vg = kernels.device_value_and_grad(form)
         u, g = vg(q)
         im = uniform(0.5, 2, d)
-        kw = dict(scalars=scalars(step), p_std=torch.sqrt(1.0 / im),
-                  inv_mass=im, num_steps=steps)
+        kw = dict(scalars=scalars(step, beta, scale),
+                  p_std=torch.sqrt(1.0 / (im * beta)), inv_mass=im,
+                  num_steps=steps)
         counter = 11
         out_k = named(kernels.fused_hmc_transition(
             form, SEED, counter, q, u, g, **kw), B_ORDER)
@@ -351,7 +382,8 @@ def main() -> None:
                 form, SEED, counter, q, u, g, **kw))
             line["plain_ms"] = median_ms(
                 lambda: kernels.fused_hmc_transition_plain(
-                    form, SEED, counter, q, u, g, **kw))
+                    form, SEED, counter, q, u, g, **kw), reps=plain_reps,
+                rounds=7 if plain_reps == 20 else 3)
         print(json.dumps(line))
         return line
 
@@ -1216,6 +1248,229 @@ def main() -> None:
         form_es, res8b.state.ensemble.q[:8192].contiguous(), 40, step_es,
         False, counted=16, proposal=True, mass=mass_es)["max_abs_err"]]
 
+    # ---- 2, at the tempered shapes: a potential scale and a beta ----------
+    # the shapes phases 9 and 10 give kernels A and B, with SMC's stage beta
+    # as the potential scale (9a, 9b) and a tempering rung's beta with its
+    # thermal momenta (10); drawn after every earlier phase's draws
+    a_scaled = check_a("A std_normal W=102400 D=32 L=10 beta=1 scale=0.37",
+                       102400, 32, 10, 0.8, False, True, scale=0.37)
+    nbody8 = pot.make_nbody_potential(torch.ones(8), 8, softening=0.3,
+                                      device=dev)
+    b_nbody = check_b(
+        "B nbody N=8 eps=0.3 W=102400 D=24 L=8 beta=1 scale=0.37",
+        nbody8.device_form, 2.0 * randn(102400, 24), 8, 0.3, True,
+        scale=0.37, plain_reps=2)
+    bimodal = pot.make_gaussian_mixture(
+        torch.tensor([[-6.0, 0.0], [6.0, 0.0]]), device=dev)
+    b_mixture = check_b(
+        "B mixture K=2 W=16384 D=2 L=10 beta=0.21 scale=1",
+        bimodal.device_form, 6.0 * randn(16384, 2), 10, 0.5, True,
+        beta=0.21)
+
+    # ---- 9. tempered SMC, mutating in kernels A and B -----------------------
+    def smc_phase(sub, title, target, q0, wanted, **kw):
+        """run_smc(kernel="auto") with every mutation one launch of
+        ``wanted`` at the stage beta as the kernel's potential scale, one
+        host read a stage (and one for the last check), none in a stage."""
+        kernels.reset_launch_counts()
+        reads = smc._host_read.reads
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_smc(SEED + 13, target, q0, kernel="auto", **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        reads = smc._host_read.reads - reads
+        n = res.num_stages
+        k_mut = kw["num_mutation_steps"]
+        if not (res.kernel_used == "fused"
+                and counts[wanted] == k_mut * n
+                and sum(counts.values()) == counts[wanted]
+                and reads == n + 1):
+            fail(f"phase {sub} ran {res.kernel_used}: {counts} launches in "
+                 f"{n} stages, {reads} host reads (want {k_mut} x {n} "
+                 f"launches of {wanted} and {n + 1} reads)")
+        # the same seed gives the same bits (the resamplers' CDF is
+        # integer: no sum whose order depends on the card's timing)
+        again = run_smc(SEED + 13, target, q0, kernel="auto", **kw)
+        if not (torch.equal(again.q, res.q)
+                and torch.equal(again.log_evidence, res.log_evidence)):
+            fail(f"phase {sub}: a second run with the same seed differs "
+                 f"(log Z {again.log_evidence.item()} and "
+                 f"{res.log_evidence.item()})")
+        # a stage's own program reads nothing back: profile two more
+        m = smc.build_smc_machinery(
+            target, q0.shape[0], q0.dtype, num_dims=q0.shape[1],
+            device=dev, **{k: v for k, v in kw.items()
+                           if k != "max_stages"})
+        carry = m["body"](m["init_carry"](SEED, q0))
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            for _ in range(2):
+                carry = m["body"](carry)
+            torch.cuda.synchronize()
+        calls = {e.key: e.count for e in prof.key_averages()}
+        blocking = {k: calls.get(k, 0) for k in (
+            "cudaStreamSynchronize", "cudaMemcpy", "cudaMemcpyAsync")}
+        if any(blocking.values()):
+            fail(f"phase {sub}: two SMC stages made blocking calls "
+                 f"{blocking}")
+        accepts = res.accept_history[:n]
+        line = {
+            "phase": f"{sub} run_smc {title} kernel=auto",
+            "kernel_used": res.kernel_used, "launches": counts[wanted],
+            "num_stages": n, "final_beta": res.betas[n].item(),
+            "log_evidence": res.log_evidence.item(),
+            "mean_stage_accept": accepts.mean().item(),
+            "min_stage_accept": accepts.min().item(),
+            "final_step_size": res.final_step_size.item(),
+            "host_reads": reads, "seconds": seconds,
+            "ms_per_stage": 1e3 * seconds / n,
+            "walker_mutations_per_s": q0.shape[0] * k_mut * n / seconds}
+        return res, line, counts[wanted]
+
+    # 9a: the 32-dim standard normal from N(0, I / beta0); log Z = 16 ln 0.1
+    beta0 = 0.1
+    q9 = torch.randn(w, d, generator=seeded(9), device=dev) / beta0**0.5
+    res9a, line9a, launched_9a = smc_phase(
+        "9a", "std_normal_32d W=102400 beta0=0.1 K=3 L=10",
+        pot.make_standard_normal(d), q9, "fused_hmc_diag_quadratic",
+        num_mutation_steps=3, num_leapfrog_steps=10, init_step_size=0.8,
+        beta0=beta0, max_stages=40)
+    z_err = abs(res9a.log_evidence.item() - 0.5 * d * np.log(beta0))
+    mean_err = res9a.q.mean(0).abs().max().item()
+    var_err = (res9a.q.var(0) - 1.0).abs().max().item()
+    line9a.update(log_evidence_err=z_err, max_abs_mean=mean_err,
+                  max_abs_var_minus_1=var_err)
+    print(json.dumps(line9a))
+    if not (res9a.num_stages < 40 and res9a.betas[res9a.num_stages] == 1.0
+            and z_err < 0.25 and mean_err < 0.05 and var_err < 0.1):
+        fail(f"phase 9a off: {res9a.num_stages} stages to beta "
+             f"{res9a.betas[res9a.num_stages].item()}, log Z error {z_err} "
+             f"(limit 0.25), max|mean| {mean_err} (0.05), max|var-1| "
+             f"{var_err} (0.1)")
+
+    # 9b: BASELINE config 4, 8 unit-mass bodies with softening 0.3
+    q9b = 2.0 * torch.randn(w, 24, generator=seeded(10), device=dev)
+    res9b, line9b, launched_9b = smc_phase(
+        "9b", "nbody N=8 eps=0.3 D=24 W=102400 beta0=0.05 K=3 L=8", nbody8,
+        q9b, "fused_hmc_transition", num_mutation_steps=3,
+        num_leapfrog_steps=8, init_step_size=0.3, beta0=0.05, max_stages=30)
+    print(json.dumps(line9b))
+    if not (np.isfinite(line9b["log_evidence"])
+            and line9b["mean_stage_accept"] > 0.5):
+        fail(f"phase 9b off: log Z {line9b['log_evidence']}, mean stage "
+             f"accept {line9b['mean_stage_accept']} (limit 0.5)")
+
+    # ---- 10. parallel tempering on the bimodal mixture ----------------------
+    # modes at (+-6, 0), sigma 1; every walker starts in the left one
+    r10, w10, n_warm10, n_samp10 = 6, 16384, 200, 400
+    q10 = torch.tensor([-6.0, 0.0], device=dev) + 0.3 * torch.randn(
+        w10, 2, generator=seeded(11), device=dev)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res10 = run_parallel_tempering(
+        SEED + 14, bimodal, q10, num_replicas=r10, beta_min=0.02,
+        num_warmup=n_warm10, num_samples=n_samp10, num_steps=10,
+        collect="samples")
+    torch.cuda.synchronize()
+    seconds10 = time.perf_counter() - t0
+    counts10 = kernels.launch_counts()
+    launched_10 = counts10["fused_hmc_transition"]
+    right = (res10.samples[:, :, 0] > 0).float().mean().item()
+    min_acc = res10.accept_rate.min().item()
+    max_swap = res10.swap_rate.max().item()
+
+    def pt_blocking(num_warmup, num_samples):
+        """The run's blocking calls under the profiler; with moments, since
+        collect="samples" copies the cold replica on the device once a
+        transition, which the profiler counts as a cudaMemcpyAsync too."""
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            run_parallel_tempering(SEED, bimodal, q10, num_replicas=r10,
+                                   beta_min=0.02, num_warmup=num_warmup,
+                                   num_samples=num_samples, num_steps=10,
+                                   collect="moments")
+        calls = {e.key: e.count for e in prof.key_averages()}
+        return {k: calls.get(k, 0) for k in (
+            "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy",
+            "cudaMemcpyAsync")}
+
+    # the blocking calls of a run (its set-up, the synchronisations around
+    # sampling) do not grow with the transitions: no read in either loop
+    blocking_short, blocking_long = pt_blocking(5, 5), pt_blocking(20, 30)
+    print(json.dumps({
+        "phase": f"10 run_parallel_tempering bimodal mixture (+-6, 0) "
+                 f"R={r10} beta_min=0.02 W={w10} L=10 warmup={n_warm10} "
+                 f"samples={n_samp10} kernel=auto",
+        "kernel_used": res10.kernel_used, "launches": launched_10,
+        "right_mode_share": right,
+        "accept_rate": res10.accept_rate.tolist(),
+        "swap_rate": res10.swap_rate.tolist(),
+        "step_sizes": res10.step_sizes.tolist(),
+        "betas": res10.betas.tolist(),
+        "blocking_calls_10_vs_50_transitions": [blocking_short,
+                                                blocking_long],
+        "seconds": seconds10,
+        "ms_per_transition": 1e3 * seconds10 / (n_warm10 + n_samp10),
+        "sampling_ms_per_transition":
+            1e3 * res10.sampling_seconds / n_samp10}))
+    if not (res10.kernel_used == "fused"
+            and launched_10 == r10 * (n_warm10 + n_samp10)
+            and sum(counts10.values()) == launched_10
+            and 0.35 <= right <= 0.65 and min_acc > 0.5 and max_swap > 0.05
+            and blocking_short == blocking_long):
+        fail(f"phase 10 off: ran {res10.kernel_used} with {launched_10} "
+             f"launches (want {r10 * (n_warm10 + n_samp10)}), right-mode "
+             f"share {right} (limits 0.35-0.65), min accept {min_acc}, max "
+             f"swap rate {max_swap}, blocking calls {blocking_short} and "
+             f"{blocking_long}")
+
+    # ---- 11. lockstep NUTS on the sampler-matrix target ---------------------
+    # the ill-conditioned 16-dim Gaussian, sd logspace(0, 1, 16); NUTS has
+    # no fused kernel: the Gaussian's batched value and gradient on the card
+    w11, d11, n_warm11, n_samp11 = 65536, 16, 300, 300
+    sd11 = torch.logspace(0.0, 1.0, d11, device=dev)
+    target11 = pot.make_gaussian(torch.zeros(d11), cov=torch.diag(
+        sd11.cpu() ** 2), device=dev)
+    q11 = torch.randn(w11, d11, generator=seeded(12), device=dev) * sd11
+    kernels.reset_launch_counts()
+    reads = nuts._host_read.reads
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res11 = run_nuts(SEED + 15, target11, q11, num_warmup=n_warm11,
+                     num_samples=n_samp11, max_depth=8)
+    torch.cuda.synchronize()
+    seconds11 = time.perf_counter() - t0
+    reads = nuts._host_read.reads - reads
+    var11, mean11 = torch.var_mean(res11.samples.reshape(-1, d11), dim=0)
+    mean_err = (mean11 / sd11).abs().max().item()
+    var_err = (var11 / sd11**2 - 1.0).abs().max().item()
+    accept, depth = res11.accept_rate.item(), res11.mean_depth.item()
+    print(json.dumps({
+        "phase": f"11 run_nuts lockstep ill-conditioned Gaussian sd "
+                 f"logspace(0, 1, {d11}) W={w11} max_depth=8 "
+                 f"warmup={n_warm11} samples={n_samp11}",
+        "launches": sum(kernels.launch_counts().values()),
+        "max_mean_err_sd": mean_err, "max_rel_var_err": var_err,
+        "accept_rate": accept, "divergence_rate":
+            res11.divergence_rate.item(),
+        "mean_depth": depth, "step_size": res11.step_size.item(),
+        "host_reads_per_transition": reads / (n_warm11 + n_samp11),
+        "seconds": seconds11,
+        "sampling_ms_per_transition": 1e3 * res11.sampling_seconds
+        / n_samp11,
+        "walker_transitions_per_s": w11 * n_samp11 / res11.sampling_seconds}))
+    if not (mean_err < 0.05 and var_err < 0.1 and 0.6 <= accept <= 0.99
+            and 2.0 <= depth <= 8.0
+            and sum(kernels.launch_counts().values()) == 0):
+        fail(f"phase 11 off: mean {mean_err} sd (limit 0.05), var "
+             f"{var_err} (0.1), accept {accept} (0.6-0.99), mean depth "
+             f"{depth} (2-8), launches {kernels.launch_counts()}")
+
     def entry(name, source, replaces, launches, errs, main):
         return {"name": name, "case": main["case"], "route": "cuda",
                 "source": source,
@@ -1257,6 +1512,15 @@ def main() -> None:
         # the logistic form in kernel D (phase 8e)
         entry("leapfrog_trajectory", f"{CSRC}/forms.cuh", 140,
               launched_d_lr, [d_lr["max_abs_err"]], d_lr),
+        # the tempered samplers: kernel A at SMC's stage beta (9a), kernel
+        # B's N-body form at it (9b), and its mixture form at a tempering
+        # rung's beta (10; the TPU ran the 2-D replicas walker-packed)
+        entry("fused_hmc_diag_quadratic", SOURCE, 893, launched_9a,
+              [a_scaled["max_abs_err"]], a_scaled),
+        entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 373, launched_9b,
+              [b_nbody["max_abs_err"]], b_nbody),
+        entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576, launched_10,
+              [b_mixture["max_abs_err"]], b_mixture),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,12 +8,16 @@ state, the analytic potentials, the splitting integrators with kernel D's
 ``pallas_leapfrog``, warmup adaptation, the fused transition kernels and
 the diagnostics), the model DSL in :mod:`.models` with ChEES-HMC
 (:func:`run_chees_hmc`, trajectory-length adaptation, fused on models that
-have a device form), and direct N-body simulation in :mod:`.physics`,
-whose accelerations run kernel E on CUDA.
+have a device form), tempered SMC (:func:`run_smc`) and parallel tempering
+(:func:`run_parallel_tempering`), both mutating in the fused kernels at a
+beta read on the device, lockstep NUTS (:func:`run_nuts`), and direct
+N-body simulation in :mod:`.physics`, whose accelerations run kernel E on
+CUDA.
 """
 
 from . import (adaptation, chees, constants, device, diagnostics, ensemble,
-               hmc, models, native, ops, physics, utils)
+               hmc, models, native, nuts, ops, physics, smc, tempering,
+               utils)
 from .chees import ChEESRunResult, run_chees_hmc
 from .constants import NATURAL, SI, Constants, solar_system_units
 from .device import default_device
@@ -26,6 +30,9 @@ from .ensemble import (
 )
 from .hmc import (HMCInfo, HMCKernel, HMCRunResult, HMCState,
                   build_fused_hmc_kernel, build_hmc_kernel, run_hmc)
+from .nuts import NUTSInfo, NUTSKernel, build_nuts_kernel, run_nuts
+from .smc import SMCResult, run_smc
+from .tempering import PTResult, run_parallel_tempering
 
 __all__ = [
     "adaptation",
@@ -57,6 +64,17 @@ __all__ = [
     "build_fused_hmc_kernel",
     "build_hmc_kernel",
     "run_hmc",
+    "smc",
+    "SMCResult",
+    "run_smc",
+    "tempering",
     "ChEESRunResult",
     "run_chees_hmc",
+    "PTResult",
+    "run_parallel_tempering",
+    "nuts",
+    "NUTSInfo",
+    "NUTSKernel",
+    "build_nuts_kernel",
+    "run_nuts",
 ]

@@ -101,6 +101,14 @@ def _splitmix64(x: int) -> int:
     return x ^ (x >> 31)
 
 
+def _device_scalar(x, device) -> Tensor:
+    """``x`` (a number, or a tensor of one element) as a float32 tensor [1]
+    on ``device``; a number is filled there, not copied from the host."""
+    if isinstance(x, Tensor):
+        return x.reshape(1).to(device=device, dtype=torch.float32)
+    return torch.full((1,), float(x), dtype=torch.float32, device=device)
+
+
 def _step_generator(key: StepKey, device) -> torch.Generator:
     """The composed engine's generator for transition ``key``."""
     seed, counter = key
@@ -177,7 +185,12 @@ def build_hmc_kernel(
         return init_state(vg, q, mass)
 
     def step(key: StepKey, state: HMCState, step_size,
-             mass: Optional[Tensor] = None) -> tuple[HMCState, HMCInfo]:
+             mass: Optional[Tensor] = None, *,
+             momentum: Optional[Tensor] = None,
+             uniform: Optional[Tensor] = None) -> tuple[HMCState, HMCInfo]:
+        """``momentum=`` ``[W, D]`` and ``uniform=`` ``[W]`` replace the
+        step's own draws, for tests that hold it against another
+        implementation."""
         ens = state.ensemble
         if mass is None:
             mass = ens.mass
@@ -186,12 +199,15 @@ def build_hmc_kernel(
         p_std = thermal_momentum_std(mass, temperature, constants)
         p0 = p_std * torch.randn(q.shape, generator=gen, dtype=q.dtype,
                                  device=q.device)
+        if momentum is not None:
+            p0 = momentum
         q1, p1, u1, g1 = integ(
             vg, q, p0, step_size=step_size, num_steps=num_steps,
             inv_mass=1.0 / mass, grad=state.grad,
             potential_energy=state.potential_energy)
-        uniform = torch.rand(q.shape[:1], generator=gen, dtype=q.dtype,
-                             device=q.device)
+        if uniform is None:
+            uniform = torch.rand(q.shape[:1], generator=gen, dtype=q.dtype,
+                                 device=q.device)
         # momentum flip: the proposal is its own inverse
         return metropolis_select(
             state, p0, mass, (q1, -p1, u1, g1), beta=beta,
@@ -262,21 +278,22 @@ class FusedTransition:
                     for p in params))
         return self._prepared[key]
 
-    def _scalars(self, step_size, device) -> Tensor:
-        """(step size, beta, potential scale = 1) as a device tensor [3].
+    def _scalars(self, step_size, device, beta=None, scale=None) -> Tensor:
+        """(step size, beta, potential scale) as a device tensor [3].
         Writing a Python number into a CUDA tensor is a blocking
-        host-to-device copy, so (beta, 1) is made once per device and a
-        float step size is filled on the device."""
-        key = str(device)
-        if key not in self._beta_scale:
-            self._beta_scale[key] = torch.tensor(
-                [self.beta, 1.0], dtype=torch.float32, device=device)
-        if isinstance(step_size, Tensor):
-            step = step_size.reshape(1).to(device=device, dtype=torch.float32)
-        else:
-            step = torch.full((1,), float(step_size), dtype=torch.float32,
-                              device=device)
-        return torch.cat((step, self._beta_scale[key]))
+        host-to-device copy, so a number is filled on the device and a
+        tensor joined as it is; without a per-call ``beta`` or ``scale``
+        the pair (the constants' beta, 1) is made once per device."""
+        step = _device_scalar(step_size, device)
+        if beta is None and scale is None:
+            key = str(device)
+            if key not in self._beta_scale:
+                self._beta_scale[key] = torch.tensor(
+                    [self.beta, 1.0], dtype=torch.float32, device=device)
+            return torch.cat((step, self._beta_scale[key]))
+        return torch.cat((
+            step, _device_scalar(self.beta if beta is None else beta, device),
+            _device_scalar(1.0 if scale is None else scale, device)))
 
     def _metric(self, mass: Tensor, d: int):
         cache = self._metric_cache
@@ -292,11 +309,20 @@ class FusedTransition:
     def __call__(self, key: StepKey, state: HMCState, step_size,
                  mass: Optional[Tensor] = None, *, num_steps,
                  max_steps: Optional[int] = None,
-                 emit_proposal: bool = False):
+                 emit_proposal: bool = False, potential_scale=None,
+                 beta=None):
         """``(state', info, proposal)``: one transition with ``num_steps``
         leapfrog steps (an int, or an int32 tensor [1] on the state's
         device with ``max_steps``); ``proposal`` is ``(q1, -p1)`` with
-        ``emit_proposal``, else None."""
+        ``emit_proposal``, else None.
+
+        ``potential_scale`` (SMC's stage beta) multiplies U in the forces
+        and in H while the returned (u, g) stay unscaled; ``beta`` (a
+        parallel-tempering rung, ``1 / (k_B T_r)``) replaces the
+        constants' beta in the Metropolis ratio, and the momenta are then
+        thermal at it, std ``sqrt(m / beta)``. Each is a Python number or
+        a tensor of shape [] or [1] on the state's device, which the
+        kernels read there."""
         ens = state.ensemble
         if mass is None:
             mass = ens.mass
@@ -310,7 +336,10 @@ class FusedTransition:
         seed, counter = key
         q = ens.q.contiguous()
         p_std, inv_mass = self._metric(mass, d)
-        common = dict(scalars=self._scalars(step_size, q.device),
+        if beta is not None:
+            p_std = torch.sqrt(torch.broadcast_to(mass, (d,)) / beta)
+        common = dict(scalars=self._scalars(step_size, q.device, beta,
+                                            potential_scale),
                       p_std=p_std, inv_mass=inv_mass, num_steps=num_steps,
                       max_steps=max_steps,
                       divergence_threshold=self.divergence_threshold)
@@ -366,14 +395,21 @@ def build_fused_hmc_kernel(
         divergence_threshold=divergence_threshold)
 
     def step(key: StepKey, state: HMCState, step_size,
-             mass: Optional[Tensor] = None) -> tuple[HMCState, HMCInfo]:
+             mass: Optional[Tensor] = None, *, potential_scale=None,
+             beta=None) -> tuple[HMCState, HMCInfo]:
         ens = state.ensemble
         if mass is None:
             mass = ens.mass
         if fused.variant_for(*ens.q.shape, mass.ndim) == "composed":
+            if potential_scale is not None or beta is not None:
+                raise ValueError(
+                    "this state runs the composed step, which takes no "
+                    "potential_scale or beta: temper the potential itself "
+                    "(as run_smc's composed route does)")
             return base.step(key, state, step_size, mass=mass)
         new_state, info, _ = fused(key, state, step_size, mass,
-                                   num_steps=num_steps)
+                                   num_steps=num_steps,
+                                   potential_scale=potential_scale, beta=beta)
         return new_state, info
 
     return HMCKernel(init=base.init, step=step, num_steps=num_steps,

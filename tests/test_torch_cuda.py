@@ -916,3 +916,144 @@ def test_fused_chees_loops_never_synchronise(dev, name):
 
     # 8 and 19 warmup transitions are one segment each
     assert blocking(8, 5) == blocking(19, 25)
+
+
+# ---------------------------------------------------------------------------
+# Tempered transitions: SMC's potential scale, a parallel-tempering beta
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("beta,scale", [(1.0, 0.37), (0.21, 1.0),
+                                        (0.21, 0.37)])
+@pytest.mark.parametrize("w,d", [(300, 2), (1000, 24), (64, 33)])
+def test_kernels_at_a_beta_and_a_scale_match_plain(dev, beta, scale, w, d):
+    """Kernels A and B with (beta, scale) != (1, 1) in their device
+    scalars, momenta thermal at beta: within ``_assert_match`` of the plain
+    versions, which read the same scalars."""
+    rng = np.random.default_rng(w + d)
+    im = _t(rng.uniform(0.5, 2.0, d), dev)
+    kw = dict(scalars=_t([0.15, beta, scale], dev),
+              p_std=torch.sqrt(1 / (im * beta)), inv_mass=im, num_steps=10)
+    q = _t(1.5 * rng.normal(size=(w, d)), dev)
+    k_diag, mean = _t(rng.uniform(0.5, 2.0, d), dev), _t(rng.normal(size=d),
+                                                         dev)
+    out_k = dict(zip(A_ORDER, kernels.fused_hmc_diag_quadratic(
+        3, 5, q, k_diag=k_diag, mean=mean, **kw)))
+    out_p = dict(zip(A_ORDER, kernels.fused_hmc_diag_quadratic_plain(
+        3, 5, q, k_diag=k_diag, mean=mean, **kw)))
+    torch.cuda.synchronize()
+    _assert_match(out_k, out_p, 3, 5)
+    for form in _forms(d, dev):
+        u, g = kernels.device_value_and_grad(form)(q)
+        out_k = dict(zip(B_ORDER, kernels.fused_hmc_transition(
+            form, 3, 5, q, u, g, **kw)))
+        out_p = dict(zip(B_ORDER, kernels.fused_hmc_transition_plain(
+            form, 3, 5, q, u, g, **kw)))
+        torch.cuda.synchronize()
+        _assert_match(out_k, out_p, 3, 5)
+
+
+@pytest.mark.parametrize("name", ["diag", "nbody"])
+def test_run_smc_mutates_in_the_fused_kernels(dev, name):
+    """run_smc(kernel="auto") on CUDA: every mutation one launch of kernel
+    A (a diag target) or B (the N-body form), one host read a stage plus
+    the last, the same bits from the same seed, moments and evidence
+    beside the composed engine's."""
+    from physicsbasedbayesianinference_tpu_torch import smc
+    if name == "diag":
+        fn, d, wanted = pot.make_standard_normal(4), 4, \
+            "fused_hmc_diag_quadratic"
+        q0 = torch.randn(4096, 4, device=dev) / 0.1**0.5
+        kw = dict(beta0=0.1, init_step_size=0.8)
+    else:
+        fn, d, wanted = pot.make_nbody_potential(
+            np.ones(4), 4, softening=0.3), 12, "fused_hmc_transition"
+        q0 = 2.0 * torch.randn(4096, 12, device=dev)
+        kw = dict(beta0=0.05, init_step_size=0.3, num_leapfrog_steps=8)
+    kernels.reset_launch_counts()
+    reads = smc._host_read.reads
+    res = pt.run_smc(1, fn, q0, max_stages=30, **kw)
+    assert res.kernel_used == "fused"
+    counts = kernels.launch_counts()
+    assert counts[wanted] == 3 * res.num_stages
+    assert sum(counts.values()) == counts[wanted]
+    assert smc._host_read.reads - reads == res.num_stages + 1
+    again = pt.run_smc(1, fn, q0, max_stages=30, **kw)
+    assert torch.equal(again.q, res.q)
+    assert torch.equal(again.log_evidence, res.log_evidence)
+    ref = pt.run_smc(2, fn, q0, max_stages=30, kernel="composed", **kw)
+    assert float(res.log_evidence) == pytest.approx(
+        float(ref.log_evidence), abs=0.3)
+    if name == "diag":
+        assert float(res.log_evidence) == pytest.approx(2 * np.log(0.1),
+                                                        abs=0.25)
+        assert float(res.q.var()) == pytest.approx(1.0, abs=0.1)
+
+
+def test_smc_stage_and_pt_loops_never_synchronise(dev):
+    """An SMC stage (body) on the fused route and a parallel-tempering run's
+    loops issue no blocking call that grows with the stages or the
+    transitions."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from physicsbasedbayesianinference_tpu_torch import smc
+    nbody = pot.make_nbody_potential(np.ones(4), 4, softening=0.3)
+    m = smc.build_smc_machinery(nbody, 1024, torch.float32, num_dims=12,
+                                beta0=0.05, device=dev)
+    carry = m["body"](m["init_carry"](0, 2 * torch.randn(1024, 12,
+                                                         device=dev)))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            carry = m["body"](carry)
+    calls = {e.key: e.count for e in prof.key_averages()}
+    assert not {k: n for k, n in calls.items() if k in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy",
+        "cudaMemcpyAsync")}
+    assert m["kernel_used"] == "fused"
+
+    fn = pot.make_gaussian_mixture(np.float32([[-3.0, 0.0], [3.0, 0.0]]))
+    q0 = torch.randn(512, 2, device=dev)
+    pt.run_parallel_tempering(0, fn, q0, num_replicas=3, num_warmup=2,
+                              num_samples=2)  # builds
+
+    def blocking(num_warmup, num_samples):
+        # moments: collect="samples" copies the cold replica on the device
+        # once a transition, a cudaMemcpyAsync to the profiler
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            res = pt.run_parallel_tempering(
+                0, fn, q0, num_replicas=3, num_warmup=num_warmup,
+                num_samples=num_samples, collect="moments")
+        assert res.kernel_used == "fused"
+        assert kernels.launch_counts()["fused_hmc_transition"] == 3 * (
+            num_warmup + num_samples)
+        calls = {e.key: e.count for e in prof.key_averages()}
+        return {k: calls.get(k, 0) for k in (
+            "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy",
+            "cudaMemcpyAsync")}
+
+    assert blocking(3, 4) == blocking(11, 17)
+
+
+def test_run_nuts_on_cuda_reads_only_its_loop_conditions(dev):
+    from physicsbasedbayesianinference_tpu_torch import nuts
+    sds = torch.logspace(0.0, 1.0, 8)
+    fn = pot.make_gaussian(np.zeros(8), cov=np.diag(sds.numpy() ** 2))
+    q0 = torch.randn(4096, 8, device=dev) * sds.to(dev)
+    kernels.reset_launch_counts()
+    res = pt.run_nuts(0, fn, q0, num_warmup=100, num_samples=100)
+    assert sum(kernels.launch_counts().values()) == 0  # no fused kernel
+    flat = res.samples.reshape(-1, 8)
+    sd = sds.to(dev)
+    assert float((flat.mean(0) / sd).abs().max()) < 0.05
+    assert float((flat.var(0) / sd**2 - 1).abs().max()) < 0.1
+    reads = nuts._host_read.reads
+    k = nuts.build_nuts_kernel(fn)
+    _, info = k.step((0, 0), res.state, res.step_size)
+    depth = int(info.depth.max())
+    # the outer condition once a doubling (and once more if the tree
+    # stops before max_depth); doubling j's after leaves 1, 2, ..., 2^(j-1)
+    assert depth <= nuts._host_read.reads - reads <= depth + 1 + sum(
+        range(depth))

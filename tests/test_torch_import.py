@@ -1,6 +1,6 @@
 """The port imports and runs without JAX (HMC with both integrator routes,
-the model DSL and ChEES-HMC on a model, the physics package, the native
-parser and every kernel wrapper), and
+the model DSL and ChEES-HMC on a model, SMC, parallel tempering and NUTS,
+the physics package, the native parser and every kernel wrapper), and
 ``chip_smoke.py`` refuses to run (printing no result) where there is no CUDA
 device."""
 
@@ -52,6 +52,18 @@ def test_port_imports_and_samples_without_jax():
         "                     num_warmup=5, num_samples=5, max_steps=8)\n"
         "assert c.samples.shape == (5, 32, 10)\n"
         "assert 'numpyro' not in sys.modules\n"
+        "from physicsbasedbayesianinference_tpu_torch import (nuts, smc,\n"
+        "    tempering)\n"
+        "q = torch.randn(64, 2)\n"
+        "target = potentials.make_standard_normal(2)\n"
+        "s = pt.run_smc(0, target, 3 * q, beta0=0.1, max_stages=3)\n"
+        "assert s.q.shape == (64, 2) and s.kernel_used == 'composed'\n"
+        "p = pt.run_parallel_tempering(0, target, q, num_replicas=2,\n"
+        "    num_warmup=3, num_samples=3)\n"
+        "assert p.samples.shape == (3, 64, 2)\n"
+        "n = pt.run_nuts(0, target, q, num_warmup=3, num_samples=3,\n"
+        "    max_depth=3)\n"
+        "assert n.samples.shape == (3, 64, 2)\n"
         "s, tmax, dt = physics.load_nbody_text('examples/nbody/pl3.txt')\n"
         "tr = physics.simulate(s, dt, 4, save_every=2)\n"
         "assert tr.num_valid == 2 and tr.x.shape == (2, 3, 3)\n"

@@ -39,15 +39,24 @@ def _compare(jout, tout, names):
     return t, both
 
 
-@pytest.mark.parametrize("scale", [1.0, 0.5])
-def test_diag_quadratic_plain_matches_pallas(scale):
+# (scale, beta): the potential scale SMC's mutations give the kernels and
+# the per-call beta of a parallel-tempering rung, each at 1 and not
+_SCALE_BETA = [pytest.param(1.0, None, id="1.0"),
+               pytest.param(0.5, None, id="0.5"),
+               pytest.param(0.37, 1.0, id="0.37-beta1.0"),
+               pytest.param(1.0, 0.21, id="1.0-beta0.21"),
+               pytest.param(0.5, 0.21, id="0.5-beta0.21")]
+
+
+@pytest.mark.parametrize("scale,beta", _SCALE_BETA)
+def test_diag_quadratic_plain_matches_pallas(scale, beta):
     w, d, steps = 256, 32, 4
     rng = np.random.default_rng(0)
     q = rng.normal(size=(w, d)).astype(np.float32)
     k = rng.uniform(0.5, 2.0, d).astype(np.float32)
     mu = rng.normal(size=d).astype(np.float32)
     im = rng.uniform(0.5, 2.0, d).astype(np.float32)
-    step, beta = 0.2, 1.3
+    step, beta = 0.2, 1.3 if beta is None else beta
     jout = jk.make_fused_hmc_diag_quadratic(num_steps=steps)(
         jnp.int32(5), jnp.asarray(q), step_size=jnp.float32(step),
         p_std=0.0, inv_mass=jnp.asarray(im), beta=beta,
@@ -100,8 +109,8 @@ def _target(kind, rng, w):
 
 @pytest.mark.parametrize("kind", ["gaussian", "funnel", "banana", "mixture",
                                   "nbody"])
-@pytest.mark.parametrize("scale", [1.0, 0.5])
-def test_generic_plain_matches_pallas(kind, scale):
+@pytest.mark.parametrize("scale,beta", _SCALE_BETA)
+def test_generic_plain_matches_pallas(kind, scale, beta):
     w, steps = 64, 4
     rng = np.random.default_rng(1)
     jfn, params, q, step = _target(kind, rng, w)
@@ -110,7 +119,7 @@ def test_generic_plain_matches_pallas(kind, scale):
     vg = jp.batched_value_and_grad(jfn)
     u, g = (np.array(x) for x in vg(jnp.asarray(q)))
     im = rng.uniform(0.5, 2.0, d).astype(np.float32)
-    beta = 1.0
+    beta = 1.0 if beta is None else beta
     jout = jk.make_fused_hmc_transition(vg, num_steps=steps)(
         jnp.int32(3), jnp.asarray(q), jnp.asarray(u), jnp.asarray(g),
         step_size=jnp.float32(step), p_std=0.0, inv_mass=jnp.asarray(im),
