@@ -94,6 +94,22 @@
    16-dim Gaussian with sd logspace(0, 1, 16)) at 65536 walkers: no fused
    kernel; checks moments, acceptance and mean depth, and prints the host
    reads a transition.
+12. Drives the command-line driver (``python -m
+   physicsbasedbayesianinference_tpu_torch.main`` and ``main.run``): 12a
+   the bench configuration as a process of its own (456 launches of kernel
+   A, phase 3's gates, the ``.npz``), then in this process with every
+   sample kept (the summary over [256, 102400, 32]); 12b checkpointed hmc
+   at the same width, resumed half way, bitwise the uninterrupted run and
+   ``run_hmc``, two chunks profiled without a blocking call, the bytes and
+   milliseconds of a save; 12c chees on logistic regression and non-centred
+   eight schools as processes (456 launches of kernel B each, moments held
+   to phase 8's composed runs) and a checkpointed chees resume; 12d
+   checkpointed SMC resumed from a stage copied into a fresh directory
+   (the same log-evidence bits, 3 launches of kernel A a stage); 12e
+   checkpointed parallel tempering (kernel B's mixture form) and NUTS,
+   resumed, bitwise; 12f stream mode into a sample file; 12g
+   ``run_hmc(metric="dense")`` on phase 7's Gaussian (composed, no kernel):
+   moments and the adapted covariance.
 
 The line before the last is a JSON object with one entry per kernel, with
 its time beside its bound (``bound_ms``: the larger of the bytes it must
@@ -105,11 +121,15 @@ It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
+import io
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -127,6 +147,14 @@ SEED = 20261016
 # float64 count it as two).
 HBM_BYTES_PER_S = 3.35e12
 LANE_OPS_PER_S = {torch.float32: 33.5e12, torch.float64: 16.75e12}
+# Phase 12g's limit on the dense metric's adapted covariance, relative
+# Frobenius error at W = 102400: four standard errors from the CPU runs of
+# tools/dense_metric_gate.py at W = 8192 (rms 0.01244 over 4 seeds, scaled
+# by sqrt(8192 / 102400))
+DENSE_COV_GATE = 0.0141
+BLOCKING = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy",
+            "cudaMemcpyAsync")
+CLI = "physicsbasedbayesianinference_tpu_torch.main"
 
 
 def bound(nbytes: float, ops: float, dtype=torch.float32) -> dict:
@@ -290,7 +318,12 @@ def main() -> None:
         "adaptation.variance_init": adaptation.variance_init(3).mean,
         "convert.nbody_system_from_numpy": convert.nbody_system_from_numpy(
             {"x": np.zeros((2, 3)), "v": np.zeros((2, 3)),
-             "mass": np.ones(2), "time": np.zeros(())}).x}
+             "mass": np.ones(2), "time": np.zeros(())}).x,
+        # an entry point given numpy positions runs them on the card
+        "run_hmc(numpy init_q)": run_hmc(
+            0, pot.make_standard_normal(4), np.zeros((64, 4), np.float32),
+            num_warmup=1, num_samples=1, num_steps=2,
+            collect="none").state.ensemble.q}
     off_card = [k for k, t in made.items() if t.device.type != "cuda"]
     if default_device().type != "cuda" or off_card:
         fail(f"constructors called without a device made CPU tensors: "
@@ -804,7 +837,7 @@ def main() -> None:
     mean7 = torch.randn(d, generator=gen7)
     cov7 = a7 @ a7.T + 0.5 * torch.eye(d)
     sd7 = torch.sqrt(torch.diagonal(cov7))
-    corr_launches = {}
+    corr_launches, corr_steps = {}, {}
     for sub, wrapper, kernel_ms, extra in (
             ("7a", "fused_hmc_transition", b_corr["ms"],
              dict(kernel="auto")),
@@ -817,6 +850,7 @@ def main() -> None:
                        num_steps=steps, collect="moments", **extra)
         launched = kernels.launch_counts()[wrapper]
         corr_launches[sub] = launched
+        corr_steps[sub] = res7.step_size.item()
         ran = (res7.kernel_used, res7.kernel_variant)
         want = (("fused", "generic") if sub == "7a"
                 else ("composed", "composed"))
@@ -932,15 +966,15 @@ def main() -> None:
             "min_ess_per_s": min_ess / tail_seconds,
             "composed_ms_per_transition_W8192":
                 1e3 * ref.sampling_seconds / n_samp8}))
-        return res, counts["fused_hmc_transition"], by
+        return res, counts["fused_hmc_transition"], by, ref
 
     mp_lr = models.make_model_potential(models.logistic_regression,
                                         (x_lr, y_lr), {})
-    res8a, launched_lr, by_lr = chees_on_model(
+    res8a, launched_lr, by_lr, ref8a = chees_on_model(
         "8a", "logistic regression N=256", mp_lr, 0.05)
     mp_es = models.make_model_potential(models.eight_schools_noncentered,
                                         (), models.EIGHT_SCHOOLS_DATA)
-    res8b, launched_es, by_es = chees_on_model(
+    res8b, launched_es, by_es, ref8b = chees_on_model(
         "8b", "eight schools non-centred", mp_es, 0.22)
 
     # 8c: a DSL model without a device form takes the composed route. The
@@ -1471,6 +1505,401 @@ def main() -> None:
              f"{var_err} (0.1), accept {accept} (0.6-0.99), mean depth "
              f"{depth} (2-8), launches {kernels.launch_counts()}")
 
+    # ---- 12. the command-line driver on the card ----------------------------
+    from physicsbasedbayesianinference_tpu_torch import main as cli
+    from physicsbasedbayesianinference_tpu_torch import native
+    from physicsbasedbayesianinference_tpu_torch.checkpoint import (
+        CheckpointManager)
+    from physicsbasedbayesianinference_tpu_torch.config import RunConfig
+
+    def cli_process(args):
+        """``python -m ...main args``, the entry point a user calls, as a
+        process of its own: its JSON summary, its kernels' launches (the
+        ``# launches`` line of its standard error) and its wall seconds."""
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", CLI, *args], cwd=ROOT,
+                              capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"the CLI {' '.join(args)} exited {proc.returncode}: "
+                 f"{proc.stderr[-3000:]}")
+        launches = json.loads(
+            proc.stderr.split("# launches ")[1].splitlines()[0])
+        return json.loads(proc.stdout), launches, seconds
+
+    def cli_run(cfg):
+        """``main.run(cfg)`` in this process: (summary, its stderr lines)."""
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            summary = cli.run(cfg)
+        return summary, err.getvalue()
+
+    def checkpoints(err):
+        return [json.loads(line[len("# checkpoint "):])
+                for line in err.splitlines()
+                if line.startswith("# checkpoint ")]
+
+    def final_q(directory, state, steps_shape=()):
+        """The positions of the last checkpoint in ``directory``, restored
+        into the structure of ``state``."""
+        nd = (state["q"] if isinstance(state, dict)
+              else state.ensemble.q).shape[-1]
+        z = torch.zeros(nd, device=dev)
+        st = CheckpointManager(str(directory)).restore({
+            "schema": 0, "state": state, "tau": torch.zeros((), device=dev),
+            "step_size": torch.zeros(steps_shape, device=dev), "mean": z,
+            "m2": z, "n": 0})["state"]
+        return st["q"] if isinstance(st, dict) else st.ensemble.q
+
+    def others_zero(launches, used):
+        return all(v == 0 for k, v in launches.items()
+                   if k != used and isinstance(v, int))
+
+    with tempfile.TemporaryDirectory(prefix="pbbi_cli_") as tmp_name:
+        tmp = Path(tmp_name)
+        # 12a: the bench configuration through the CLI, a process of its own
+        kernels.reset_launch_counts()  # the process counts from 0 too
+        s12a, l12a, sec12a = cli_process([
+            "--model", "builtin:std_normal_32d", "--num-walkers", str(w),
+            "--num-steps", str(steps), "--num-warmup", str(n_warm),
+            "--num-samples", str(n_samp), "--collect", "moments",
+            "--output-path", str(tmp / "12a.npz")])
+        launched_12a = l12a["fused_hmc_diag_quadratic"]
+        mean_err = max(abs(x) for x in s12a["posterior_mean"])
+        var_err = max(abs(x - 1.0) for x in s12a["posterior_var"])
+        accept = s12a["accept_rate"]
+        with np.load(tmp / "12a.npz", allow_pickle=False) as saved:
+            saved_summary = json.loads(str(saved["summary"]))
+        if not ((s12a["kernel_used"], s12a["kernel_variant"])
+                == ("fused", "diag") and launched_12a == n_warm + n_samp
+                and others_zero(l12a, "fused_hmc_diag_quadratic")
+                and mean_err < 0.01 and var_err < 0.02
+                and 0.6 <= accept <= 0.99
+                and saved_summary["accept_rate"] == accept):
+            fail(f"phase 12a off: {s12a['kernel_used']}/"
+                 f"{s12a['kernel_variant']}, launches {l12a}, max|mean| "
+                 f"{mean_err}, max|var-1| {var_err}, accept {accept}")
+        # the same in this process with every sample kept: the summary's
+        # ESS, R-hat and quantiles over [256, 102400, 32] on the card
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s12s, _ = cli_run(RunConfig(
+            model="builtin:std_normal_32d", num_walkers=w, num_steps=steps,
+            num_warmup=n_warm, num_samples=n_samp, collect="samples"))
+        wall12s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        if not (np.isfinite(s12s["min_ess"]) and np.isfinite(s12s["max_rhat"])
+                and kernels.launch_counts()["fused_hmc_diag_quadratic"]
+                == n_warm + n_samp):
+            fail(f"phase 12a with samples off: min ESS {s12s['min_ess']}, "
+                 f"max R-hat {s12s['max_rhat']}")
+        print(json.dumps({
+            "phase": f"12a CLI hmc builtin:std_normal_32d W={w} L={steps} "
+                     f"warmup={n_warm} samples={n_samp}",
+            "kernel_used": s12a["kernel_used"],
+            "kernel_variant": s12a["kernel_variant"],
+            "launches": launched_12a, "max_abs_mean": mean_err,
+            "max_abs_var_minus_1": var_err, "accept_rate": accept,
+            "step_size": s12a["step_size"],
+            "sampling_seconds": s12a["sampling_seconds"],
+            "wall_seconds_of_run": s12a["wall_seconds"],
+            "process_seconds": sec12a,
+            "with_samples": {
+                "wall_s": wall12s, "wall_seconds_of_run": s12s["wall_seconds"],
+                "sampling_seconds": s12s["sampling_seconds"],
+                "warmup_and_setup_s": (s12s["wall_seconds"]
+                                       - s12s["sampling_seconds"]),
+                "summary_s": wall12s - s12s["wall_seconds"],
+                "min_ess": s12s["min_ess"], "max_rhat": s12s["max_rhat"]}}))
+
+        # 12b: checkpointed hmc at the same width, resumed half way
+        base = dict(model="builtin:std_normal_32d", num_walkers=w,
+                    num_steps=steps, num_warmup=n_warm)
+        every = 64
+        kernels.reset_launch_counts()
+        s_a1, e_a1 = cli_run(RunConfig(num_samples=128, checkpoint_every=every,
+                                       checkpoint_dir=str(tmp / "b_a"),
+                                       **base))
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            s_a2, e_a2 = cli_run(RunConfig(
+                num_samples=n_samp, checkpoint_every=every,
+                checkpoint_dir=str(tmp / "b_a"), **base))
+        launched_12b = kernels.launch_counts()["fused_hmc_diag_quadratic"]
+        s_b, e_b = cli_run(RunConfig(num_samples=n_samp,
+                                     checkpoint_every=every,
+                                     checkpoint_dir=str(tmp / "b_b"), **base))
+        inputs = cli.prepare(RunConfig(num_samples=n_samp, **base))
+        ref = run_hmc(inputs.seed, inputs.potential, inputs.init_q,
+                      num_warmup=n_warm, num_samples=n_samp, num_steps=steps,
+                      collect="moments")
+        q_a, q_b = final_q(tmp / "b_a", ref.state), final_q(tmp / "b_b",
+                                                            ref.state)
+        mean_rel = max(abs(a - b) for a, b in zip(s_a2["posterior_mean"],
+                                                  ref.mean.tolist()))
+        var_rel = max(abs(a / b - 1.0) for a, b in zip(
+            s_a2["posterior_var"], ref.var.tolist()))
+        events = prof.events()
+        chunks = [(e.time_range.start, e.time_range.end) for e in events
+                  if e.name == "checkpoint_chunk"]
+
+        def in_chunks(name):
+            return sum(1 for e in events if e.name == name and any(
+                a <= e.time_range.start <= b for a, b in chunks))
+        blocking = {k: in_chunks(k) for k in BLOCKING}
+        launched_in_chunks = in_chunks("cudaLaunchKernel")
+        saves = checkpoints(e_a1 + e_a2 + e_b)
+        if not (s_a2["resumed_from"] == 128 and s_a2["samples_done"] == n_samp
+                and s_b["resumed_from"] is None
+                and torch.equal(q_a, q_b)
+                and torch.equal(q_a, ref.state.ensemble.q)
+                and mean_rel <= 1e-6 and var_rel <= 1e-6
+                and launched_12b == n_warm + n_samp
+                and len(chunks) == 2 and not any(blocking.values())
+                and launched_in_chunks > 0 and len(saves) == 8):
+            fail(f"phase 12b off: resumed from {s_a2['resumed_from']}, final "
+                 f"q equal {torch.equal(q_a, q_b)} / "
+                 f"{torch.equal(q_a, ref.state.ensemble.q)}, moments "
+                 f"{mean_rel} {var_rel}, launches {launched_12b}, "
+                 f"{len(chunks)} chunks profiled with blocking calls "
+                 f"{blocking} and {launched_in_chunks} launches")
+        print(json.dumps({
+            "phase": f"12b CLI hmc checkpointed every {every} W={w}: 128, "
+                     f"resumed to {n_samp}; fresh to {n_samp}; run_hmc",
+            "final_q_bitwise": True, "max_abs_mean_diff": mean_rel,
+            "max_rel_var_diff": var_rel, "launches": launched_12b,
+            "blocking_calls_in_2_chunks": blocking,
+            "launches_in_2_chunks": launched_in_chunks,
+            "checkpoint_bytes": saves[0]["bytes"],
+            "save_ms": [c["save_ms"] for c in saves],
+            "chunk_ms": [c["chunk_ms"] for c in saves],
+            "ms_per_transition_in_chunks": statistics.median(
+                c["chunk_ms"] for c in saves) / every}))
+
+        # 12c: the CLI's chees on the two models with a device form
+        lr_json = tmp / "logreg.json"
+        lr_json.write_text(json.dumps({"x": x_lr.tolist(),
+                                       "labels": y_lr.tolist()}))
+        es_json = ROOT / "examples" / "eight_schools.data.json"
+        launched_12c = {}
+        for model, data, init_step, ref8 in (
+                ("logistic_regression", lr_json, 0.05, ref8a),
+                ("eight_schools_noncentered", es_json, 0.22, ref8b)):
+            kernels.reset_launch_counts()
+            s12c, l12c, sec12c = cli_process([
+                "--sampler", "chees", "--model", f"example:{model}",
+                "--data-path", str(data), "--num-walkers", str(w),
+                "--num-warmup", str(n_warm8), "--num-samples", str(n_samp8),
+                "--init-step-size", str(init_step), "--collect", "moments"])
+            by = l12c["fused_hmc_transition_by"]
+            launched_12c[model] = l12c["fused_hmc_transition"]
+            mean = torch.tensor(s12c["posterior_mean"], device=dev)
+            var = torch.tensor(s12c["posterior_var"], device=dev)
+            mean_err = ((mean - ref8.mean) / torch.sqrt(ref8.var)).abs().max(
+                ).item()
+            var_err = (var / ref8.var - 1.0).abs().max().item()
+            if not ((s12c["kernel_used"], s12c["warmup_kernel_used"])
+                    == ("fused", "fused")
+                    and launched_12c[model] == n_warm8 + n_samp8
+                    and by["counted"] == n_samp8
+                    and by["counted+proposal"] == n_warm8
+                    and others_zero(l12c, "fused_hmc_transition")
+                    and mean_err < 0.044 and var_err < 0.0625):
+                fail(f"phase 12c {model} off: {s12c['warmup_kernel_used']}/"
+                     f"{s12c['kernel_used']}, launches {l12c}, mean "
+                     f"{mean_err} sd from phase 8's composed run (limit "
+                     f"0.044), var {var_err} (limit 0.0625)")
+            print(json.dumps({
+                "phase": f"12c CLI chees example:{model} W={w} "
+                         f"warmup={n_warm8} samples={n_samp8}",
+                "kernel_used": s12c["kernel_used"],
+                "warmup_kernel_used": s12c["warmup_kernel_used"],
+                "launches": launched_12c[model], "launches_by": by,
+                "max_mean_err_sd_vs_composed": mean_err,
+                "max_rel_var_err_vs_composed": var_err,
+                "accept_rate": s12c["accept_rate"],
+                "step_size": s12c["step_size"],
+                "trajectory_time": s12c["trajectory_time"],
+                "mean_num_steps": s12c["mean_num_steps"],
+                "wall_seconds_of_run": s12c["wall_seconds"],
+                "process_seconds": sec12c}))
+        # a checkpointed chees run on eight schools, resumed half way
+        base = dict(model="example:eight_schools_noncentered",
+                    data_path=str(es_json), sampler="chees", num_walkers=w,
+                    num_warmup=n_warm8, init_step_size=0.22,
+                    checkpoint_every=128)
+        cli_run(RunConfig(num_samples=128, checkpoint_dir=str(tmp / "c_a"),
+                          **base))
+        s_ca, _ = cli_run(RunConfig(num_samples=n_samp8,
+                                    checkpoint_dir=str(tmp / "c_a"), **base))
+        s_cb, _ = cli_run(RunConfig(num_samples=n_samp8,
+                                    checkpoint_dir=str(tmp / "c_b"), **base))
+        inputs = cli.prepare(RunConfig(num_samples=n_samp8, **base))
+        ref = run_chees_hmc(inputs.seed, inputs.potential, inputs.init_q,
+                            num_warmup=n_warm8, num_samples=n_samp8,
+                            init_step_size=0.22, collect="moments")
+        q_a, q_b = final_q(tmp / "c_a", ref.state), final_q(tmp / "c_b",
+                                                            ref.state)
+        if not (s_ca["resumed_from"] == 128 and torch.equal(q_a, q_b)
+                and torch.equal(q_a, ref.state.ensemble.q)
+                and s_ca["posterior_mean"] == s_cb["posterior_mean"]):
+            fail("phase 12c: the resumed chees run is not the uninterrupted "
+                 "one bit for bit")
+        print(json.dumps({
+            "phase": f"12c CLI chees eight schools checkpointed every 128 "
+                     f"W={w}: 128, resumed to {n_samp8}; fresh; "
+                     f"run_chees_hmc",
+            "final_q_bitwise": True, "resumed_from": s_ca["resumed_from"]}))
+
+        # 12d: checkpointed SMC, resumed from an intermediate stage copied
+        # into a fresh directory
+        base = dict(model="builtin:std_normal_32d", sampler="smc",
+                    num_walkers=w, num_steps=10, smc_beta0=0.02)
+        kernels.reset_launch_counts()
+        s_d1, e_d1 = cli_run(RunConfig(checkpoint_dir=str(tmp / "d_a"),
+                                       **base))
+        launched_12d = kernels.launch_counts()["fused_hmc_diag_quadratic"]
+        others_d = others_zero(kernels.launch_counts(),
+                               "fused_hmc_diag_quadratic")
+        stages = sorted(int(p.name) for p in (tmp / "d_a").iterdir()
+                        if p.name.isdigit())
+        mid = stages[0]
+        (tmp / "d_b").mkdir()
+        shutil.copytree(tmp / "d_a" / str(mid), tmp / "d_b" / str(mid))
+        kernels.reset_launch_counts()
+        s_d2, _ = cli_run(RunConfig(checkpoint_dir=str(tmp / "d_b"), **base))
+        launched_resumed = kernels.launch_counts()["fused_hmc_diag_quadratic"]
+        n_st = s_d1["num_stages"]
+        if not (s_d2["resumed_from"] == mid and mid < n_st
+                and s_d2["num_stages"] == n_st
+                and s_d2["log_evidence"] == s_d1["log_evidence"]
+                and s_d2["posterior_mean"] == s_d1["posterior_mean"]
+                and launched_12d == 3 * n_st and others_d
+                and launched_resumed == 3 * (n_st - mid)):
+            fail(f"phase 12d off: {n_st} stages, resumed from {mid} to "
+                 f"{s_d2['num_stages']}, log Z {s_d1['log_evidence']} and "
+                 f"{s_d2['log_evidence']}, launches {launched_12d} and "
+                 f"{launched_resumed}")
+        saves = checkpoints(e_d1)
+        print(json.dumps({
+            "phase": f"12d CLI smc checkpointed std_normal_32d W={w} "
+                     f"beta0=0.02, resumed from stage {mid}",
+            "num_stages": n_st, "log_evidence": s_d1["log_evidence"],
+            "log_evidence_bitwise": True, "launches": launched_12d,
+            "resumed_launches": launched_resumed,
+            "checkpoint_bytes": saves[0]["bytes"],
+            "save_ms": [c["save_ms"] for c in saves],
+            "stage_ms": [c["chunk_ms"] for c in saves]}))
+
+        # 12e: checkpointed pt (kernel B's mixture form) and nuts, resumed
+        # half way, against the uninterrupted runs
+        launched_12e = None
+        for sampler, extra, n_w, n_s, chunk in (
+                ("pt", dict(model="builtin:bimodal_2d", pt_replicas=6,
+                            num_steps=10, num_walkers=16384), 100, 128, 64),
+                ("nuts", dict(model="builtin:std_normal_32d",
+                              num_walkers=8192), 50, 64, 32)):
+            base = dict(sampler=sampler, num_warmup=n_w,
+                        checkpoint_every=chunk, **extra)
+            kernels.reset_launch_counts()
+            cli_run(RunConfig(num_samples=chunk, checkpoint_dir=str(
+                tmp / f"e_{sampler}_a"), **base))
+            s_ea, _ = cli_run(RunConfig(num_samples=n_s, checkpoint_dir=str(
+                tmp / f"e_{sampler}_a"), **base))
+            counts = kernels.launch_counts()
+            s_eb, _ = cli_run(RunConfig(num_samples=n_s, checkpoint_dir=str(
+                tmp / f"e_{sampler}_b"), **base))
+            inputs = cli.prepare(RunConfig(num_samples=n_s, **base))
+            if sampler == "pt":
+                ref = run_parallel_tempering(
+                    inputs.seed, inputs.potential, inputs.init_q,
+                    num_replicas=6, num_warmup=n_w, num_samples=n_s,
+                    num_steps=10, init_step_size=0.1, collect="moments")
+                state, ref_q, shape = ({"q": ref.q, "u": ref.u, "g": ref.g},
+                                       ref.q, (6,))
+                launched_12e = counts["fused_hmc_transition"]
+                launches_ok = (launched_12e == 6 * (n_w + n_s)
+                               and others_zero(counts,
+                                               "fused_hmc_transition"))
+            else:
+                ref = run_nuts(inputs.seed, inputs.potential, inputs.init_q,
+                               num_warmup=n_w, num_samples=n_s,
+                               init_step_size=0.1, collect="none")
+                state, ref_q, shape = ref.state, ref.state.ensemble.q, ()
+                launches_ok = sum(counts.values()) == 0
+            q_a = final_q(tmp / f"e_{sampler}_a", state, shape)
+            q_b = final_q(tmp / f"e_{sampler}_b", state, shape)
+            if not (s_ea["resumed_from"] == chunk and launches_ok
+                    and torch.equal(q_a, q_b) and torch.equal(q_a, ref_q)
+                    and s_ea["posterior_mean"] == s_eb["posterior_mean"]):
+                fail(f"phase 12e {sampler} off: resumed from "
+                     f"{s_ea['resumed_from']}, final q equal "
+                     f"{torch.equal(q_a, q_b)} / {torch.equal(q_a, ref_q)}, "
+                     f"launches {counts}")
+            print(json.dumps({
+                "phase": f"12e CLI {sampler} checkpointed every {chunk} "
+                         f"{extra['model']} W={extra['num_walkers']}: "
+                         f"resumed to {n_s}; fresh; the run_* call",
+                "final_q_bitwise": True, "launches": counts,
+                "accept_rate": s_ea["accept_rate"]}))
+
+        # 12f: stream mode into a sample file
+        out = tmp / "12f.pbbi"
+        kernels.reset_launch_counts()
+        s12f, _ = cli_run(RunConfig(
+            model="builtin:std_normal_32d", num_walkers=8192, num_warmup=100,
+            num_samples=64, num_steps=steps, thin=4, collect="stream",
+            output_path=str(out)))
+        data = np.asarray(native.read_samples(str(out)))
+        mean_err = float(np.abs(data.mean(0)).max())
+        sd_err = float(np.abs(data.std(0) - 1.0).max())
+        launched_12f = kernels.launch_counts()["fused_hmc_diag_quadratic"]
+        out.unlink()
+        if not (data.shape == (64 * 8192, 32) and mean_err < 0.02
+                and sd_err < 0.02 and launched_12f == 100 + 64 * 4):
+            fail(f"phase 12f off: {data.shape} rows, max|mean| {mean_err}, "
+                 f"max|sd-1| {sd_err}, launches {launched_12f}")
+        print(json.dumps({
+            "phase": "12f CLI hmc collect=stream std_normal_32d W=8192 "
+                     "64 rows thin=4",
+            "rows": data.shape[0], "max_abs_mean": mean_err,
+            "max_abs_sd_minus_1": sd_err, "launches": launched_12f,
+            "accept_rate": s12f["accept_rate"],
+            "wall_seconds_of_run": s12f["wall_seconds"]}))
+
+    # 12g: run_hmc(metric="dense") on phase 7's correlated Gaussian: the
+    # step is torch.matmul and the potential, no kernel
+    q0 = torch.randn(w, d, generator=seeded(0), device=dev)
+    kernels.reset_launch_counts()
+    res12g = run_hmc(SEED + 3, pot.make_gaussian(mean7, cov=cov7), q0,
+                     num_warmup=n_warm, num_samples=n_samp, num_steps=steps,
+                     collect="moments", metric="dense")
+    mean_err = ((res12g.mean.cpu() - mean7) / sd7).abs().max().item()
+    var_err = (res12g.var.cpu() / sd7**2 - 1.0).abs().max().item()
+    cov_err = (torch.linalg.norm(res12g.metric_cov.cpu() - cov7)
+               / torch.linalg.norm(cov7)).item()
+    accept = res12g.accept_rate.item()
+    print(json.dumps({
+        "phase": f"12g run_hmc metric=dense correlated 32-dim Gaussian "
+                 f"W={w} L={steps}",
+        "kernel_used": res12g.kernel_used,
+        "launches": sum(kernels.launch_counts().values()),
+        "max_mean_err_sd": mean_err, "max_rel_var_err": var_err,
+        "metric_cov_rel_frobenius_err": cov_err,
+        "metric_cov_gate": DENSE_COV_GATE, "accept_rate": accept,
+        "step_size": res12g.step_size.item(),
+        "step_size_7a_diag": corr_steps["7a"],
+        "ms_per_transition": 1e3 * res12g.sampling_seconds / n_samp}))
+    if not (res12g.kernel_used == "dense"
+            and sum(kernels.launch_counts().values()) == 0
+            and mean_err < 0.02 and var_err < 0.03
+            and cov_err < DENSE_COV_GATE and 0.6 <= accept <= 0.99):
+        fail(f"phase 12g off: mean {mean_err} sd (limit 0.02), var "
+             f"{var_err} (0.03), Sigma {cov_err} ({DENSE_COV_GATE}), accept "
+             f"{accept}")
+
     def entry(name, source, replaces, launches, errs, main):
         return {"name": name, "case": main["case"], "route": "cuda",
                 "source": source,
@@ -1520,6 +1949,19 @@ def main() -> None:
         entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 373, launched_9b,
               [b_nbody["max_abs_err"]], b_nbody),
         entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576, launched_10,
+              [b_mixture["max_abs_err"]], b_mixture),
+        # the command-line driver: kernel A under its hmc (12a) and its SMC
+        # mutations at the stage beta (12d), kernel B's model forms under
+        # its chees (12c) and B's mixture form under its pt (12e)
+        entry("fused_hmc_diag_quadratic", SOURCE, 893, launched_12a,
+              [a_main["max_abs_err"]], a_main),
+        entry("fused_hmc_diag_quadratic", SOURCE, 893, launched_12d,
+              [a_scaled["max_abs_err"]], a_scaled),
+        entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576,
+              launched_12c["logistic_regression"], lr_errs, lr_main),
+        entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576,
+              launched_12c["eight_schools_noncentered"], es_errs, es_main),
+        entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576, launched_12e,
               [b_mixture["max_abs_err"]], b_mixture),
     ]}))
     print(json.dumps({"ok": True, "device": {

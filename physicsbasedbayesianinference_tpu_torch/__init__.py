@@ -10,15 +10,20 @@ the diagnostics), the model DSL in :mod:`.models` with ChEES-HMC
 (:func:`run_chees_hmc`, trajectory-length adaptation, fused on models that
 have a device form), tempered SMC (:func:`run_smc`) and parallel tempering
 (:func:`run_parallel_tempering`), both mutating in the fused kernels at a
-beta read on the device, lockstep NUTS (:func:`run_nuts`), and direct
+beta read on the device, lockstep NUTS (:func:`run_nuts`), direct
 N-body simulation in :mod:`.physics`, whose accelerations run kernel E on
-CUDA.
+CUDA, and the runtime: :class:`RunConfig`, checkpoints
+(:class:`CheckpointManager`), the sample sink (:class:`SampleSink`,
+:func:`read_samples`) and the command-line driver
+``python -m physicsbasedbayesianinference_tpu_torch.main``.
 """
 
-from . import (adaptation, chees, constants, device, diagnostics, ensemble,
-               hmc, models, native, nuts, ops, physics, smc, tempering,
-               utils)
+from . import (adaptation, checkpoint, chees, config, constants, device,
+               diagnostics, ensemble, hmc, models, native, nuts, ops,
+               physics, smc, tempering, utils)
+from .checkpoint import CheckpointManager
 from .chees import ChEESRunResult, run_chees_hmc
+from .config import RunConfig
 from .constants import NATURAL, SI, Constants, solar_system_units
 from .device import default_device
 from .ensemble import (
@@ -29,7 +34,9 @@ from .ensemble import (
     sample_positions,
 )
 from .hmc import (HMCInfo, HMCKernel, HMCRunResult, HMCState,
-                  build_fused_hmc_kernel, build_hmc_kernel, run_hmc)
+                  build_dense_hmc_kernel, build_fused_hmc_kernel,
+                  build_hmc_kernel, run_hmc)
+from .native import SampleSink, read_samples
 from .nuts import NUTSInfo, NUTSKernel, build_nuts_kernel, run_nuts
 from .smc import SMCResult, run_smc
 from .tempering import PTResult, run_parallel_tempering
@@ -61,6 +68,7 @@ __all__ = [
     "HMCInfo",
     "HMCKernel",
     "HMCRunResult",
+    "build_dense_hmc_kernel",
     "build_fused_hmc_kernel",
     "build_hmc_kernel",
     "run_hmc",
@@ -77,4 +85,10 @@ __all__ = [
     "NUTSKernel",
     "build_nuts_kernel",
     "run_nuts",
+    "checkpoint",
+    "config",
+    "CheckpointManager",
+    "RunConfig",
+    "SampleSink",
+    "read_samples",
 ]

@@ -63,6 +63,9 @@ from .ops.potentials import batched_value_and_grad
 
 Tensor = torch.Tensor
 
+# the leapfrog count's clip, unless the caller gives one
+DEFAULT_MAX_STEPS = 1024
+
 
 def halton_sequence(length: int, base: int = 2) -> np.ndarray:
     """Van der Corput / Halton quasi-random sequence in (0, 1)."""
@@ -137,7 +140,7 @@ _host_count.reads = 0  # type: ignore[attr-defined]
 def build_jittered_hmc_kernel(
     potential_fn: Callable[[Tensor], Tensor],
     *,
-    max_steps: int = 1024,
+    max_steps: int = DEFAULT_MAX_STEPS,
     temperature: float = 1.0,
     constants: Constants = NATURAL,
     divergence_threshold: float = 1000.0,
@@ -201,7 +204,7 @@ def build_fused_jittered_step(
     potential_fn: Callable[[Tensor], Tensor],
     *,
     num_dims: int,
-    max_steps: int = 1024,
+    max_steps: int = DEFAULT_MAX_STEPS,
     temperature: float = 1.0,
     constants: Constants = NATURAL,
     divergence_threshold: float = 1000.0,
@@ -294,7 +297,7 @@ def run_chees_hmc(
     num_samples: int,
     init_step_size: float = 0.1,
     init_tau: float = 1.0,
-    max_steps: int = 1024,
+    max_steps: int = DEFAULT_MAX_STEPS,
     target_accept: float = 0.8,
     adapt_lr: float = 0.025,
     adapt_mass: bool = True,
@@ -321,7 +324,7 @@ def run_chees_hmc(
     ``torch.Generator``."""
     if collect not in ("samples", "moments", "none"):
         raise ValueError(f"bad collect={collect!r}")
-    q = torch.as_tensor(init_q)
+    q = torch.as_tensor(init_q, device=resolve_device(None, init_q))
     engine = resolve_engine(kernel, potential_fn, q)
     init_fn, step_fn = build_jittered_hmc_kernel(
         potential_fn, max_steps=max_steps, temperature=temperature,

@@ -1,11 +1,17 @@
 """MCMC diagnostics over ``[T, W, D]`` sample tensors (port of the JAX
 package's ``diagnostics.py``): FFT autocorrelation, Geyer ESS, split-R-hat
-and a posterior summary, all on the samples' device."""
+and a posterior summary, all on the samples' device; and the host-side
+profiling helpers (a named profiler region, a wall-clock region, throttled
+metrics logging)."""
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import dataclasses
+import time
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -58,16 +64,86 @@ def split_rhat(samples: Tensor) -> Tensor:
     return torch.sqrt(var_plus / w_var)
 
 
+def _quantiles(flat: Tensor, qs) -> Tensor:
+    """Quantiles ``qs`` of every column of ``flat`` ``[N, D]`` -> ``[len(qs),
+    D]``, by linear interpolation between order statistics as
+    ``jnp.quantile``'s default (the position ``q (N - 1)`` and its weights
+    in float32); a column holding a NaN gives NaN.
+
+    ``torch.quantile`` refuses more than 2^24 rows; this sorts one column
+    at a time instead, so the extra memory is one column and its indices
+    at any N."""
+    n = flat.shape[0]
+    pos = np.asarray(qs, np.float32) * np.float32(n - 1)
+    low = np.clip(np.floor(pos), 0, n - 1).astype(np.int64)
+    high = np.clip(np.ceil(pos), 0, n - 1).astype(np.int64)
+    high_w = torch.as_tensor(pos - np.floor(pos), device=flat.device)
+    low_w = 1.0 - high_w
+    low_i = torch.as_tensor(low, device=flat.device)
+    high_i = torch.as_tensor(high, device=flat.device)
+    cols = []
+    for j in range(flat.shape[1]):
+        s = torch.sort(flat[:, j]).values
+        cols.append(s[low_i] * low_w.to(s.dtype) + s[high_i]
+                    * high_w.to(s.dtype))
+    out = torch.stack(cols, dim=1)
+    return torch.where(torch.isnan(flat).any(dim=0), torch.nan, out)
+
+
 def summary(samples: Tensor, quantiles=(0.05, 0.5, 0.95)) -> dict:
     """Posterior summary dict from [T, W, D] samples (per dimension)."""
     flat = samples.reshape(-1, samples.shape[-1])
-    qs = torch.quantile(
-        flat, torch.as_tensor(quantiles, dtype=flat.dtype,
-                              device=flat.device), dim=0)
     return {
         "mean": torch.mean(flat, dim=0),
         "sd": torch.std(flat, dim=0, correction=0),
-        "quantiles": qs,
+        "quantiles": _quantiles(flat, quantiles),
         "ess": effective_sample_size(samples),
         "rhat": split_rhat(samples),
     }
+
+
+# ---------------------------------------------------------------------------
+# Profiling / tracing
+# ---------------------------------------------------------------------------
+
+
+def trace_annotation(name: str):
+    """Named profiler region: a ``torch.profiler.record_function`` range,
+    which ``torch.profiler`` traces show beside the card's kernels."""
+    return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def wall_clock(label: str, sink: Optional[Callable[[str], None]] = print):
+    """Host-side wall-clock region; ``sink`` gets ``"[label] 1.234s"``."""
+    t0 = time.perf_counter()
+    yield
+    if sink is not None:
+        sink(f"[{label}] {time.perf_counter() - t0:.3f}s")
+
+
+@dataclasses.dataclass
+class MetricsLogger:
+    """Throttled scalar metrics logging: every ``every``-th step goes to
+    ``sink`` as ``"step=N  name=value  ..."``."""
+
+    every: int = 100
+    sink: Callable[[str], None] = print
+
+    def log(self, step: int, metrics: dict) -> None:
+        if step % self.every != 0:
+            return
+        parts = [f"step={step}"]
+        for k, v in metrics.items():
+            try:
+                parts.append(f"{k}={float(v):.4g}")
+            except (TypeError, ValueError, RuntimeError):
+                parts.append(f"{k}={v}")
+        self.sink("  ".join(parts))
+
+    def log_series(self, metrics: dict) -> None:
+        """Log a whole series ({name: [T] tensor or array}) at cadence."""
+        series = {k: torch.as_tensor(v) for k, v in metrics.items()}
+        (t,) = {v.shape[0] for v in series.values()}
+        for step in range(0, t, self.every):
+            self.log(step, {k: v[step] for k, v in series.items()})

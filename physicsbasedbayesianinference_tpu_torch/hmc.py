@@ -1,5 +1,5 @@
 """Ensemble Hamiltonian Monte Carlo over ``[W, D]`` tensors (port of the JAX
-package's ``hmc.py``, ``metric="diag"`` only).
+package's ``hmc.py``).
 
 A transition is ``step(key, state, step_size) -> (state', info)`` with
 ``key = (seed, transition index)``. Two engines implement it:
@@ -24,6 +24,10 @@ potential's attributes when it builds the kernel, never after a failure:
 ``kernel="fused"`` raises where it cannot be honoured (unlike the JAX
 package, which degrades to its XLA engine with a warning).
 
+``run_hmc(metric="dense")`` runs :func:`build_dense_hmc_kernel`, a composed
+step whose metric operations are ``[W, D] x [D, D]`` products; no fused
+kernel has a dense metric, so ``kernel="fused"`` raises there.
+
 At temperature T the target is ``exp(-U / (k_B T))``: momenta have std
 ``sqrt(m k_B T)`` and the Metropolis ratio is ``exp(-beta (H1 - H0))``.
 """
@@ -39,13 +43,17 @@ import torch
 
 from .adaptation import (
     build_warmup_schedule,
+    covariance_init,
+    covariance_update,
     da_init,
     da_update,
+    regularized_covariance,
     regularized_mass,
     variance_init,
     variance_update,
 )
 from .constants import Constants, NATURAL
+from .device import resolve_device
 from .ensemble import EnsembleState, kinetic_energy, thermal_momentum_std
 from .ops import kernels
 from .ops.integrators import get_integrator
@@ -89,9 +97,11 @@ class HMCKernel:
     step: Callable[..., tuple[HMCState, HMCInfo]]
     num_steps: int
     grad_evals_per_step: int
-    kind: str = "composed"  # "composed" | "fused"
+    kind: str = "composed"  # "composed" | "fused" | "dense"
     # (num_walkers, num_dims, mass_ndim) -> "diag" | "generic" | "composed"
     variant_for: Optional[Callable[..., str]] = None
+    # the dense kernel's step after its draws (build_dense_hmc_kernel)
+    transition: Optional[Callable[..., tuple]] = None
 
 
 def _splitmix64(x: int) -> int:
@@ -120,7 +130,7 @@ def _step_generator(key: StepKey, device) -> torch.Generator:
 def init_state(vg, q, mass: Union[float, Tensor] = 1.0) -> HMCState:
     """The sampler state at positions ``q`` ``[W, D]``: the ensemble and
     the cached ``(U, grad)`` from ``vg``."""
-    q = torch.as_tensor(q)
+    q = torch.as_tensor(q, device=resolve_device(None, q))
     if q.ndim != 2:
         raise ValueError(
             f"init positions must be [num_walkers, num_dims]; got shape "
@@ -239,7 +249,8 @@ class FusedTransition:
         self.form = getattr(potential_fn, "device_form", None)
         # Potential parameters and the metric, prepared on the state's
         # device once (per device and D; the metric again only when its
-        # tensor changes), so a step issues no host-to-device copy.
+        # tensor changes), so a step issues no host-to-device copy; a
+        # number is filled on the device, so not even the first step does.
         self._prepared: dict = {}
         self._metric_cache: dict = {}
         self._beta_scale: dict = {}
@@ -266,8 +277,11 @@ class FusedTransition:
         key = (str(device), d)
         if key not in self._prepared:
             def vec(v):
+                if not isinstance(v, Tensor):
+                    return torch.full((d,), float(v), dtype=torch.float32,
+                                      device=device)
                 return torch.broadcast_to(
-                    torch.as_tensor(v, dtype=torch.float32).to(device),
+                    v.to(device=device, dtype=torch.float32),
                     (d,)).contiguous()
             if self.diag is not None:
                 self._prepared[key] = (vec(self.diag[0]), vec(self.diag[1]))
@@ -288,8 +302,9 @@ class FusedTransition:
         if beta is None and scale is None:
             key = str(device)
             if key not in self._beta_scale:
-                self._beta_scale[key] = torch.tensor(
-                    [self.beta, 1.0], dtype=torch.float32, device=device)
+                self._beta_scale[key] = torch.cat((
+                    _device_scalar(self.beta, device),
+                    _device_scalar(1.0, device)))
             return torch.cat((step, self._beta_scale[key]))
         return torch.cat((
             step, _device_scalar(self.beta if beta is None else beta, device),
@@ -417,6 +432,94 @@ def build_fused_hmc_kernel(
                      variant_for=fused.variant_for)
 
 
+def build_dense_hmc_kernel(
+    potential_fn: Callable[[Tensor], Tensor],
+    *,
+    num_steps: int,
+    temperature: float = 1.0,
+    constants: Constants = NATURAL,
+    divergence_threshold: float = 1000.0,
+) -> HMCKernel:
+    """HMC transition with a dense metric (mass matrix M = Sigma^-1, Stan's
+    "dense_e"). The sampler takes the covariance Sigma itself, so every
+    metric operation is a ``[W, D] x [D, D]`` product (``torch.matmul``; the
+    JAX package computes them outside its Pallas kernels too) and no solve
+    or inverse of Sigma runs in the loop:
+
+      momentum draw   p = sqrt(k_B T) z @ inv_chol, inv_chol =
+                      cholesky(Sigma)^-1, so cov(p) = k_B T M
+      drift           q += dt p @ Sigma
+      kinetic energy  0.5 sum(p * (p @ Sigma))
+
+    ``step(key, state, step_size, cov, inv_chol)`` draws ``z`` ``[W, D]``
+    and ``log u`` ``[W]`` (a uniform clipped below at the dtype's tiny)
+    from the generator of ``key`` and runs ``transition(state, z, log_u,
+    step_size, cov, inv_chol)``, the deterministic rest: a non-finite
+    energy error counts as +inf, and the accept is a select."""
+    vg = batched_value_and_grad(potential_fn)
+    beta = constants.beta(temperature)
+    momentum_scale = math.sqrt(1.0 / beta)
+
+    def init(q, *, mass: Union[float, Tensor] = 1.0) -> HMCState:
+        return init_state(vg, q, mass)
+
+    def kinetic(p, cov):
+        return 0.5 * torch.sum(p * (p @ cov), dim=-1)
+
+    def transition(state: HMCState, z: Tensor, log_u: Tensor, step_size,
+                   cov: Tensor, inv_chol: Tensor) -> tuple[HMCState, HMCInfo]:
+        ens = state.ensemble
+        p0 = momentum_scale * (z @ inv_chol)
+        q, p, u, g = ens.q, p0, state.potential_energy, state.grad
+        for _ in range(num_steps):
+            p = p - (0.5 * step_size) * g
+            q = q + step_size * (p @ cov)
+            u, g = vg(q)
+            p = p - (0.5 * step_size) * g
+        p1 = -p
+        energy_error = beta * ((kinetic(p1, cov) + u)
+                               - (kinetic(p0, cov) + state.potential_energy))
+        energy_error = torch.where(torch.isfinite(energy_error),
+                                   energy_error, torch.inf)
+        divergent = energy_error > divergence_threshold
+        accepted = (log_u < -energy_error) & ~divergent
+        accept_prob = torch.where(
+            divergent, 0.0, torch.exp(torch.clamp_max(-energy_error, 0.0)))
+        sel = accepted[:, None]
+        new_state = HMCState(
+            ensemble=ens.replace(q=torch.where(sel, q, ens.q),
+                                 p=torch.where(sel, p1, p0)),
+            potential_energy=torch.where(accepted, u,
+                                         state.potential_energy),
+            grad=torch.where(sel, g, state.grad))
+        info = HMCInfo(accept_prob=accept_prob, accepted=accepted,
+                       energy_error=energy_error, divergent=divergent,
+                       potential_energy=new_state.potential_energy,
+                       step_size=torch.as_tensor(step_size))
+        return new_state, info
+
+    def step(key: StepKey, state: HMCState, step_size, cov: Tensor,
+             inv_chol: Tensor) -> tuple[HMCState, HMCInfo]:
+        q = state.ensemble.q
+        gen = _step_generator(key, q.device)
+        z = torch.randn(q.shape, generator=gen, dtype=q.dtype,
+                        device=q.device)
+        uniform = torch.rand(q.shape[:1], generator=gen, dtype=q.dtype,
+                             device=q.device)
+        log_u = torch.log(torch.clamp_min(uniform, torch.finfo(q.dtype).tiny))
+        return transition(state, z, log_u, step_size, cov, inv_chol)
+
+    return HMCKernel(init=init, step=step, num_steps=num_steps,
+                     grad_evals_per_step=1, kind="dense",
+                     transition=transition)
+
+
+def _inverse_cholesky(cov: Tensor) -> Tensor:
+    chol = torch.linalg.cholesky(cov)
+    eye = torch.eye(cov.shape[0], dtype=cov.dtype, device=cov.device)
+    return torch.linalg.solve_triangular(chol, eye, upper=False)
+
+
 @dataclasses.dataclass
 class HMCRunResult:
     """Output of :func:`run_hmc`."""
@@ -428,11 +531,13 @@ class HMCRunResult:
     accept_rate: Tensor  # scalar, post-warmup mean (NaN if num_samples=0)
     divergence_rate: Tensor  # scalar
     step_size: Tensor  # adapted step size
-    mass: Tensor  # adapted diagonal mass [D]
+    mass: Tensor  # adapted diagonal mass [D] (dense: 1 / diag(Sigma))
     num_grad_evals: int  # potential-gradient evaluations, all walkers
-    kernel_used: str = "composed"  # "fused" | "composed"
-    kernel_variant: str = "composed"  # "diag" | "generic" | "composed"
+    kernel_used: str = "composed"  # "fused" | "composed" | "dense"
+    # "diag" | "generic" | "composed" | "dense"
+    kernel_variant: str = "composed"
     sampling_seconds: float = 0.0  # wall time of sampling, device-synced
+    metric_cov: Optional[Tensor] = None  # [D, D] adapted Sigma (dense)
 
 
 def resolve_engine(kernel: str, potential_fn, q: Tensor, *,
@@ -488,25 +593,44 @@ def run_hmc(
     collect: str = "samples",
     thin: int = 1,
     kernel: str = "auto",
+    metric: str = "diag",
 ) -> HMCRunResult:
     """Warmup-adapt and sample with ensemble HMC.
 
     Warmup: dual averaging of the step size on the ensemble-mean acceptance
-    and a cross-walker variance estimate for the diagonal metric (mass =
-    1/var), refreshed at the window boundaries of
-    :func:`~.adaptation.build_warmup_schedule`. Transition ``t`` of the run
-    (warmup first, then sampling) uses key ``(seed, t)``. All adaptation
-    state stays on the device; the loop never reads a value back.
+    and a cross-walker estimate of the metric, refreshed at the window
+    boundaries of :func:`~.adaptation.build_warmup_schedule`: with
+    ``metric="diag"`` the variance (mass = 1/var), with ``metric="dense"``
+    the covariance Sigma (:func:`build_dense_hmc_kernel`, whose result
+    carries it as ``metric_cov``). Transition ``t`` of the run (warmup
+    first, then sampling) uses key ``(seed, t)``. All adaptation state
+    stays on the device; the loop never reads a value back.
 
     ``collect``: "samples" stacks every ``thin``-th position ``[S, W, D]``;
     "moments" streams the posterior mean/variance; "none" keeps only the
-    diagnostics. ``kernel``: see :func:`resolve_engine`.
+    diagnostics. ``kernel``: see :func:`resolve_engine`; with
+    ``metric="dense"`` "auto" and "composed" run the dense step and
+    "fused" raises.
     """
     if collect not in ("samples", "moments", "none"):
         raise ValueError(f"bad collect={collect!r}")
-    q = torch.as_tensor(init_q)
-    engine = resolve_engine(kernel, potential_fn, q, integrator=integrator)
-    if engine == "fused":
+    if metric not in ("diag", "dense"):
+        raise ValueError(f"bad metric={metric!r} (want diag|dense)")
+    q = torch.as_tensor(init_q, device=resolve_device(None, init_q))
+    dense = metric == "dense"
+    if dense:
+        if kernel not in ("auto", "composed"):
+            raise ValueError(
+                f"kernel={kernel!r} cannot run metric='dense': no fused "
+                f"kernel has a dense metric (want auto|composed)")
+        if integrator not in FUSED_INTEGRATORS:
+            raise ValueError(f"metric='dense' integrates with leapfrog; "
+                             f"got integrator={integrator!r}")
+        hk = build_dense_hmc_kernel(
+            potential_fn, num_steps=num_steps, temperature=temperature,
+            constants=constants)
+    elif resolve_engine(kernel, potential_fn, q,
+                        integrator=integrator) == "fused":
         hk = build_fused_hmc_kernel(
             potential_fn, num_steps=num_steps, temperature=temperature,
             constants=constants)
@@ -517,6 +641,12 @@ def run_hmc(
     state = hk.init(q, mass=mass)
     num_walkers, num_dims = state.ensemble.q.shape
     dtype, device = q.dtype, q.device
+    cov = inv_chol = torch.eye(num_dims, dtype=dtype, device=device)
+
+    def step(key, st, eps):
+        if dense:
+            return hk.step(key, st, eps, cov, inv_chol)
+        return hk.step(key, st, eps)
 
     # ---- warmup -----------------------------------------------------------
     step_size = torch.full((), init_step_size, dtype=dtype, device=device)
@@ -525,19 +655,25 @@ def run_hmc(
     t = 0
     for seg in build_warmup_schedule(num_warmup, adapt_mass=adapt_mass):
         da = da_init(step_size)
-        track_var = seg.update_mass and adapt_mass
-        varst = variance_init(num_dims, dtype, device)
+        track = seg.update_mass and adapt_mass
+        est = (covariance_init if dense else variance_init)(
+            num_dims, dtype, device)
         for _ in range(seg.length):
-            state, info = hk.step((seed, t), state, torch.exp(da.log_step))
+            state, info = step((seed, t), state, torch.exp(da.log_step))
             t += 1
             da = da_update(da, torch.mean(info.accept_prob),
                            target=target_accept, enabled=adapt_step_size)
-            if track_var:
-                varst = variance_update(varst, state.ensemble.q)
+            if track:
+                est = (covariance_update if dense else variance_update)(
+                    est, state.ensemble.q)
         if adapt_step_size:
             step_size = torch.exp(da.log_avg_step)
-        if track_var:
-            mass_arr = 1.0 / regularized_mass(varst)
+        if track and dense:
+            cov = regularized_covariance(est)
+            inv_chol = _inverse_cholesky(cov)
+            mass_arr = 1.0 / torch.diagonal(cov)
+        elif track:
+            mass_arr = 1.0 / regularized_mass(est)
             state = state.replace(
                 ensemble=state.ensemble.replace(mass=mass_arr))
 
@@ -549,7 +685,7 @@ def run_hmc(
     _synchronize(device)
     t0 = _time.perf_counter()
     for i in range(num_samples):
-        state, info = hk.step((seed, t), state, step_size)
+        state, info = step((seed, t), state, step_size)
         t += 1
         accepts.append(torch.mean(info.accept_prob))
         divs.append(torch.mean(info.divergent.to(dtype)))
@@ -583,11 +719,12 @@ def run_hmc(
 
     total_grads = ((num_warmup + num_samples) * num_walkers
                    * (hk.num_steps * hk.grad_evals_per_step + 1))
-    variant = ("composed" if hk.kind != "fused"
-               else hk.variant_for(num_walkers, num_dims, 1))
+    variant = (hk.variant_for(num_walkers, num_dims, 1) if hk.kind == "fused"
+               else "dense" if dense else "composed")
     return HMCRunResult(
         state=state, samples=out_samples, mean=post_mean, var=post_var,
         accept_rate=accept_rate, divergence_rate=divergence_rate,
         step_size=step_size, mass=mass_arr, num_grad_evals=total_grads,
         kernel_used=hk.kind, kernel_variant=variant,
-        sampling_seconds=sampling_seconds)
+        sampling_seconds=sampling_seconds,
+        metric_cov=cov if dense else None)

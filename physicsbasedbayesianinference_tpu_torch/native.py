@@ -1,11 +1,18 @@
-"""Host-side parsing of the reference's N-body initial-condition text (port
-of the JAX package's ``native.py``, its parser only).
+"""Host-side IO (port of the JAX package's ``native.py``): the parser of
+the reference's N-body initial-condition text, and the streaming sample
+store (:class:`SampleSink`, :func:`read_samples`).
 
-The C++ tokenizer ``csrc/pbbi_io.cpp`` at the repository root (shared with
-the JAX package, unchanged) is compiled at first use with the system C++
-compiler into this package's ``_build/`` directory (listed in
-``.gitignore``) and loaded with ctypes. On a host without a C++ compiler
-the numpy tokenizer parses the same format. Neither is a device kernel.
+``csrc/pbbi_io.cpp`` at the repository root (shared with the JAX package,
+unchanged) is compiled at first use with the system C++ compiler into this
+package's ``_build/`` directory (listed in ``.gitignore``) and loaded with
+ctypes. On a host without a C++ compiler a numpy tokenizer parses the same
+format and a numpy writer writes the same sample files. None of it is a
+device kernel.
+
+The sample file is the JAX package's: a 32-byte header of eight uint32
+(magic ``0x50424249``, version 1, walkers, dims, rows as two 32-bit
+halves, two zeros), then ``[rows, dims]`` float32, so a file written by
+either package reads back bitwise in the other.
 """
 
 from __future__ import annotations
@@ -18,12 +25,15 @@ import subprocess
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from .ops._build import BUILD_DIR
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "pbbi_io.cpp")
 _DOUBLES = ctypes.POINTER(ctypes.c_double)
+_FLOATS = ctypes.POINTER(ctypes.c_float)
+_MAGIC = 0x50424249
 
 
 def _build() -> Optional[str]:
@@ -62,6 +72,18 @@ def get_lib() -> Optional[ctypes.CDLL]:
     lib.pbbi_nbody_parse.restype = ctypes.c_int
     lib.pbbi_nbody_parse.argtypes = [ctypes.c_char_p, ctypes.c_long,
                                      _DOUBLES, _DOUBLES, _DOUBLES]
+    lib.pbbi_sink_open.restype = ctypes.c_void_p
+    lib.pbbi_sink_open.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                   ctypes.c_int64]
+    lib.pbbi_sink_append.restype = ctypes.c_int64
+    lib.pbbi_sink_append.argtypes = [ctypes.c_void_p, _FLOATS,
+                                     ctypes.c_int64]
+    lib.pbbi_sink_close.restype = ctypes.c_int
+    lib.pbbi_sink_close.argtypes = [ctypes.c_void_p]
+    lib.pbbi_sink_info.restype = ctypes.c_int64
+    lib.pbbi_sink_info.argtypes = [ctypes.c_char_p,
+                                   ctypes.POINTER(ctypes.c_int64),
+                                   ctypes.POINTER(ctypes.c_int64)]
     return lib
 
 
@@ -100,3 +122,79 @@ def parse_nbody_text(text: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
     vals = np.asarray(tokens[3:need], dtype=np.float64)
     return (vals[:n], vals[n:4 * n].reshape(n, 3),
             vals[4 * n:].reshape(n, 3), tmax_f, dt_f)
+
+
+class SampleSink:
+    """Append-only float32 sample store: ``append`` a ``[..., num_dims]``
+    chunk (a numpy array or a tensor on any device), ``close`` (or leave
+    the ``with`` block) to finish the header. The compiled writer when the
+    library builds, else the numpy writer."""
+
+    def __init__(self, path: str, num_walkers: int, num_dims: int):
+        self.path = path
+        self.num_walkers = int(num_walkers)
+        self.num_dims = int(num_dims)
+        self.num_rows = 0
+        self._lib = get_lib()
+        self._handle = self._f = None
+        if self._lib is not None:
+            self._handle = self._lib.pbbi_sink_open(
+                path.encode(), self.num_walkers, self.num_dims)
+            if not self._handle:
+                raise OSError(f"cannot open sink {path}")
+        else:
+            self._f = open(path, "wb")
+            self._write_header()
+
+    def _write_header(self):
+        head = np.zeros(8, np.uint32)
+        head[:6] = (_MAGIC, 1, self.num_walkers, self.num_dims,
+                    self.num_rows & 0xFFFFFFFF, self.num_rows >> 32)
+        self._f.seek(0)
+        self._f.write(head.tobytes())
+
+    def append(self, chunk) -> int:
+        """Append ``chunk`` ``[..., num_dims]``; returns the total rows."""
+        if isinstance(chunk, torch.Tensor):  # one copy to the host
+            chunk = chunk.detach().cpu().numpy()
+        arr = np.ascontiguousarray(
+            np.asarray(chunk), dtype=np.float32).reshape(-1, self.num_dims)
+        if self._handle is not None:
+            rows = self._lib.pbbi_sink_append(
+                self._handle, arr.ctypes.data_as(_FLOATS), arr.shape[0])
+            if rows < 0:
+                raise OSError("sink write failed")
+            self.num_rows = rows
+        else:
+            self._f.seek(0, os.SEEK_END)
+            self._f.write(arr.tobytes())
+            self.num_rows += arr.shape[0]
+        return self.num_rows
+
+    def close(self):
+        if self._handle is not None:
+            rc = self._lib.pbbi_sink_close(self._handle)
+            self._handle = None
+            if rc != 0:
+                raise OSError("sink close failed")
+        elif self._f is not None:
+            self._write_header()
+            self._f.close()
+            self._f = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def read_samples(path: str) -> np.ndarray:
+    """A sample file -> ``[num_rows, num_dims]`` float32, memory-mapped."""
+    head = np.fromfile(path, dtype=np.uint32, count=8)
+    if head.shape[0] < 8 or head[0] != _MAGIC:
+        raise ValueError(f"{path} is not a PBBI sample file")
+    num_dims = int(head[3])
+    num_rows = int(head[4]) | (int(head[5]) << 32)
+    return np.memmap(path, dtype=np.float32, mode="r", offset=32,
+                     shape=(num_rows, num_dims))

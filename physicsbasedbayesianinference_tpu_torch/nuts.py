@@ -43,6 +43,7 @@ import torch
 from .adaptation import (build_warmup_schedule, da_init, da_update,
                          regularized_mass, variance_init, variance_update)
 from .constants import Constants, NATURAL
+from .device import resolve_device
 from .ensemble import thermal_momentum_std
 from .hmc import HMCState, _splitmix64, _step_generator, _synchronize, \
     init_state
@@ -337,7 +338,7 @@ def run_nuts(
         raise ValueError(f"bad collect={collect!r} (want samples|none)")
     kernel = build_nuts_kernel(potential_fn, max_depth=max_depth,
                                temperature=temperature, constants=constants)
-    q = torch.as_tensor(init_q)
+    q = torch.as_tensor(init_q, device=resolve_device(None, init_q))
     state = kernel.init(q, mass=mass)
     num_dims = state.ensemble.num_dims
     dtype, device = q.dtype, q.device

@@ -328,13 +328,15 @@ def batched_value_and_grad(
 
 
 @functools.lru_cache(maxsize=None)
-def builtin_potentials() -> dict:
-    """Registry of zero-arg builtin target constructors (CPU parameters)."""
+def builtin_potentials(device=None) -> dict:
+    """Registry of zero-arg builtin target constructors for the CLI, their
+    parameters on ``device`` (``default_device()`` unless given)."""
+    device = resolve_device(device)
     return {
         "std_normal_2d": lambda: make_standard_normal(2),
         "std_normal_32d": lambda: make_standard_normal(32),
-        "banana": make_banana,
-        "funnel_10d": lambda: make_funnel(10),
+        "banana": lambda: make_banana(device=device),
+        "funnel_10d": lambda: make_funnel(10, device=device),
         "bimodal_2d": lambda: make_gaussian_mixture(
-            torch.tensor([[-3.0, 0.0], [3.0, 0.0]])),
+            torch.tensor([[-3.0, 0.0], [3.0, 0.0]]), device=device),
     }

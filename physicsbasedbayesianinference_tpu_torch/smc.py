@@ -283,7 +283,7 @@ def run_smc(
     ``hmc.resolve_engine`` decides it ("fused" raises where it cannot
     run).
     """
-    init_q = torch.as_tensor(init_q)
+    init_q = torch.as_tensor(init_q, device=resolve_device(None, init_q))
     m = build_smc_machinery(
         potential_fn, init_q.shape[0], init_q.dtype,
         num_dims=init_q.shape[1], num_mutation_steps=num_mutation_steps,
@@ -424,7 +424,8 @@ def build_smc_machinery(
             accept_history=torch.where(here, acc, c.accept_history))
 
     def init_carry(seed: int, init_q) -> SMCCarry:
-        init_q = torch.as_tensor(init_q)
+        init_q = torch.as_tensor(init_q,
+                                 device=resolve_device(device, init_q))
         dev = init_q.device
         u0, _ = vg(init_q)
         betas = torch.full((max_stages + 1,), beta_max, dtype=dtype,

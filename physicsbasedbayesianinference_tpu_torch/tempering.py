@@ -212,6 +212,8 @@ class PTResult:
 
     samples: Optional[Tensor]  # [S, W, D] cold-replica draws
     q: Tensor  # [R, W, D] final replica positions
+    u: Tensor  # [R, W] their unscaled potential energies
+    g: Tensor  # [R, W, D] and gradients, as the next transition takes them
     accept_rate: Tensor  # [R] per-replica HMC acceptance
     swap_rate: Tensor  # [R] fraction of accepted swaps per slot
     step_sizes: Tensor  # [R] adapted per-replica step sizes
@@ -253,7 +255,7 @@ def run_parallel_tempering(
     """
     if collect not in ("samples", "moments", "none"):
         raise ValueError(f"bad collect={collect!r}")
-    init_q = torch.as_tensor(init_q)
+    init_q = torch.as_tensor(init_q, device=resolve_device(None, init_q))
     dtype, device = init_q.dtype, init_q.device
     if betas is None:
         betas = geometric_ladder(num_replicas, beta_min, dtype, device)
@@ -330,7 +332,7 @@ def run_parallel_tempering(
         post_mean = mean
         post_var = m2 / max(n - 1.0, 1.0)
     return PTResult(
-        samples=out_samples, q=q, accept_rate=accept_rate,
+        samples=out_samples, q=q, u=u, g=g, accept_rate=accept_rate,
         swap_rate=swap_rate, step_sizes=step_sizes, betas=betas,
         mean=post_mean, var=post_var, kernel_used=kernel_used,
         sampling_seconds=sampling_seconds)

@@ -392,6 +392,37 @@ def test_run_hmc_fused_on_cuda(dev):
     assert float((res.var - 1).abs().max()) < 0.08
 
 
+def test_a_numpy_init_q_runs_fused_on_the_card(dev):
+    """A numpy ``init_q`` goes to the default device, the card: the run
+    takes the fused engine, as for a tensor already there."""
+    q0 = np.random.default_rng(0).normal(size=(1024, 4)).astype(np.float32)
+    kernels.reset_launch_counts()
+    res = pt.run_hmc(3, pot.make_standard_normal(4), q0, num_warmup=10,
+                     num_samples=10, num_steps=4, collect="moments")
+    assert (res.kernel_used, res.kernel_variant) == ("fused", "diag")
+    assert res.state.ensemble.q.device.type == "cuda"
+    assert kernels.launch_counts()["fused_hmc_diag_quadratic"] == 20
+
+
+def test_cli_runs_on_the_card(dev, tmp_path):
+    """The command-line driver's default device is the card: hmc in
+    kernel A, a checkpointed resume bitwise the uninterrupted run."""
+    from physicsbasedbayesianinference_tpu_torch import main
+    base = dict(model="builtin:std_normal_32d", num_walkers=2048,
+                num_warmup=20, num_steps=4, checkpoint_every=8)
+    kernels.reset_launch_counts()
+    s = main.run(pt.RunConfig(num_samples=16, collect="moments", **{
+        k: v for k, v in base.items() if k != "checkpoint_every"}))
+    assert (s["kernel_used"], s["kernel_variant"]) == ("fused", "diag")
+    assert kernels.launch_counts()["fused_hmc_diag_quadratic"] == 36
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    main.run(pt.RunConfig(num_samples=8, checkpoint_dir=a, **base))
+    s2 = main.run(pt.RunConfig(num_samples=16, checkpoint_dir=a, **base))
+    s3 = main.run(pt.RunConfig(num_samples=16, checkpoint_dir=b, **base))
+    assert s2["resumed_from"] == 8
+    assert s2["posterior_mean"] == s3["posterior_mean"] == s["posterior_mean"]
+
+
 @pytest.mark.parametrize("kind", ["diag", "generic"])
 def test_fused_step_and_adaptation_never_synchronise(dev, kind):
     """A warmup transition (fused step, dual averaging, variance stream)

@@ -37,3 +37,31 @@ def test_autocorrelation_ess_rhat_summary_match_jax():
     # AR(1) with phi=0.7: tau = (1+phi)/(1-phi) = 5.67
     ess = td.effective_sample_size(xt).numpy()
     np.testing.assert_allclose(ess, 200 * 16 / 5.67, rtol=0.25)
+
+
+def test_summary_past_torch_quantiles_row_limit_matches_jax():
+    """[256, 65537, 1]: 16.8M rows, over the 2^24 that ``torch.quantile``
+    takes. Mean and sd to rtol 1e-5 (float32 sums in another order, atol
+    1e-6 for the mean near 0), every quantile exactly: both packages
+    interpolate between the same two order statistics with float32
+    weights."""
+    x = np.random.default_rng(5).normal(size=(256, 65537, 1)).astype(
+        np.float32)
+    sj, st = jd.summary(jnp.asarray(x)), td.summary(torch.as_tensor(x))
+    np.testing.assert_allclose(st["mean"].numpy(), np.asarray(sj["mean"]),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(st["sd"].numpy(), np.asarray(sj["sd"]),
+                               rtol=1e-5)
+    np.testing.assert_array_equal(st["quantiles"].numpy(),
+                                  np.asarray(sj["quantiles"]))
+
+
+def test_quantiles_match_jax_at_small_shapes_and_nan():
+    x = _ar1(t=37, w=5)
+    x[3, 2, 1] = np.nan
+    for qs in ((0.05, 0.5, 0.95), (0.0, 0.25, 1.0)):
+        sj = jd.summary(jnp.asarray(x), quantiles=qs)
+        st = td.summary(torch.as_tensor(x), quantiles=qs)
+        np.testing.assert_allclose(st["quantiles"].numpy(),
+                                   np.asarray(sj["quantiles"]), rtol=1e-6)
+        assert np.isnan(st["quantiles"][:, 1].numpy()).all()

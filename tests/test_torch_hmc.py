@@ -190,3 +190,58 @@ def test_variants_and_input_checks():
     res = pt.run_hmc(0, std, q, num_warmup=0, num_samples=5, num_steps=2,
                      thin=2)
     assert res.samples.shape == (3, 16, 2)
+
+
+class _DefaultDeviceAsked(Exception):
+    pass
+
+
+def _entry_points():
+    """Every entry point that takes initial positions, called on them."""
+    from physicsbasedbayesianinference_tpu_torch import chees, nuts, smc
+    std = tp.make_standard_normal(2)
+    few = dict(num_warmup=2, num_samples=2)
+    return {
+        "run_hmc": lambda q: pt.run_hmc(0, std, q, num_steps=2, **few),
+        "run_hmc dense": lambda q: pt.run_hmc(0, std, q, num_steps=2,
+                                              metric="dense", **few),
+        "run_chees_hmc": lambda q: pt.run_chees_hmc(0, std, q, max_steps=4,
+                                                    **few),
+        "run_smc": lambda q: pt.run_smc(0, std, q, beta0=0.5, max_stages=2),
+        "smc init_carry": lambda q, m=smc.build_smc_machinery(
+            std, 8, torch.float32, num_dims=2): m["init_carry"](0, q),
+        "run_parallel_tempering": lambda q: pt.run_parallel_tempering(
+            0, std, q, num_replicas=2, num_steps=2, **few),
+        "run_nuts": lambda q: pt.run_nuts(0, std, q, max_depth=2, **few),
+        "build_hmc_kernel init": lambda q: pt.build_hmc_kernel(
+            std, num_steps=2).init(q),
+        "build_fused_hmc_kernel init": lambda q: pt.build_fused_hmc_kernel(
+            std, num_steps=2).init(q),
+        "build_dense_hmc_kernel init": lambda q: pt.build_dense_hmc_kernel(
+            std, num_steps=2).init(q),
+        "build_jittered_hmc_kernel init": lambda q:
+            chees.build_jittered_hmc_kernel(std)[0](q),
+        "build_nuts_kernel init": lambda q: nuts.build_nuts_kernel(
+            std).init(q),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_points_put_numpy_init_q_on_the_default_device(monkeypatch,
+                                                             name):
+    """A numpy ``init_q`` goes to ``device.default_device()`` (the card
+    when there is one), a tensor keeps its device: the resolution runs
+    through ``default_device`` for the one and not for the other."""
+    from physicsbasedbayesianinference_tpu_torch import device
+
+    call = _entry_points()[name]
+    q = np.random.default_rng(0).normal(size=(8, 2)).astype(np.float32)
+    call(torch.as_tensor(q))  # built before the patch: a tensor runs
+
+    def asked():
+        raise _DefaultDeviceAsked
+
+    monkeypatch.setattr(device, "default_device", asked)
+    call(torch.as_tensor(q))  # a tensor never asks
+    with pytest.raises(_DefaultDeviceAsked):
+        call(q)

@@ -1,6 +1,8 @@
-"""The port imports and runs without JAX (HMC with both integrator routes,
-the model DSL and ChEES-HMC on a model, SMC, parallel tempering and NUTS,
-the physics package, the native parser and every kernel wrapper), and
+"""The port imports and runs without JAX (HMC with both integrator routes
+and the dense metric, the model DSL and ChEES-HMC on a model, SMC,
+parallel tempering and NUTS, the command-line driver with its config,
+checkpoints and sample sink, the physics package, the native parser and
+every kernel wrapper), and
 ``chip_smoke.py`` refuses to run (printing no result) where there is no CUDA
 device."""
 
@@ -64,6 +66,15 @@ def test_port_imports_and_samples_without_jax():
         "n = pt.run_nuts(0, target, q, num_warmup=3, num_samples=3,\n"
         "    max_depth=3)\n"
         "assert n.samples.shape == (3, 64, 2)\n"
+        "from physicsbasedbayesianinference_tpu_torch import (checkpoint,\n"
+        "    config, main)\n"
+        "r = pt.run_hmc(0, target, q, num_warmup=3, num_samples=3,\n"
+        "               num_steps=2, metric='dense')\n"
+        "assert r.kernel_used == 'dense'\n"
+        "cfg = pt.RunConfig(num_walkers=16, num_warmup=2, num_samples=2,\n"
+        "                   num_steps=2, device='cpu')\n"
+        "assert main.run(cfg)['kernel_used'] == 'composed'\n"
+        "assert pt.CheckpointManager and pt.SampleSink and pt.read_samples\n"
         "s, tmax, dt = physics.load_nbody_text('examples/nbody/pl3.txt')\n"
         "tr = physics.simulate(s, dt, 4, save_every=2)\n"
         "assert tr.num_valid == 2 and tr.x.shape == (2, 3, 3)\n"
