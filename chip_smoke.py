@@ -110,6 +110,27 @@
    resumed, bitwise; 12f stream mode into a sample file; 12g
    ``run_hmc(metric="dense")`` on phase 7's Gaussian (composed, no kernel):
    moments and the adapted covariance.
+13. Drives the sharded paths (``parallel/``). 13a holds what a K-rank run
+   needs of the kernels: kernel A at the bench shape and kernel B's
+   Gaussian form at phase 7's, each launched on the two halves of the
+   walkers at their global offsets, joined bitwise to the whole launch
+   (and the plain version's halves to the plain whole, the kernel to the
+   plain version within phase 2's tolerance); kernel E with the bodies as
+   their own sources (bitwise the one-set launch) and over two blocks of
+   8192 sources (within ``kernels.nbody_bound``); times the new variants.
+   13b ``sharded_run_hmc`` in a one-rank NCCL group at the bench
+   configuration (456 launches of A, phase 3's gates, the fixed-step run's
+   q bitwise ``run_hmc``'s, NCCL collectives a warmup and a sampling
+   transition, no blocking call) and on phase 7's Gaussian (456 of B);
+   13c ``run_smc(mesh=)`` on phase 9a's target (its gates, the same bits
+   from a second run, collectives and host reads a stage); 13d the CLI with
+   ``sharded=true`` through ``torch.distributed.run`` (phase 3's gates);
+   13e ``ring_simulate`` on phase 6's Plummer sphere (one launch of kernel
+   E's source-block form a step and one more, the energy drift, the final
+   positions against ``physics.simulate``). With two or more cards 13b and
+   13d also run with two processes; on one card the phase says it ran one.
+   With ``--sharded-rank PATH STEP`` the script is one rank of that
+   two-process 13b run and needs the launcher's environment.
 
 The line before the last is a JSON object with one entry per kernel, with
 its time beside its bound (``bound_ms``: the larger of the bytes it must
@@ -752,6 +773,7 @@ def main() -> None:
                             save_every=100, softening=0.05)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    steps_per_s_6 = n_steps / seconds
     launched_e = kernels.launch_counts()["nbody_accelerations_tiled"]
     if launched_e != 2 * n_steps:
         fail(f"simulate launched kernel E {launched_e} times, want "
@@ -837,7 +859,7 @@ def main() -> None:
     mean7 = torch.randn(d, generator=gen7)
     cov7 = a7 @ a7.T + 0.5 * torch.eye(d)
     sd7 = torch.sqrt(torch.diagonal(cov7))
-    corr_launches, corr_steps = {}, {}
+    corr_launches, corr_steps, corr_ms = {}, {}, {}
     for sub, wrapper, kernel_ms, extra in (
             ("7a", "fused_hmc_transition", b_corr["ms"],
              dict(kernel="auto")),
@@ -851,6 +873,7 @@ def main() -> None:
         launched = kernels.launch_counts()[wrapper]
         corr_launches[sub] = launched
         corr_steps[sub] = res7.step_size.item()
+        corr_ms[sub] = 1e3 * res7.sampling_seconds / n_samp
         ran = (res7.kernel_used, res7.kernel_variant)
         want = (("fused", "generic") if sub == "7a"
                 else ("composed", "composed"))
@@ -1900,6 +1923,472 @@ def main() -> None:
              f"{var_err} (0.03), Sigma {cov_err} ({DENSE_COV_GATE}), accept "
              f"{accept}")
 
+    # ---- 13. the sharded paths (parallel/) on the card ----------------------
+    # One card: the sharded paths run in a one-rank NCCL group in this
+    # process (13b, 13c, 13e) and through torchrun with one process (13d).
+    # What a K-rank run needs of the kernels is held at the kernel level
+    # (13a): launches over two blocks of walkers at their global offsets,
+    # and kernel E over two blocks of sources. With two or more cards 13b
+    # and 13d also run K = 2 under torchrun and are held to K = 1.
+    import torch.distributed as dist
+    from physicsbasedbayesianinference_tpu_torch import build_fused_hmc_kernel
+    from physicsbasedbayesianinference_tpu_torch import parallel as par
+    gen13 = torch.Generator(device="cpu").manual_seed(SEED + 13)
+    halves = (slice(0, w // 2), slice(w // 2, w))
+
+    def check_offsets(case, launch, plain, order, nbytes, ops):
+        """``launch(rows, offset)`` and ``plain(rows, offset)`` on the whole
+        and on the two halves at their global walker offsets: the kernel's
+        halves joined must be the whole launch bit for bit, the plain
+        version's the plain whole, and the kernel within phase 2's
+        tolerance of the plain version. Times the half at offset W / 2."""
+        outs = {}
+        for name, fn in (("kernel", launch), ("plain", plain)):
+            whole = named(fn(slice(0, w), 0), order)
+            parts = [named(fn(rows, rows.start), order) for rows in halves]
+            torch.cuda.synchronize()
+            for key in order:
+                if not torch.equal(whole[key],
+                                   torch.cat([p[key] for p in parts])):
+                    fail(f"13a {case}: the {name} halves' {key} at their "
+                         f"offsets is not the whole {name} launch's")
+            outs[name] = whole
+        log_u = torch.log(philox.accept_uniforms(SEED, 13, w, dev))
+        line = {"case": case, "halves_join_bitwise": True,
+                "max_abs_err": compare(f"13a {case}", outs["kernel"],
+                                       outs["plain"], log_u),
+                **bound(nbytes, ops),
+                "ms": median_ms(lambda: launch(halves[1], w // 2)),
+                "plain_ms": median_ms(lambda: plain(halves[1], w // 2))}
+        print(json.dumps(line))
+        return line
+
+    q13 = torch.randn(w, d, generator=gen13).to(dev)
+    ones, zeros = torch.ones(d, device=dev), torch.zeros(d, device=dev)
+    kw13 = dict(scalars=scalars(0.3), p_std=ones, inv_mass=ones,
+                num_steps=steps)
+    a_off = check_offsets(
+        "A std_normal W=102400 D=32 L=16, halves at offsets 0 and 51200",
+        lambda rows, off: kernels.fused_hmc_diag_quadratic(
+            SEED, 13, q13[rows], k_diag=ones, mean=zeros,
+            walker_offset=off, **kw13),
+        lambda rows, off: kernels.fused_hmc_diag_quadratic_plain(
+            SEED, 13, q13[rows], k_diag=ones, mean=zeros,
+            walker_offset=off, **kw13),
+        A_ORDER, transition_bytes(w // 2, d, False),
+        w // 2 * d * (4 * steps + 10))
+    form7 = pot.make_gaussian(mean7, cov=cov7, device=dev).device_form
+    u13, g13 = kernels.device_value_and_grad(form7)(q13)
+    im13 = (0.5 + 1.5 * torch.rand(d, generator=gen13)).to(dev)
+    kw13b = dict(scalars=scalars(0.1), p_std=torch.sqrt(1.0 / im13),
+                 inv_mass=im13, num_steps=steps)
+    b_off = check_offsets(
+        f"B correlated gaussian (phase 7) W=102400 D=32 L=16 tile "
+        f"{kernels.walker_tile(w, d)}, halves at offsets 0 and 51200",
+        lambda rows, off: kernels.fused_hmc_transition(
+            form7, SEED, 13, q13[rows], u13[rows], g13[rows],
+            walker_offset=off, **kw13b),
+        lambda rows, off: kernels.fused_hmc_transition_plain(
+            form7, SEED, 13, q13[rows], u13[rows], g13[rows],
+            walker_offset=off, **kw13b),
+        B_ORDER, transition_bytes(w // 2, d, True),
+        w // 2 * (steps + 1) * (gradient_ops(form7, d) + 3 * d))
+
+    # kernel E: the sources a separate array. As their own sources the
+    # bodies give the one-set launch's bits; over two blocks of sources,
+    # summed, the ring's K = 2 tiles, within the bound of check_e of the
+    # one-set launch and of the plain version.
+    x16, m16 = plummer.x, plummer.mass
+    kw_e = dict(g_const=1.0, softening=0.05)
+    one_set = kernels.nbody_accelerations_tiled(x16, m16, **kw_e)
+    as_sources = kernels.nbody_accelerations_tiled(x16, None,
+                                                   sources=(x16, m16), **kw_e)
+    torch.cuda.synchronize()
+    if not torch.equal(one_set, as_sources):
+        fail("13a: kernel E with the bodies as their own sources is not the "
+             "one-set launch bit for bit")
+    tiles = [(x16[rows].contiguous(), m16[rows].contiguous())
+             for rows in (slice(0, 8192), slice(8192, 16384))]
+    two_blocks = sum(kernels.nbody_accelerations_tiled(x16, None,
+                                                       sources=src, **kw_e)
+                     for src in tiles)
+    n16 = x16.shape[0]
+    u32 = torch.finfo(torch.float32).eps / 2
+    allowed_e = kernels.NBODY_BOUND_C + kernels.NBODY_BOUND_TERM / n16**0.5
+    scale_e = u32 * n16**0.5 * kernels.nbody_abs_sum(x16, m16, **kw_e)[:, None]
+    ratios = {}
+    for name, ref in (("one_set_launch", one_set),
+                      ("plain", kernels.nbody_accelerations_tiled_plain(
+                          x16, m16, **kw_e))):
+        ratios[name] = ((two_blocks - ref).abs().double()
+                        / scale_e).max().item()
+        if not ratios[name] <= allowed_e:
+            fail(f"13a: kernel E over two source blocks reaches "
+                 f"{ratios[name]:.3g} u sqrt(N) S_i from the {name}, over "
+                 f"the bound {allowed_e:.3g}")
+    # x and m of the targets in, a out: as check_e; a tile reads its
+    # sources' x and m
+    e_src = {"case": "E source-block form, Plummer N=16384 as its own "
+                     "sources eps=0.05 (13e's launch)",
+             "same_bits_as_one_set": True,
+             "max_abs_err": (as_sources - kernels.nbody_accelerations_tiled_plain(
+                 x16, None, sources=(x16, m16), **kw_e)).abs().max().item(),
+             **bound(4 * (6 * n16 + 4 * n16), 12.0 * n16 * n16),
+             "ms": median_ms(lambda: kernels.nbody_accelerations_tiled(
+                 x16, None, sources=(x16, m16), **kw_e)),
+             "plain_ms": median_ms(
+                 lambda: kernels.nbody_accelerations_tiled_plain(
+                     x16, None, sources=(x16, m16), **kw_e),
+                 reps=3, rounds=3)}
+    e_tile = {"case": "E one ring tile: 16384 targets, 8192 sources",
+              "two_tiles_ratio_u_sqrtN_S": ratios, "allowed_ratio": allowed_e,
+              **bound(4 * (6 * n16 + 4 * 8192), 12.0 * n16 * 8192),
+              "ms": median_ms(lambda: kernels.nbody_accelerations_tiled(
+                  x16, None, sources=tiles[1], **kw_e))}
+    print(json.dumps(e_src))
+    print(json.dumps(e_tile))
+
+    # ---- 13b. sharded_run_hmc in a one-rank NCCL group ----------------------
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    mesh = par.make_walker_mesh()
+    std32 = pot.make_standard_normal(d)
+    bench = dict(num_warmup=n_warm, num_samples=n_samp, num_steps=steps,
+                 collect="moments")
+
+    def timed(run):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def transition_ms(r, wall):
+        """ms a sampling transition, and a warmup transition with the
+        run's set-up (wall time less sampling, over the warmup)."""
+        return {"sampling_ms": 1e3 * r.sampling_seconds / n_samp,
+                "warmup_ms": 1e3 * (wall - r.sampling_seconds) / n_warm}
+
+    def profile_counts(run):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        return {e.key: e.count for e in prof.key_averages()}
+
+    # what profiling nothing records: the closing synchronize above and
+    # the profiler's own with the card's activity on
+    profile_floor = profile_counts(lambda: None)
+
+    def profiled(run):
+        """The run's host calls and the card's copies under the profiler:
+        {name: count}, less what profiling nothing records."""
+        return {k: c - profile_floor.get(k, 0)
+                for k, c in profile_counts(run).items()}
+
+    def collectives(calls):
+        """The collectives and point-to-point calls: the c10d operators
+        (one a call) and NCCL's own annotations, by name."""
+        return {k: c for k, c in calls.items()
+                if k.startswith(("c10d::", "nccl:"))}
+
+    def census(calls):
+        """How many collective calls: the c10d operators, or NCCL's
+        annotations where the profiler shows no operator."""
+        return (sum(c for k, c in calls.items() if k.startswith("c10d::"))
+                or sum(c for k, c in calls.items() if k.startswith("nccl:")))
+
+    def blocking(calls):
+        """What makes the host wait for the card: the synchronisations
+        and the copies between host and card. A device-to-device
+        cudaMemcpyAsync (NCCL's, a tensor's copy into the gather buffer)
+        does not, so copies are counted by the card's own records."""
+        out = {k: calls.get(k, 0) for k in (
+            "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy")}
+        out["host_copies"] = sum(c for k, c in calls.items() if k.startswith(
+            ("Memcpy DtoH", "Memcpy HtoD")))
+        return out
+
+    q0 = torch.randn(w, d, generator=seeded(0), device=dev)
+    # the step size fixed, no adaptation: run_hmc's final positions (and
+    # NCCL's communicator made at its one collective, before the timed
+    # runs)
+    fixed = dict(num_warmup=0, num_samples=32, num_steps=steps,
+                 init_step_size=res.step_size.item(), collect="none")
+    q_fixed = par.sharded_run_hmc(SEED, std32, q0, mesh=mesh,
+                                  **fixed).state.ensemble.q
+    if not torch.equal(q_fixed,
+                       run_hmc(SEED, std32, q0, **fixed).state.ensemble.q):
+        fail("phase 13b: the fixed-step sharded run's q is not run_hmc's")
+    ref13, wall_ref13 = timed(lambda: run_hmc(SEED, std32, q0, **bench))
+    kernels.reset_launch_counts()
+    res13, wall13 = timed(lambda: par.sharded_run_hmc(SEED, std32, q0,
+                                                      mesh=mesh, **bench))
+    counts13 = kernels.launch_counts()
+    launched_13b_a = counts13["fused_hmc_diag_quadratic"]
+    mean_err = res13.mean.abs().max().item()
+    var_err = (res13.var - 1.0).abs().max().item()
+    accept = res13.accept_rate.item()
+    same_bits_13 = all(torch.equal(a, b) for a, b in (
+        (res13.mean, res.mean), (res13.var, res.var),
+        (res13.step_size, res.step_size),
+        (res13.state.ensemble.q, res.state.ensemble.q)))
+    if not ((res13.kernel_used, res13.kernel_variant) == ("fused", "diag")
+            and launched_13b_a == n_warm + n_samp
+            and sum(counts13.values()) == launched_13b_a
+            and mean_err < 0.01 and var_err < 0.02
+            and 0.6 <= accept <= 0.99):
+        fail(f"phase 13b off: {res13.kernel_used}/{res13.kernel_variant}, "
+             f"launches {counts13}, max|mean| {mean_err}, max|var-1| "
+             f"{var_err}, accept {accept}")
+    # collectives and blocking calls: three short runs, whose differences
+    # are 4 warmup and 4 sampling transitions
+    short = {}
+    for n_w, n_s in ((4, 2), (8, 2), (4, 6)):
+        calls = profiled(lambda: par.sharded_run_hmc(
+            SEED, std32, q0, mesh=mesh, num_warmup=n_w, num_samples=n_s,
+            num_steps=steps, collect="moments"))
+        short[n_w, n_s] = (census(calls), blocking(calls),
+                           collectives(calls))
+    per_warmup = (short[8, 2][0] - short[4, 2][0]) / 4
+    per_sampling = (short[4, 6][0] - short[4, 2][0]) / 4
+    # two sampling transitions alone: the bound kernel's step and the
+    # loop's ensemble means
+    hk13 = par.shard_map_kernel(build_fused_hmc_kernel(std32, num_steps=steps),
+                                mesh)
+    st13 = hk13.init(q0)
+
+    def two_transitions():
+        state = st13
+        for t in range(2):
+            state, info = hk13.step((SEED, t), state, res.step_size)
+            torch.mean(info.accept_prob)
+            torch.var_mean(state.ensemble.q, dim=0, correction=0)
+
+    blocking_two = blocking(profiled(two_transitions))
+    if not (short[4, 2][0] > 0 and per_warmup <= 1 and per_sampling == 0
+            and not any(blocking_two.values())
+            and short[4, 2][1] == short[8, 2][1] == short[4, 6][1]):
+        fail(f"phase 13b: {per_warmup} collectives a warmup transition, "
+             f"{per_sampling} a sampling transition ({short}), blocking "
+             f"calls "
+             f"{blocking_two} in two sampling transitions, runs' blocking "
+             f"calls {[v[1] for v in short.values()]}")
+    print(json.dumps({
+        "phase": f"13b sharded_run_hmc std_normal_32d W={w} L={steps} "
+                 f"one-rank NCCL group",
+        "kernel_used": res13.kernel_used, "launches": launched_13b_a,
+        "max_abs_mean": mean_err, "max_abs_var_minus_1": var_err,
+        "accept_rate": accept, "step_size": res13.step_size.item(),
+        "same_bits_as_phase_3": same_bits_13,
+        "fixed_step_q_bitwise_run_hmc": True,
+        "collectives_per_warmup_transition": per_warmup,
+        "collectives_per_sampling_transition": per_sampling,
+        "collectives_run_4_warmup_2_sampling": short[4, 2][2],
+        "blocking_calls_two_sampling_transitions": blocking_two,
+        "sharded": transition_ms(res13, wall13),
+        "run_hmc_same_call": transition_ms(ref13, wall_ref13),
+        "phase_3_sampling_ms": 1e3 * res.sampling_seconds / n_samp,
+        "card": card}))
+
+    corr7 = pot.make_gaussian(mean7, cov=cov7)
+    q0 = torch.randn(w, d, generator=seeded(0), device=dev)
+    kernels.reset_launch_counts()
+    res13g, wall13g = timed(lambda: par.sharded_run_hmc(
+        SEED + 3, corr7, q0, mesh=mesh, **bench))
+    counts13g = kernels.launch_counts()
+    launched_13b_b = counts13g["fused_hmc_transition"]
+    mean_err = ((res13g.mean.cpu() - mean7) / sd7).abs().max().item()
+    var_err = (res13g.var.cpu() / sd7**2 - 1.0).abs().max().item()
+    accept = res13g.accept_rate.item()
+    if not ((res13g.kernel_used, res13g.kernel_variant) == ("fused",
+                                                             "generic")
+            and launched_13b_b == n_warm + n_samp
+            and sum(counts13g.values()) == launched_13b_b
+            and mean_err < 0.02 and var_err < 0.03
+            and 0.6 <= accept <= 0.99):
+        fail(f"phase 13b correlated off: {res13g.kernel_variant}, launches "
+             f"{counts13g}, mean {mean_err} sd, var {var_err}, accept "
+             f"{accept}")
+    print(json.dumps({
+        "phase": f"13b sharded_run_hmc correlated 32-dim Gaussian (phase 7) "
+                 f"W={w} L={steps} one-rank NCCL group",
+        "kernel_variant": res13g.kernel_variant, "launches": launched_13b_b,
+        "max_mean_err_sd": mean_err, "max_rel_var_err": var_err,
+        "accept_rate": accept, "step_size": res13g.step_size.item(),
+        "sharded": transition_ms(res13g, wall13g),
+        "phase_7a_sampling_ms": corr_ms["7a"], "card": card}))
+
+    # ---- 13c. sharded SMC, one rank, on phase 9a's target and start ----------
+    kw9 = dict(num_mutation_steps=3, num_leapfrog_steps=10,
+               init_step_size=0.8, beta0=beta0, max_stages=40)
+    kernels.reset_launch_counts()
+    reads = smc._host_read.reads
+    res13c, sec13c = timed(lambda: run_smc(SEED + 13, std32, q9,
+                                           kernel="auto", mesh=mesh, **kw9))
+    reads = smc._host_read.reads - reads
+    counts13c = kernels.launch_counts()
+    n13c = res13c.num_stages
+    z_err = abs(res13c.log_evidence.item() - 0.5 * d * np.log(beta0))
+    again = run_smc(SEED + 13, std32, q9, kernel="auto", mesh=mesh, **kw9)
+    m13c = smc.build_smc_machinery(std32, w, q9.dtype, num_dims=d,
+                                   device=dev, mesh=mesh,
+                                   **{k: v for k, v in kw9.items()
+                                      if k != "max_stages"})
+    carry13c = m13c["body"](m13c["init_carry"](SEED + 13, q9))
+
+    def two_stages():
+        c = carry13c
+        for _ in range(2):
+            c = m13c["body"](c)
+
+    calls13c = profiled(two_stages)
+    if not (n13c < 40 and res13c.betas[n13c] == 1.0 and z_err < 0.25
+            and counts13c["fused_hmc_diag_quadratic"] == 3 * n13c
+            and sum(counts13c.values()) == 3 * n13c and reads == n13c + 1
+            and torch.equal(again.log_evidence, res13c.log_evidence)
+            and not any(blocking(calls13c).values())):
+        fail(f"phase 13c off: {n13c} stages, log Z error {z_err}, launches "
+             f"{counts13c}, {reads} host reads, second log Z "
+             f"{again.log_evidence.item()} against "
+             f"{res13c.log_evidence.item()}, blocking "
+             f"{blocking(calls13c)}")
+    print(json.dumps({
+        "phase": "13c run_smc(mesh=) std_normal_32d W=102400 beta0=0.1 K=3 "
+                 "L=10 one-rank NCCL group",
+        "kernel_used": res13c.kernel_used,
+        "launches": counts13c["fused_hmc_diag_quadratic"],
+        "num_stages": n13c, "num_stages_9a": res9a.num_stages,
+        "log_evidence": res13c.log_evidence.item(),
+        "log_evidence_err": z_err,
+        "same_bits_as_9a": bool(
+            torch.equal(res13c.log_evidence, res9a.log_evidence)
+            and torch.equal(res13c.q, res9a.q)),
+        "host_reads": reads,
+        "collectives_per_stage": census(calls13c) / 2,
+        "collectives_two_stages": collectives(calls13c),
+        "ms_per_stage": 1e3 * sec13c / n13c,
+        "ms_per_stage_9a": line9a["ms_per_stage"], "card": card}))
+
+    # ---- 13d. the CLI, sharded, through torchrun ------------------------------
+    def torchrun(k, args):
+        """``python -m torch.distributed.run --nproc_per_node=k args`` from
+        the checkout: (its summary, rank 0's launches, seconds)."""
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc_per_node={k}", *args], cwd=ROOT, capture_output=True,
+            text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"torchrun {' '.join(args)} with {k} processes exited "
+                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        parts = proc.stderr.split("# launches ")
+        launches = (json.loads(parts[1].splitlines()[0]) if len(parts) > 1
+                    else None)
+        return proc.stdout, launches, seconds
+
+    sizes = [1] + ([2] if torch.cuda.device_count() >= 2 else [])
+    with tempfile.TemporaryDirectory(prefix="pbbi_sharded_") as tmp13:
+        cfg13 = Path(tmp13) / "run.json"
+        cfg13.write_text(RunConfig(
+            model="builtin:std_normal_32d", num_walkers=w, num_steps=steps,
+            num_warmup=n_warm, num_samples=n_samp, collect="moments",
+            sharded=True).to_json())
+        cli13 = {}
+        for k in sizes:
+            out, launches, sec = torchrun(k, ["-m", CLI, "--config",
+                                              str(cfg13)])
+            s13 = json.loads(out)
+            mean_err = max(abs(x) for x in s13["posterior_mean"])
+            var_err = max(abs(x - 1.0) for x in s13["posterior_var"])
+            accept = s13["accept_rate"]
+            if not ((s13["kernel_used"], s13["kernel_variant"])
+                    == ("fused", "diag")
+                    and launches["fused_hmc_diag_quadratic"]
+                    == n_warm + n_samp
+                    and others_zero(launches, "fused_hmc_diag_quadratic")
+                    and mean_err < 0.01 and var_err < 0.02
+                    and 0.6 <= accept <= 0.99):
+                fail(f"phase 13d K={k} off: {s13['kernel_used']}/"
+                     f"{s13['kernel_variant']}, launches {launches}, "
+                     f"max|mean| {mean_err}, max|var-1| {var_err}, accept "
+                     f"{accept}")
+            cli13[k] = {"kernel_used": s13["kernel_used"],
+                        "launches_rank_0": launches[
+                            "fused_hmc_diag_quadratic"],
+                        "max_abs_mean": mean_err,
+                        "max_abs_var_minus_1": var_err,
+                        "accept_rate": accept,
+                        "sampling_seconds": s13["sampling_seconds"],
+                        "process_seconds": sec}
+        launched_13d = cli13[1]["launches_rank_0"]
+        # K = 2 of 13b on two cards: the fixed-step q against K = 1's
+        if len(sizes) > 1:
+            out13b2 = Path(tmp13) / "k2.pt"
+            torchrun(2, ["chip_smoke.py", "--sharded-rank", str(out13b2),
+                         repr(res.step_size.item())])
+            k2 = torch.load(out13b2)
+            if not torch.equal(k2["q_fixed"].to(dev), q_fixed):
+                fail("phase 13b K=2: the fixed-step q is not K=1's")
+            if not (k2["mean"].abs().max() < 0.01
+                    and (k2["var"] - 1.0).abs().max() < 0.02):
+                fail(f"phase 13b K=2 moments off: {k2}")
+            cli13["13b_K2"] = {"fixed_step_q_bitwise_K1": True,
+                               "max_abs_mean": k2["mean"].abs().max().item(),
+                               "step_size": k2["step_size"].item()}
+    print(json.dumps({
+        "phase": f"13d CLI hmc sharded=true builtin:std_normal_32d W={w} "
+                 f"L={steps} through torchrun",
+        "process_counts_run": sizes,
+        "note": ("ran K=1 only: one CUDA device" if len(sizes) == 1
+                 else "ran K=1 and K=2"),
+        "runs": cli13, "card": card}))
+
+    # ---- 13e. ring_simulate, one rank, on phase 6's Plummer sphere ------------
+    # The K = 1 ring is phase 6's velocity Verlet with one launch of kernel
+    # E's source-block form a step (and one to start). Tolerance on the
+    # final positions against physics.simulate: a per-step difference of
+    # the accelerations up to kernels.nbody_bound moves x by at most
+    # (n dt)^2 max_i bound_i over n steps, and each step rounds x once
+    # more, 2 n u max|x|.
+    bodies = par.make_body_mesh()
+    n_ring, save_ring, dt_ring = 200, 50, 5e-4
+    kernels.reset_launch_counts()
+    (x13, v13, e13), sec13e = timed(lambda: par.ring_simulate(
+        plummer.x, plummer.v, plummer.mass, dt_ring, num_steps=n_ring,
+        save_every=save_ring, mesh=bodies, softening=0.05))
+    counts13e = kernels.launch_counts()
+    by13e = dict(kernels.nbody_accelerations_tiled.launches_by)
+    launched_13e = counts13e["nbody_accelerations_tiled"]
+    e0 = physics.total_energy(plummer, softening=0.05)
+    drift13 = ((e13 - e0) / e0).abs().max().item()
+    traj13 = physics.simulate(plummer, dt_ring, n_ring,
+                              method="velocity_verlet",
+                              save_every=save_ring, softening=0.05)
+    x_err13 = (x13 - traj13.final.x).abs().max().item()
+    tol13 = ((n_ring * dt_ring) ** 2 * kernels.nbody_bound(
+        plummer.x, plummer.mass, g_const=1.0, softening=0.05).max().item()
+        + 2 * n_ring * u32 * plummer.x.abs().max().item())
+    if not (launched_13e == n_ring + 1
+            and by13e["source_block"] == launched_13e
+            and sum(counts13e.values()) == launched_13e
+            and drift13 < 1e-3 and bool(torch.isfinite(x13).all())
+            and x_err13 <= tol13):
+        fail(f"phase 13e off: {counts13e} launches ({by13e}), energy drift "
+             f"{drift13}, |x - simulate's x| {x_err13} (tolerance {tol13})")
+    print(json.dumps({
+        "phase": f"13e ring_simulate Plummer N=16384 dt=5e-4 eps=0.05 "
+                 f"{n_ring} steps one-rank NCCL group",
+        "launches": launched_13e, "launches_by": by13e,
+        "max_rel_energy_drift": drift13,
+        "max_abs_x_err_vs_simulate": x_err13, "x_tolerance": tol13,
+        "steps_per_s": n_ring / sec13e, "steps_per_s_phase_6": steps_per_s_6,
+        "card": card}))
+    dist.destroy_process_group()
+
     def entry(name, source, replaces, launches, errs, main):
         return {"name": name, "case": main["case"], "route": "cuda",
                 "source": source,
@@ -1963,12 +2452,51 @@ def main() -> None:
               launched_12c["eight_schools_noncentered"], es_errs, es_main),
         entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576, launched_12e,
               [b_mixture["max_abs_err"]], b_mixture),
+        # the sharded paths: kernels A and B with a walker offset (13b's
+        # runs, and 13d's for A), kernel E's source-block form (13e's ring)
+        entry("fused_hmc_diag_quadratic", SOURCE, 893,
+              launched_13b_a + launched_13d, [a_off["max_abs_err"]], a_off),
+        entry("fused_hmc_transition", SOURCE, 373, launched_13b_b,
+              [b_off["max_abs_err"]], b_off),
+        entry("nbody_accelerations_tiled", f"{CSRC}/nbody.cu", 252,
+              launched_13e, [e_src["max_abs_err"]], e_src),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
 
 
+def sharded_rank(out_path: str, step_size: float) -> None:
+    """One rank of phase 13b at K = 2, started by torchrun from phase 13
+    where the machine has two cards: the fixed-step run and the bench run
+    of 13b, rank 0 saving the gathered positions and the moments to
+    ``out_path``."""
+    import torch.distributed as dist
+    from physicsbasedbayesianinference_tpu_torch import parallel as par
+    from physicsbasedbayesianinference_tpu_torch.ops import potentials as pot
+    par.initialize_distributed()
+    mesh = par.make_walker_mesh()
+    w, d, steps = 102400, 32, 16
+    q0 = torch.randn(w, d, device=mesh.device, generator=torch.Generator(
+        device=mesh.device).manual_seed(0))
+    fn = pot.make_standard_normal(d)
+    fixed = par.sharded_run_hmc(SEED, fn, q0, mesh=mesh, num_warmup=0,
+                                num_samples=32, num_steps=steps,
+                                init_step_size=step_size, collect="none")
+    q_fixed = par.gather_walkers(fixed.state.ensemble.q, mesh, dst=0)
+    res = par.sharded_run_hmc(SEED, fn, q0, mesh=mesh, num_warmup=200,
+                              num_samples=256, num_steps=steps,
+                              collect="moments")
+    if mesh.rank == 0:
+        torch.save({"q_fixed": q_fixed.cpu(), "mean": res.mean.cpu(),
+                    "var": res.var.cpu(), "step_size": res.step_size.cpu()},
+                   out_path)
+    dist.destroy_process_group()
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sharded_rank(sys.argv[2], float(sys.argv[3]))
+    else:
+        main()
     sys.exit(0)

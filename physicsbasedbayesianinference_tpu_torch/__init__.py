@@ -15,12 +15,14 @@ N-body simulation in :mod:`.physics`, whose accelerations run kernel E on
 CUDA, and the runtime: :class:`RunConfig`, checkpoints
 (:class:`CheckpointManager`), the sample sink (:class:`SampleSink`,
 :func:`read_samples`) and the command-line driver
-``python -m physicsbasedbayesianinference_tpu_torch.main``.
+``python -m physicsbasedbayesianinference_tpu_torch.main``. Multi-process
+runs (one process per card under ``torch.distributed``: walker-sharded HMC
+and SMC, the ring N-body forces) are in :mod:`.parallel`.
 """
 
 from . import (adaptation, checkpoint, chees, config, constants, device,
                diagnostics, ensemble, hmc, models, native, nuts, ops,
-               physics, smc, tempering, utils)
+               parallel, physics, smc, tempering, utils)
 from .checkpoint import CheckpointManager
 from .chees import ChEESRunResult, run_chees_hmc
 from .config import RunConfig
@@ -52,6 +54,7 @@ __all__ = [
     "models",
     "native",
     "ops",
+    "parallel",
     "physics",
     "utils",
     "Constants",

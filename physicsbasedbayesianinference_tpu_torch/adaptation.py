@@ -98,22 +98,35 @@ def _valid_rows(q: Tensor, max_abs: float) -> Tensor:
     return torch.all(torch.isfinite(q) & (torch.abs(q) < max_abs), dim=-1)
 
 
-def variance_update(state: VarianceState, q: Tensor, *,
-                    max_abs: float = 1e6) -> VarianceState:
-    """Chan et al. parallel-Welford batch update with a [W, D] slab."""
+def variance_batch(q: Tensor, *, max_abs: float = 1e6):
+    """A [W, D] slab's terms for :func:`variance_merge`: ``(w, batch mean,
+    batch m2)`` over its valid rows (``w`` their count)."""
     valid = _valid_rows(q, max_abs)
     w = torch.sum(valid.to(q.dtype))
-    n_new = state.count + w
     vcol = valid[:, None].to(q.dtype)
     # zero non-finite ENTRIES before any masked arithmetic: 0 * inf = NaN
     qf = torch.where(torch.isfinite(q), q, 0.0)
     batch_mean = torch.sum(qf * vcol, dim=0) / torch.clamp_min(w, 1.0)
+    batch_m2 = torch.sum(((qf - batch_mean) * vcol) ** 2, dim=0)
+    return w, batch_mean, batch_m2
+
+
+def variance_merge(state: VarianceState, w: Tensor, batch_mean: Tensor,
+                   batch_m2: Tensor) -> VarianceState:
+    """Chan et al.'s merge of a batch's terms into the running estimate (a
+    sharded run merges each rank's batch in rank order)."""
+    n_new = state.count + w
     delta = batch_mean - state.mean
     mean = state.mean + delta * (w / torch.clamp_min(n_new, 1.0))
-    batch_m2 = torch.sum(((qf - batch_mean) * vcol) ** 2, dim=0)
     m2 = (state.m2 + batch_m2
           + delta**2 * (state.count * w / torch.clamp_min(n_new, 1.0)))
     return VarianceState(mean=mean, m2=m2, count=n_new)
+
+
+def variance_update(state: VarianceState, q: Tensor, *,
+                    max_abs: float = 1e6) -> VarianceState:
+    """Chan et al. parallel-Welford batch update with a [W, D] slab."""
+    return variance_merge(state, *variance_batch(q, max_abs=max_abs))
 
 
 def regularized_mass(state: VarianceState, *, shrink: float = 5.0,

@@ -4,8 +4,12 @@ package's ``config.py``).
 The fields and defaults are the JAX package's, so a JSON file written by
 either package loads in the other, plus ``device``: where the command-line
 driver (:mod:`.main`) puts every tensor. ``kernel`` takes ``auto | fused |
-composed`` (``hmc.resolve_engine``); the JAX name ``"xla"`` is refused, as
-is ``sharded=True`` (multi-device runs are not ported yet).
+composed`` (``hmc.resolve_engine``); the JAX name ``"xla"`` is refused.
+``sharded=True`` runs HMC with the diagonal metric over a walker group
+(``parallel.sharded_run_hmc``), uncheckpointed and not in stream mode;
+every other sharded run raises naming what is missing: the JAX package
+sends those through GSPMD with ``kernel="xla"``, which the port does not
+have.
 """
 
 from __future__ import annotations
@@ -57,7 +61,7 @@ class RunConfig:
     pt_beta_min: float = 0.05
 
     # execution
-    sharded: bool = False            # multi-device runs: not ported
+    sharded: bool = False            # hmc over a walker group (torchrun)
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 0        # 0 = only final
     output_path: Optional[str] = None  # .npz samples/summary dump
@@ -73,10 +77,20 @@ class RunConfig:
             raise ValueError(f"bad kernel={self.kernel!r} (want "
                              f"{'|'.join(KERNELS)}; 'xla' is the JAX "
                              f"package's name for 'composed')")
-        if self.sharded:
+        if not self.sharded:
+            return
+        missing = (
+            f"sampler={self.sampler!r} (sharded runs take sampler='hmc')"
+            if self.sampler != "hmc" else
+            "metric='dense'" if self.metric == "dense" else
+            "checkpoint_dir (per-rank checkpoint shards)"
+            if self.checkpoint_dir else
+            "collect='stream'" if self.collect == "stream" else None)
+        if missing:
             raise ValueError(
-                "sharded=True: multi-device runs (the JAX package's "
-                "parallel/, ROADMAP.md queue 1 item 11) are not ported yet")
+                f"sharded=True with {missing} is not ported yet (the JAX "
+                f"package runs it through GSPMD with kernel='xla'; "
+                f"ROADMAP.md queue 1 item 11)")
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2)

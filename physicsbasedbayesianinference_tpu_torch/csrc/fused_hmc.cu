@@ -135,7 +135,8 @@ diag_quadratic_kernel(
     float* __restrict__ u_out, float* __restrict__ acc_out,
     uint8_t* __restrict__ taken_out, float* __restrict__ derr_out,
     const int* __restrict__ steps_dev, int num_walkers, int num_dims, int tpw,
-    int num_steps, float threshold, uint32_t k0, uint32_t k1, uint32_t t) {
+    int num_steps, float threshold, uint32_t k0, uint32_t k1, uint32_t t,
+    uint32_t w0) {
   if (kDyn) num_steps = device_steps(steps_dev, num_steps);
   // k, mean, inv_mass, p_std, each padded with zeros to 4 * tpw floats
   __shared__ float4 params[kMaxGenericDims];
@@ -145,7 +146,8 @@ diag_quadratic_kernel(
   const int wpb = kBlockA / tpw;
   if (threadIdx.x < wpb)
     log_u[threadIdx.x] = logf(pbbi::accept_uniform(
-        t, (uint32_t)((long long)blockIdx.x * wpb + threadIdx.x), k0, k1));
+        t, w0 + (uint32_t)((long long)blockIdx.x * wpb + threadIdx.x), k0,
+        k1));
   {
     float* sh = reinterpret_cast<float*>(params);
     const int padded = 4 * tpw;
@@ -185,7 +187,8 @@ diag_quadratic_kernel(
     }
   }
   float n[4];
-  pbbi::momentum_normals4(t, (uint32_t)w, (uint32_t)lane, k0, k1, n);
+  pbbi::momentum_normals4(t, w0 + (uint32_t)w, (uint32_t)lane, k0, k1,
+                          n);
 
   float u0 = 0.0f, kin0 = 0.0f, u1 = 0.0f, kin1 = 0.0f;  // lane partials
   float qv[4], pv[4], dtim[4];
@@ -258,7 +261,8 @@ __global__ void __launch_bounds__(kBlock) diag_quadratic_loop_kernel(
     float* __restrict__ u_out, float* __restrict__ acc_out,
     uint8_t* __restrict__ taken_out, float* __restrict__ derr_out,
     const int* __restrict__ steps_dev, int num_walkers, int num_dims, int tpw,
-    int num_steps, float threshold, uint32_t k0, uint32_t k1, uint32_t t) {
+    int num_steps, float threshold, uint32_t k0, uint32_t k1, uint32_t t,
+    uint32_t w0) {
   if (kDyn) num_steps = device_steps(steps_dev, num_steps);
   const int lane = threadIdx.x % tpw;
   const long long w =
@@ -273,7 +277,8 @@ __global__ void __launch_bounds__(kBlock) diag_quadratic_loop_kernel(
   if (valid) {
     for (int g = lane; g < groups; g += tpw) {
       float n[4];
-      pbbi::momentum_normals4(t, (uint32_t)w, (uint32_t)g, k0, k1, n);
+      pbbi::momentum_normals4(t, w0 + (uint32_t)w, (uint32_t)g, k0, k1,
+                              n);
       float qv[4], pv[4], kv[4], mv[4], imv[4], dtim[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -317,7 +322,7 @@ __global__ void __launch_bounds__(kBlock) diag_quadratic_loop_kernel(
   const float h1 = 0.5f * segment_sum(kin1, tpw) + scale * uu1;
   const Decision dec =
       metropolis(h0, h1, beta, threshold,
-                 logf(pbbi::accept_uniform(t, (uint32_t)w, k0, k1)));
+                 logf(pbbi::accept_uniform(t, w0 + (uint32_t)w, k0, k1)));
   if (!valid) return;
   if (lane == 0) {
     u_out[w] = dec.accepted ? uu1 : uu0;
@@ -370,7 +375,8 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) generic_kernel(
     uint8_t* __restrict__ taken_out, float* __restrict__ derr_out,
     float* __restrict__ q_prop, float* __restrict__ p_prop,
     const int* __restrict__ steps_dev, int num_walkers, int num_dims, int tpw,
-    int num_steps, float threshold, uint32_t k0, uint32_t k1, uint32_t t) {
+    int num_steps, float threshold, uint32_t k0, uint32_t k1, uint32_t t,
+    uint32_t w0) {
   if (kDyn) num_steps = device_steps(steps_dev, num_steps);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -413,7 +419,8 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) generic_kernel(
     load_group<kVec>(q, at, left[r], qv[r]);
     load_group<kVec>(g, at, left[r], gv[r]);
     float n[4];
-    pbbi::momentum_normals4(t, (uint32_t)w, (uint32_t)lane, k0, k1, n);
+    pbbi::momentum_normals4(t, w0 + (uint32_t)w, (uint32_t)lane, k0, k1,
+                            n);
     float kin0 = 0.0f;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -456,7 +463,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) generic_kernel(
     const float h1 = 0.5f * segment_sum(kin1, tpw) + scale * u1[r];
     const Decision dec =
         metropolis(h0[r], h1, beta, threshold,
-                   logf(pbbi::accept_uniform(t, (uint32_t)w, k0, k1)));
+                   logf(pbbi::accept_uniform(t, w0 + (uint32_t)w, k0, k1)));
     if (w >= num_walkers) continue;
     const long long at = w * num_dims + base;
     if (kProp) {  // the endpoint (q1, -p1), whatever the decision
@@ -502,7 +509,8 @@ int launch_generic(Form form, const float* q, const float* u, const float* g,
                    float* derr_out, float* q_prop, float* p_prop,
                    const int* steps_dev, int num_walkers, int num_dims,
                    int num_steps, int walker_tile, float threshold,
-                   uint64_t seed, uint32_t counter, void* stream) {
+                   uint64_t seed, uint32_t counter, uint32_t walker_offset,
+                   void* stream) {
   if (num_walkers <= 0 || num_dims <= 0 || num_dims > kMaxGenericDims ||
       num_steps < 0 || (q_prop == nullptr) != (p_prop == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -530,7 +538,7 @@ int launch_generic(Form form, const float* q, const float* u, const float* g,
         form, q, u, g, inv_mass, p_std, scalars, q_out, u_out, g_out, acc_out,
         taken_out, derr_out, q_prop, p_prop, steps_dev, num_walkers, num_dims,
         tpw, num_steps, threshold, (uint32_t)seed, (uint32_t)(seed >> 32),
-        counter);
+        counter, walker_offset);
     return (int)cudaGetLastError();
   });
 }
@@ -544,14 +552,17 @@ const char* pbbi_error_string(int code) {
 }
 
 // Kernel A. steps_dev: null, or a device int holding the leapfrog count,
-// and num_steps is then the most it may be.
+// and num_steps is then the most it may be. walker_offset: the global index
+// of row 0 of q, the walker index of its Philox draws (0 for a whole
+// ensemble; a process holding rows [o, o + W) of a sharded one passes o and
+// draws what the whole launch draws for those rows).
 int pbbi_fused_hmc_diag_quadratic(
     const float* q, const float* kdiag, const float* mean,
     const float* inv_mass, const float* p_std, const float* scalars,
     float* q_out, float* g_out, float* u_out, float* acc_out,
     uint8_t* taken_out, float* derr_out, const int* steps_dev,
     int num_walkers, int num_dims, int num_steps, float threshold,
-    uint64_t seed, uint32_t counter, void* stream) {
+    uint64_t seed, uint32_t counter, uint32_t walker_offset, void* stream) {
   if (num_walkers <= 0 || num_dims <= 0 || num_steps < 0)
     return (int)cudaErrorInvalidValue;
   const int tpw = threads_per_walker(num_dims);
@@ -572,7 +583,8 @@ int pbbi_fused_hmc_diag_quadratic(
   kernel<<<blocks, looped ? kBlock : kBlockA, 0, (cudaStream_t)stream>>>(
       q, kdiag, mean, inv_mass, p_std, scalars, q_out, g_out, u_out, acc_out,
       taken_out, derr_out, steps_dev, num_walkers, num_dims, tpw, num_steps,
-      threshold, (uint32_t)seed, (uint32_t)(seed >> 32), counter);
+      threshold, (uint32_t)seed, (uint32_t)(seed >> 32), counter,
+      walker_offset);
   return (int)cudaGetLastError();
 }
 
@@ -582,7 +594,7 @@ int pbbi_fused_hmc_diag_quadratic(
 // 1 for any other. q_prop and
 // p_prop: both null, or where to write every walker's endpoint (q1, -p1).
 // steps_dev: null, or a device int holding the leapfrog count, and
-// num_steps is then the most it may be.
+// num_steps is then the most it may be. walker_offset: as kernel A's.
 int pbbi_fused_hmc_transition(
     int form, const float* param0, const float* param1, const float* param2,
     int count, const float* q, const float* u, const float* g,
@@ -591,14 +603,14 @@ int pbbi_fused_hmc_transition(
     uint8_t* taken_out, float* derr_out, float* q_prop, float* p_prop,
     const int* steps_dev, int num_walkers, int num_dims, int num_steps,
     int walker_tile, float threshold, uint64_t seed, uint32_t counter,
-    void* stream) {
+    uint32_t walker_offset, void* stream) {
   return with_form(
       form, param0, param1, param2, count, num_dims, [&](auto f) {
         return launch_generic(f, q, u, g, inv_mass, p_std, scalars, q_out,
                               u_out, g_out, acc_out, taken_out, derr_out,
                               q_prop, p_prop, steps_dev, num_walkers, num_dims,
                               num_steps, walker_tile, threshold, seed, counter,
-                              stream);
+                              walker_offset, stream);
       });
 }
 

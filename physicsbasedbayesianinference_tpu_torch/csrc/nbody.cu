@@ -8,7 +8,12 @@
 //
 //   a_i = G sum_{j != i} m_j (x_j - x_i) / (|x_j - x_i|^2 + eps^2)^{3/2}
 //
-// for x [N, 3] and m [N], row-major, float32 or float64.
+// for x [N, 3] and m [N], row-major, float32 or float64. The sources j
+// are a separate array (x_src [N_src, 3], m_src [N_src]) beside the
+// targets i: the one-set launch passes the bodies as both, and a block of
+// the ring N-body sweep (parallel/ring.py) its own bodies as targets and
+// the block passing by as sources. The TPU's ring computed that tile in jnp
+// (physicsbasedbayesianinference_tpu/parallel/ring.py _block_accel).
 //
 // Bound: arithmetic. A pair needs 12 instructions of the FP32 pipe (3
 // subtractions, 3 multiply-adds for r^2, 3 multiplications for m / r^3, 3
@@ -37,7 +42,8 @@
 //     2 ulp; float64: rsqrt(), 1 ulp) instead of an IEEE square root and an
 //     IEEE division, and the multiply-adds are written as fma(), whatever
 //     the build's contraction flag says.
-//   * the self-pair needs no index test: with eps > 0 its term is exactly
+//   * the self-pair needs no index test, so the sources may be any array:
+//     with eps > 0 its term is exactly
 //     zero (dx = dy = dz = 0), and with eps = 0 the weight of every pair at
 //     r^2 = 0 is selected to zero (a second instantiation: the compare and
 //     select cost 19% at N = 16384, and eps > 0 does not need them). That
@@ -93,8 +99,9 @@ __device__ __forceinline__ double inv_sqrt(double v) { return rsqrt(v); }
 // pair (not flushed to zero either) and the select on r^2 = 0 is left out.
 template <typename T, bool kSoftened>
 __global__ void __launch_bounds__(kThreads) nbody_kernel(
-    const T* __restrict__ x, const T* __restrict__ mass, T* __restrict__ acc,
-    int n, int split, T soft2, T g_const) {
+    const T* __restrict__ x, int n, const T* __restrict__ xs,
+    const T* __restrict__ ms, int ns, T* __restrict__ acc, int split, T soft2,
+    T g_const) {
   // a thread fetches 32 bytes of records a tile: 2 in float32, 1 in
   // float64, so both types keep 2 x 16 KB of tiles at 512 threads
   constexpr int kPerThread = 32 / (int)sizeof(Body<T>);
@@ -115,23 +122,23 @@ __global__ void __launch_bounds__(kThreads) nbody_kernel(
 
   // The tile after the one being swept waits in registers: coordinate
   // f = threadIdx.x + c * kThreads of its 3 * kTile (coalesced) and mass
-  // threadIdx.x + c * kThreads, zero beyond the last body.
+  // threadIdx.x + c * kThreads, zero beyond the last source.
   T coords[3 * kPerThread], masses[kPerThread];
   const auto fetch = [&](int start) {
-    const int count = min(kTile, n - start);
+    const int count = min(kTile, ns - start);
 #pragma unroll
     for (int c = 0; c < 3 * kPerThread; ++c) {
       const int f = threadIdx.x + c * kThreads;
-      coords[c] = f < 3 * count ? x[3 * (long long)start + f] : T(0);
+      coords[c] = f < 3 * count ? xs[3 * (long long)start + f] : T(0);
     }
 #pragma unroll
     for (int c = 0; c < kPerThread; ++c) {
       const int k = threadIdx.x + c * kThreads;
-      masses[c] = k < count ? mass[start + k] : T(0);
+      masses[c] = k < count ? ms[start + k] : T(0);
     }
   };
   fetch(0);
-  for (int start = 0, buf = 0; start < n; start += kTile, buf ^= 1) {
+  for (int start = 0, buf = 0; start < ns; start += kTile, buf ^= 1) {
     // coordinate f = 3 k + e goes to record k, field e. The other buffer
     // may still be read by a warp that is behind; this one was last read
     // before the previous barrier.
@@ -146,10 +153,10 @@ __global__ void __launch_bounds__(kThreads) nbody_kernel(
     for (int c = 0; c < kPerThread; ++c)
       flat[4 * (threadIdx.x + c * kThreads) + 3] = masses[c];
     __syncthreads();
-    if (start + kTile < n) fetch(start + kTile);  // in flight over the sweep
+    if (start + kTile < ns) fetch(start + kTile);  // in flight over the sweep
 
     const Body<T>* const tile = tiles[buf];
-    const int count = min(kTile, n - start);
+    const int count = min(kTile, ns - start);
     const int limit = (count + stride - 1) / stride * stride;  // <= kTile
     for (int k = lane; k < limit; k += stride) {
 #pragma unroll
@@ -185,8 +192,9 @@ __global__ void __launch_bounds__(kThreads) nbody_kernel(
 }
 
 template <typename T>
-int launch(const void* x, const void* mass, void* acc, int n, int split,
-           double softening, double g_const, void* stream) {
+int launch(const void* x, int n, const void* xs, const void* ms, int ns,
+           void* acc, int split, double softening, double g_const,
+           void* stream) {
   const int targets = kThreads / split;
   const unsigned blocks = (unsigned)((n + targets - 1) / targets);
   const T soft2 = T(softening * softening);
@@ -194,8 +202,9 @@ int launch(const void* x, const void* mass, void* acc, int n, int split,
                           ? &nbody_kernel<T, true>
                           : &nbody_kernel<T, false>;
   kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(mass),
-      static_cast<T*>(acc), n, split, soft2, T(g_const));
+      static_cast<const T*>(x), n, static_cast<const T*>(xs),
+      static_cast<const T*>(ms), ns, static_cast<T*>(acc), split, soft2,
+      T(g_const));
   return (int)cudaGetLastError();
 }
 
@@ -203,21 +212,25 @@ int launch(const void* x, const void* mass, void* acc, int n, int split,
 
 extern "C" {
 
-// dtype 0 float32, 1 float64. split: lanes per target, a power of two in
-// 1..32 (ops/kernels.py nbody_split). softening is eps (r^2 + eps^2),
-// g_const G.
-int pbbi_nbody_accelerations(int dtype, const void* x, const void* mass,
-                             void* acc, int n, int split, double softening,
+// dtype 0 float32, 1 float64. x: the n targets; x_src, m_src: the n_src
+// sources (x and its masses for the one-set launch, which then runs as it
+// did before sources were separate). split: lanes per target, a power of
+// two in 1..32 (ops/kernels.py nbody_split). softening is eps
+// (r^2 + eps^2), g_const G.
+int pbbi_nbody_accelerations(int dtype, const void* x, int n,
+                             const void* x_src, const void* m_src, int n_src,
+                             void* acc, int split, double softening,
                              double g_const, void* stream) {
-  if (n <= 0 || split < 1 || split > 32 || (split & (split - 1)))
+  if (n <= 0 || n_src <= 0 || split < 1 || split > 32 ||
+      (split & (split - 1)))
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
-      return launch<float>(x, mass, acc, n, split, softening, g_const,
-                           stream);
+      return launch<float>(x, n, x_src, m_src, n_src, acc, split, softening,
+                           g_const, stream);
     case 1:
-      return launch<double>(x, mass, acc, n, split, softening, g_const,
-                            stream);
+      return launch<double>(x, n, x_src, m_src, n_src, acc, split, softening,
+                            g_const, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -5,7 +5,10 @@
 // Counter layout: key = the run's 64-bit seed (k0 low word, k1 high word);
 // counter = (transition index, walker, dim-group, draw site). A dim-group
 // is four consecutive dimensions 4g..4g+3; site 0 is the momentum refresh,
-// site 1 the Metropolis uniform.
+// site 1 the Metropolis uniform. The walker word is the walker's global
+// index: a launch on rows [o, o + W) of a sharded ensemble is given the
+// offset o, and draws for those rows what a launch on the whole ensemble
+// draws.
 #pragma once
 
 #include <cstdint>

@@ -22,7 +22,13 @@ potential's attributes when it builds the kernel, never after a failure:
     CUDA           anything else        composed
 
 ``kernel="fused"`` raises where it cannot be honoured (unlike the JAX
-package, which degrades to its XLA engine with a warning).
+package, which degrades to its XLA engine with a warning). ``kernel=`` also
+takes a built :class:`HMCKernel`, used as it is.
+
+``run_hmc(mesh=...)`` runs one walker shard of a multi-process run
+(:mod:`.parallel`): the kernel draws by global walker index, the loop's
+ensemble means and moments are reduced over the group, and nothing else
+changes.
 
 ``run_hmc(metric="dense")`` runs :func:`build_dense_hmc_kernel`, a composed
 step whose metric operations are ``[W, D] x [D, D]`` products; no fused
@@ -49,7 +55,9 @@ from .adaptation import (
     da_update,
     regularized_covariance,
     regularized_mass,
+    variance_batch,
     variance_init,
+    variance_merge,
     variance_update,
 )
 from .constants import Constants, NATURAL
@@ -102,6 +110,8 @@ class HMCKernel:
     variant_for: Optional[Callable[..., str]] = None
     # the dense kernel's step after its draws (build_dense_hmc_kernel)
     transition: Optional[Callable[..., tuple]] = None
+    # the walker group a kernel of parallel.shard_map_kernel is bound to
+    mesh: Optional[object] = None
 
 
 def _splitmix64(x: int) -> int:
@@ -325,7 +335,7 @@ class FusedTransition:
                  mass: Optional[Tensor] = None, *, num_steps,
                  max_steps: Optional[int] = None,
                  emit_proposal: bool = False, potential_scale=None,
-                 beta=None):
+                 beta=None, walker_offset: int = 0):
         """``(state', info, proposal)``: one transition with ``num_steps``
         leapfrog steps (an int, or an int32 tensor [1] on the state's
         device with ``max_steps``); ``proposal`` is ``(q1, -p1)`` with
@@ -337,7 +347,8 @@ class FusedTransition:
         constants' beta in the Metropolis ratio, and the momenta are then
         thermal at it, std ``sqrt(m / beta)``. Each is a Python number or
         a tensor of shape [] or [1] on the state's device, which the
-        kernels read there."""
+        kernels read there. ``walker_offset``: the global index of the
+        state's first walker (``ops.kernels``)."""
         ens = state.ensemble
         if mass is None:
             mass = ens.mass
@@ -357,7 +368,8 @@ class FusedTransition:
                                             potential_scale),
                       p_std=p_std, inv_mass=inv_mass, num_steps=num_steps,
                       max_steps=max_steps,
-                      divergence_threshold=self.divergence_threshold)
+                      divergence_threshold=self.divergence_threshold,
+                      walker_offset=walker_offset)
         proposal = None
         if variant == "diag" and not emit_proposal:
             k_diag, mean = self._params(q.device, d)
@@ -411,20 +423,22 @@ def build_fused_hmc_kernel(
 
     def step(key: StepKey, state: HMCState, step_size,
              mass: Optional[Tensor] = None, *, potential_scale=None,
-             beta=None) -> tuple[HMCState, HMCInfo]:
+             beta=None, walker_offset: int = 0) -> tuple[HMCState, HMCInfo]:
         ens = state.ensemble
         if mass is None:
             mass = ens.mass
         if fused.variant_for(*ens.q.shape, mass.ndim) == "composed":
-            if potential_scale is not None or beta is not None:
+            if potential_scale is not None or beta is not None \
+                    or walker_offset:
                 raise ValueError(
                     "this state runs the composed step, which takes no "
-                    "potential_scale or beta: temper the potential itself "
-                    "(as run_smc's composed route does)")
+                    "potential_scale, beta or walker_offset: temper the "
+                    "potential itself (as run_smc's composed route does)")
             return base.step(key, state, step_size, mass=mass)
         new_state, info, _ = fused(key, state, step_size, mass,
                                    num_steps=num_steps,
-                                   potential_scale=potential_scale, beta=beta)
+                                   potential_scale=potential_scale, beta=beta,
+                                   walker_offset=walker_offset)
         return new_state, info
 
     return HMCKernel(init=base.init, step=step, num_steps=num_steps,
@@ -574,6 +588,20 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _combine_moments(rows: Tensor, n: int, d: int):
+    """Chan et al.'s merge of the ranks' streamed ``(mean, m2)``, ``rows``
+    ``[K, 2 D]`` in rank order, each over ``n`` draws: ``(mean, m2, K n)``.
+    One rank's are returned as they are."""
+    mean, m2, total = rows[0, :d], rows[0, d:], n
+    for r in range(1, rows.shape[0]):
+        n_new = total + n
+        delta = rows[r, :d] - mean
+        mean = mean + delta * (n / n_new)
+        m2 = m2 + rows[r, d:] + delta**2 * (total * n / n_new)
+        total = n_new
+    return mean, m2, total
+
+
 def run_hmc(
     seed: int,
     potential_fn: Callable[[Tensor], Tensor],
@@ -592,8 +620,9 @@ def run_hmc(
     constants: Constants = NATURAL,
     collect: str = "samples",
     thin: int = 1,
-    kernel: str = "auto",
+    kernel: Union[str, HMCKernel] = "auto",
     metric: str = "diag",
+    mesh=None,
 ) -> HMCRunResult:
     """Warmup-adapt and sample with ensemble HMC.
 
@@ -610,7 +639,19 @@ def run_hmc(
     "moments" streams the posterior mean/variance; "none" keeps only the
     diagnostics. ``kernel``: see :func:`resolve_engine`; with
     ``metric="dense"`` "auto" and "composed" run the dense step and
-    "fused" raises.
+    "fused" raises. A built :class:`HMCKernel` is used as it is.
+
+    ``mesh``: a walker group (``parallel.make_walker_mesh``); ``init_q`` is
+    then this process's block of an ensemble split evenly over the group.
+    The kernel is bound to the group (``parallel.shard_map_kernel``: the
+    fused kernels draw by global walker index, the composed engine's seed
+    has the rank folded in), and the loop's ensemble statistics are the
+    group's: a warmup transition makes one all-reduce of a small packed
+    vector (the acceptance and, in a metric window, the variance's batch
+    terms, merged rank by rank with Chan's formula), a sampling transition
+    none, and the end of sampling one (the rates and the streamed
+    moments). Scalars and moments are the same on every rank; the state
+    and samples are this rank's block. ``metric="dense"`` is not sharded.
     """
     if collect not in ("samples", "moments", "none"):
         raise ValueError(f"bad collect={collect!r}")
@@ -618,7 +659,12 @@ def run_hmc(
         raise ValueError(f"bad metric={metric!r} (want diag|dense)")
     q = torch.as_tensor(init_q, device=resolve_device(None, init_q))
     dense = metric == "dense"
-    if dense:
+    if isinstance(kernel, HMCKernel):
+        if dense:
+            raise ValueError("metric='dense' builds its own kernel: pass "
+                             "kernel='auto' or 'composed'")
+        hk = kernel
+    elif dense:
         if kernel not in ("auto", "composed"):
             raise ValueError(
                 f"kernel={kernel!r} cannot run metric='dense': no fused "
@@ -638,6 +684,19 @@ def run_hmc(
         hk = build_hmc_kernel(
             potential_fn, num_steps=num_steps, integrator=integrator,
             temperature=temperature, constants=constants)
+    if mesh is None:
+        mesh = hk.mesh
+    if mesh is not None:
+        if dense:
+            raise ValueError(
+                "metric='dense' on a walker mesh is not ported yet (the JAX "
+                "package runs it through GSPMD): run it unsharded")
+        if hk.mesh is None:
+            from .parallel.sharded import shard_map_kernel
+            hk = shard_map_kernel(hk, mesh)
+        elif hk.mesh is not mesh:
+            raise ValueError("the kernel is bound to another walker mesh")
+        from .parallel.mesh import gather_rows
     state = hk.init(q, mass=mass)
     num_walkers, num_dims = state.ensemble.q.shape
     dtype, device = q.dtype, q.device
@@ -661,11 +720,23 @@ def run_hmc(
         for _ in range(seg.length):
             state, info = step((seed, t), state, torch.exp(da.log_step))
             t += 1
-            da = da_update(da, torch.mean(info.accept_prob),
-                           target=target_accept, enabled=adapt_step_size)
-            if track:
+            accept = torch.mean(info.accept_prob)
+            if mesh is not None:
+                # every rank's mean and batch terms, in rank order
+                parts = [accept.reshape(1)]
+                if track:
+                    w, b_mean, b_m2 = variance_batch(state.ensemble.q)
+                    parts += [w.reshape(1), b_mean, b_m2]
+                rows = gather_rows(torch.cat(parts), mesh)
+                accept = torch.sum(rows[:, 0]) / mesh.size
+                for row in rows if track else ():
+                    est = variance_merge(est, row[1], row[2:2 + num_dims],
+                                         row[2 + num_dims:])
+            elif track:
                 est = (covariance_update if dense else variance_update)(
                     est, state.ensemble.q)
+            da = da_update(da, accept, target=target_accept,
+                           enabled=adapt_step_size)
         if adapt_step_size:
             step_size = torch.exp(da.log_avg_step)
         if track and dense:
@@ -706,6 +777,14 @@ def run_hmc(
     else:  # as the JAX package: the mean of no transitions is NaN
         accept_rate = torch.full((), math.nan, dtype=dtype, device=device)
         divergence_rate = accept_rate.clone()
+    if mesh is not None:  # the group's rates and moments
+        rows = gather_rows(torch.cat((accept_rate.reshape(1),
+                                      divergence_rate.reshape(1), mean, m2)),
+                           mesh)
+        accept_rate = torch.sum(rows[:, 0]) / mesh.size
+        divergence_rate = torch.sum(rows[:, 1]) / mesh.size
+        if n:  # streamed moments
+            mean, m2, n = _combine_moments(rows[:, 2:], n, num_dims)
     _synchronize(device)
     sampling_seconds = _time.perf_counter() - t0
 
@@ -718,6 +797,7 @@ def run_hmc(
         post_var = m2 / max(n - 1.0, 1.0)
 
     total_grads = ((num_warmup + num_samples) * num_walkers
+                   * (1 if mesh is None else mesh.size)
                    * (hk.num_steps * hk.grad_evals_per_step + 1))
     variant = (hk.variant_for(num_walkers, num_dims, 1) if hk.kind == "fused"
                else "dense" if dense else "composed")

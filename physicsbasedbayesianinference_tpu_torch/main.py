@@ -22,6 +22,17 @@ Model references:
 
 ``numpyro:`` references are the JAX package's only: NumPyro is JAX.
 
+``sharded=True`` (hmc with the diagonal metric) runs one process per
+device, each on its block of the walkers (``parallel.sharded_run_hmc``):
+
+    python -m torch.distributed.run --nproc_per_node=K \
+        -m physicsbasedbayesianinference_tpu_torch.main --config run.json
+
+Every rank draws the same global initial positions and keeps its block;
+the summary, the ``#`` lines and the ``.npz`` come from rank 0 (its
+samples gathered from every rank). Started without a launcher it runs as
+a group of one process.
+
 Randomness: the run draws its initial positions from a seed derived from
 ``seed`` and runs the sampler with key ``seed``; transition ``t`` (warmup
 first) uses ``(seed, t)`` in every path, so a checkpointed run and a
@@ -164,13 +175,39 @@ def _launches() -> dict:
                     kernels.fused_hmc_transition.launches_by))
 
 
+def _walker_mesh(cfg: RunConfig):
+    """The walker group of a sharded run: the launcher's
+    (``parallel.initialize_distributed``), the caller's if it made one, or
+    else a group of this one process."""
+    import torch.distributed as dist
+    from .parallel import initialize_distributed, make_walker_mesh
+    device = _run_device(cfg)
+    initialize_distributed(device=device.type)
+    if not dist.is_initialized():
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo",
+            store=dist.HashStore(), rank=0, world_size=1)
+    mesh = make_walker_mesh()
+    if mesh.device.type != device.type:
+        raise ValueError(f"device={cfg.device!r}, but the process group's "
+                         f"backend serves {mesh.device.type} tensors")
+    return mesh
+
+
 def run(cfg: RunConfig) -> dict:
-    """Execute the configured run; returns the result summary dict."""
+    """Execute the configured run; returns the result summary dict. With
+    ``sharded=True`` this process is one rank (module docstring): rank 0's
+    summary holds the posterior summary, and only rank 0 writes."""
+    cfg.check()
+    mesh = _walker_mesh(cfg) if cfg.sharded else None
+    lead = mesh is None or mesh.rank == 0
     inputs = prepare(cfg)
     q0 = inputs.init_q
-    print(f"# model={cfg.model} sampler={cfg.sampler} "
-          f"walkers={cfg.num_walkers} dims={q0.shape[-1]} "
-          f"device={q0.device}", file=sys.stderr)
+    if lead:
+        print(f"# model={cfg.model} sampler={cfg.sampler} "
+              f"walkers={cfg.num_walkers} dims={q0.shape[-1]} "
+              f"device={q0.device} devices={1 if mesh is None else mesh.size}",
+              file=sys.stderr)
     before = _launches()
     t0 = time.perf_counter()
     summary: dict = {"config": dataclasses.asdict(cfg)}
@@ -181,11 +218,15 @@ def run(cfg: RunConfig) -> dict:
     elif cfg.sampler in ("hmc", "nuts", "chees", "pt") and cfg.checkpoint_dir:
         summary.update(_checkpointed_run(cfg, inputs))
     else:
-        samples = _sample(cfg, inputs, summary)
+        samples = _sample(cfg, inputs, summary, mesh)
         summary["wall_seconds"] = round(time.perf_counter() - t0, 3)
+        if samples is not None and mesh is not None:
+            from .parallel.mesh import gather_walkers
+            whole = gather_walkers(samples.transpose(0, 1), mesh, dst=0)
+            samples = None if whole is None else whole.transpose(0, 1)
         if samples is not None:
             _summarize(samples, inputs.constrain, summary)
-        if cfg.output_path:
+        if cfg.output_path and lead:
             arrays = {"summary": json.dumps(summary)}
             if samples is not None:
                 arrays["samples"] = samples.cpu().numpy()
@@ -195,26 +236,31 @@ def run(cfg: RunConfig) -> dict:
     after = _launches()
     by = {k: v - before["fused_hmc_transition_by"][k]
           for k, v in after.pop("fused_hmc_transition_by").items()}
-    print("# launches " + json.dumps(dict(
-        {k: v - before[k] for k, v in after.items()},
-        fused_hmc_transition_by=by)), file=sys.stderr)
+    if lead:
+        print("# launches " + json.dumps(dict(
+            {k: v - before[k] for k, v in after.items()},
+            fused_hmc_transition_by=by)), file=sys.stderr)
     return summary
 
 
-def _sample(cfg: RunConfig, inputs: RunInputs, summary: dict):
+def _sample(cfg: RunConfig, inputs: RunInputs, summary: dict, mesh=None):
     """One uninterrupted ``run_*`` call; fills ``summary``, returns the
-    samples ``[S, W, D]`` or None."""
+    samples ``[S, W, D]`` (with ``mesh``, this rank's ``[S, W / K, D]``) or
+    None."""
     pot, q0, seed = inputs.potential, inputs.init_q, inputs.seed
     common = dict(temperature=cfg.temperature, constants=inputs.constants)
     if cfg.sampler == "hmc":
-        from .hmc import run_hmc
-        res = run_hmc(
-            seed, pot, q0, num_warmup=cfg.num_warmup,
-            num_samples=cfg.num_samples, num_steps=cfg.num_steps,
-            init_step_size=cfg.init_step_size,
-            target_accept=cfg.target_accept, adapt_mass=cfg.adapt_mass,
-            collect=cfg.collect, thin=cfg.thin, kernel=cfg.kernel,
-            metric=cfg.metric, **common)
+        kw = dict(num_warmup=cfg.num_warmup, num_samples=cfg.num_samples,
+                  num_steps=cfg.num_steps, init_step_size=cfg.init_step_size,
+                  target_accept=cfg.target_accept, adapt_mass=cfg.adapt_mass,
+                  collect=cfg.collect, thin=cfg.thin, kernel=cfg.kernel,
+                  **common)
+        if mesh is not None:
+            from .parallel.sharded import sharded_run_hmc
+            res = sharded_run_hmc(seed, pot, q0, mesh=mesh, **kw)
+        else:
+            from .hmc import run_hmc
+            res = run_hmc(seed, pot, q0, metric=cfg.metric, **kw)
         summary.update(
             accept_rate=float(res.accept_rate),
             divergence_rate=float(res.divergence_rate),
@@ -671,6 +717,12 @@ def main(argv=None) -> int:
         f.name: getattr(args, f.name) for f in dataclasses.fields(RunConfig)
         if getattr(args, f.name, None) is not None})
     summary = run(cfg)
+    if cfg.sharded:
+        import torch.distributed as dist
+        rank = dist.get_rank()
+        dist.destroy_process_group()
+        if rank != 0:
+            return 0
     print(json.dumps(summary, indent=2))
     return 0
 

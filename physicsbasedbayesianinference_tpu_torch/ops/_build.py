@@ -46,7 +46,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_double
-_TAIL = [_I, _I, _I, _F, ctypes.c_uint64, ctypes.c_uint32, _P]
+# W, D, L, threshold, seed, transition index, walker offset, stream
+_TAIL = [_I, _I, _I, _F, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_uint32,
+         _P]
 _SIGNATURES = {
     # 13 pointers: q, k, mean, inv_mass, p_std, scalars, 6 outputs, the
     # device step count (or null)
@@ -61,8 +63,9 @@ _SIGNATURES = {
     # q, p, u, g, inv_mass, step, 4 outputs; W, D, L, walker tile, stream
     "pbbi_leapfrog_trajectory": ([_I] + [_P] * 3 + [_I] + [_P] * 10
                                  + [_I, _I, _I, _I, _P]),
-    # dtype code, x, mass, out, N, lanes per target, softening, G, stream
-    "pbbi_nbody_accelerations": [_I, _P, _P, _P, _I, _I, _D, _D, _P],
+    # dtype code, targets x and N, sources x and mass and their count,
+    # out, lanes per target, softening, G, stream
+    "pbbi_nbody_accelerations": [_I, _P, _I, _P, _P, _I, _P, _I, _D, _D, _P],
 }
 
 

@@ -21,7 +21,10 @@ the host.
 The transition kernels' plain versions draw the same Philox bits
 (``ops/philox.py``), so for the same seed and transition index they agree
 to float rounding. Their shared arguments: ``seed`` (64-bit run seed) and
-``counter`` (transition index) key the draws; ``scalars`` is a float32
+``counter`` (transition index) key the draws; ``walker_offset`` (0 unless
+given) is the global index of q's row 0, the walker word of its draws, so
+a process holding rows ``[o, o + W)`` of a sharded ensemble draws what
+one launch on the whole ensemble draws for them; ``scalars`` is a float32
 tensor ``[3]`` on q's device holding (step size, beta, potential scale);
 ``p_std`` and ``inv_mass`` are ``[D]``. With ``scale != 1`` forces and H
 use ``scale * U`` while the returned (u, g) stay unscaled.
@@ -77,21 +80,32 @@ _HALF_LOG_2PI = 0.9189385332046727
 
 
 def _metropolis(seed: int, counter: int, h0: Tensor, h1: Tensor,
-                beta: Tensor, threshold: float):
+                beta: Tensor, threshold: float, walker_offset: int = 0):
     derr = beta * (h1 - h0)
     derr = torch.where(torch.isfinite(derr), derr, torch.inf)
     divergent = derr > threshold
     log_u = torch.log(philox.accept_uniforms(seed, counter, h0.shape[0],
-                                             h0.device))
+                                             h0.device, walker_offset))
     accepted = (log_u < -derr) & ~divergent
     accept_prob = torch.where(divergent, 0.0,
                               torch.exp(torch.clamp_max(-derr, 0.0)))
     return derr, accepted, accept_prob
 
 
-def _momenta(seed: int, counter: int, q: Tensor, p_std: Tensor) -> Tensor:
+def _momenta(seed: int, counter: int, q: Tensor, p_std: Tensor,
+             walker_offset: int = 0) -> Tensor:
     w, d = q.shape
-    return p_std * philox.momentum_normals(seed, counter, w, d, q.device)
+    return p_std * philox.momentum_normals(seed, counter, w, d, q.device,
+                                           walker_offset)
+
+
+def _check_offset(walker_offset: int, num_walkers: int) -> int:
+    """The walker words are uint32: rows ``walker_offset ..
+    walker_offset + W - 1`` must fit."""
+    if not 0 <= walker_offset <= (1 << 32) - num_walkers:
+        raise ValueError(f"walker_offset must be in [0, 2^32 - W], got "
+                         f"{walker_offset} with W={num_walkers}")
+    return int(walker_offset)
 
 
 def _check(q: Tensor, named: dict, shapes: dict) -> None:
@@ -172,6 +186,7 @@ def fused_hmc_diag_quadratic_plain(
     seed: int, counter: int, q: Tensor, *, scalars: Tensor, p_std: Tensor,
     inv_mass: Tensor, k_diag: Tensor, mean: Tensor, num_steps,
     divergence_threshold: float = 1000.0, max_steps: Optional[int] = None,
+    walker_offset: int = 0,
 ):
     """One HMC transition for ``U = 0.5 sum_d k_d (q_d - mean_d)^2``.
 
@@ -180,8 +195,9 @@ def fused_hmc_diag_quadratic_plain(
     selected state.
     """
     num_steps = _host_steps(num_steps, max_steps)
+    walker_offset = _check_offset(walker_offset, q.shape[0])
     dt, beta, s = scalars[0], scalars[1], scalars[2]
-    p0 = _momenta(seed, counter, q, p_std)
+    p0 = _momenta(seed, counter, q, p_std, walker_offset)
     qc0 = q - mean
     u0 = 0.5 * torch.sum(k_diag * qc0 * qc0, dim=1)
     h0 = 0.5 * torch.sum(p0 * p0 * inv_mass, dim=1) + s * u0
@@ -197,7 +213,7 @@ def fused_hmc_diag_quadratic_plain(
     u1 = 0.5 * torch.sum(k_diag * qc1 * qc1, dim=1)
     h1 = 0.5 * torch.sum(p * p * inv_mass, dim=1) + s * u1
     derr, accepted, accept_prob = _metropolis(
-        seed, counter, h0, h1, beta, divergence_threshold)
+        seed, counter, h0, h1, beta, divergence_threshold, walker_offset)
     q_sel = torch.where(accepted[:, None], q1, q)
     return (q_sel, k_diag * (q_sel - mean), torch.where(accepted, u1, u0),
             accept_prob, accepted, derr)
@@ -207,6 +223,7 @@ def fused_hmc_diag_quadratic(
     seed: int, counter: int, q: Tensor, *, scalars: Tensor, p_std: Tensor,
     inv_mass: Tensor, k_diag: Tensor, mean: Tensor, num_steps,
     divergence_threshold: float = 1000.0, max_steps: Optional[int] = None,
+    walker_offset: int = 0,
 ):
     """Kernel A. Replaces ``make_fused_hmc_diag_quadratic``
     (physicsbasedbayesianinference_tpu/ops/pallas_kernels.py:893), its
@@ -220,13 +237,14 @@ def fused_hmc_diag_quadratic(
             seed, counter, q, scalars=scalars, p_std=p_std,
             inv_mass=inv_mass, k_diag=k_diag, mean=mean,
             num_steps=num_steps, divergence_threshold=divergence_threshold,
-            max_steps=max_steps)
+            max_steps=max_steps, walker_offset=walker_offset)
     d = q.shape[-1]
     _check(q, {"q": q, "scalars": scalars, "p_std": p_std,
                "inv_mass": inv_mass, "k_diag": k_diag, "mean": mean},
            {"q": tuple(q.shape), "scalars": (3,), "p_std": (d,),
             "inv_mass": (d,), "k_diag": (d,), "mean": (d,)})
     steps_ptr, steps = _device_steps(num_steps, max_steps, q)
+    walker_offset = _check_offset(walker_offset, q.shape[0])
     outs = _outputs(q)
     q_out, g_out, u_out, acc, taken, derr = outs
     with torch.cuda.device(q.device):
@@ -235,7 +253,8 @@ def fused_hmc_diag_quadratic(
             *map(Tensor.data_ptr,
                  (q, k_diag, mean, inv_mass, p_std, scalars, *outs)),
             steps_ptr, q.shape[0], d, steps, divergence_threshold,
-            seed & 0xFFFFFFFFFFFFFFFF, counter & 0xFFFFFFFF, stream)
+            seed & 0xFFFFFFFFFFFFFFFF, counter & 0xFFFFFFFF, walker_offset,
+            stream)
     _raise_on(rc, "fused_hmc_diag_quadratic")
     fused_hmc_diag_quadratic.launches += 1
     return q_out, g_out, u_out, acc, taken.view(torch.bool), derr
@@ -636,7 +655,7 @@ def fused_hmc_transition_plain(
     device_form, seed: int, counter: int, q: Tensor, u: Tensor, g: Tensor,
     *, scalars: Tensor, p_std: Tensor, inv_mass: Tensor, num_steps,
     divergence_threshold: float = 1000.0, max_steps: Optional[int] = None,
-    emit_proposal: bool = False,
+    emit_proposal: bool = False, walker_offset: int = 0,
 ):
     """One HMC transition for the potential named by ``device_form``, from
     cached unscaled ``(u, g)``. Returns ``(q', u', g', accept_prob,
@@ -644,9 +663,10 @@ def fused_hmc_transition_plain(
     endpoint with its momentum flipped, ``(q1, -p1)``, for every walker
     whatever its decision."""
     num_steps = _host_steps(num_steps, max_steps)
+    walker_offset = _check_offset(walker_offset, q.shape[0])
     vg = device_value_and_grad(device_form)
     dt, beta, s = scalars[0], scalars[1], scalars[2]
-    p0 = _momenta(seed, counter, q, p_std)
+    p0 = _momenta(seed, counter, q, p_std, walker_offset)
     h0 = 0.5 * torch.sum(p0 * p0 * inv_mass, dim=1) + s * u
     dtim = dt * inv_mass
     ck = dt * s
@@ -659,7 +679,7 @@ def fused_hmc_transition_plain(
     p = p + (0.5 * ck) * g1
     h1 = 0.5 * torch.sum(p * p * inv_mass, dim=1) + s * u1
     derr, accepted, accept_prob = _metropolis(
-        seed, counter, h0, h1, beta, divergence_threshold)
+        seed, counter, h0, h1, beta, divergence_threshold, walker_offset)
     sel = accepted[:, None]
     out = (torch.where(sel, q1, q), torch.where(accepted, u1, u),
            torch.where(sel, g1, g), accept_prob, accepted, derr)
@@ -671,6 +691,7 @@ def fused_hmc_transition(
     *, scalars: Tensor, p_std: Tensor, inv_mass: Tensor, num_steps,
     divergence_threshold: float = 1000.0, tile: Optional[int] = None,
     max_steps: Optional[int] = None, emit_proposal: bool = False,
+    walker_offset: int = 0,
 ):
     """Kernel B. Replaces ``make_fused_hmc_transition``
     (physicsbasedbayesianinference_tpu/ops/pallas_kernels.py:373) and, as
@@ -688,7 +709,7 @@ def fused_hmc_transition(
             device_form, seed, counter, q, u, g, scalars=scalars,
             p_std=p_std, inv_mass=inv_mass, num_steps=num_steps,
             divergence_threshold=divergence_threshold, max_steps=max_steps,
-            emit_proposal=emit_proposal)
+            emit_proposal=emit_proposal, walker_offset=walker_offset)
     name, params = device_form
     w, d = q.shape if q.ndim == 2 else (0, 0)
     why = generic_unsupported(device_form, d)
@@ -703,6 +724,7 @@ def fused_hmc_transition(
             "p_std": (d,), "inv_mass": (d,)})
     tile = _tile_for(device_form, w, d, tile)
     steps_ptr, steps = _device_steps(num_steps, max_steps, q)
+    walker_offset = _check_offset(walker_offset, w)
     param_ptrs = [t.data_ptr() for t in params]
     param_ptrs += [None] * (3 - len(param_ptrs))
     q_out, g_out, u_out, acc, taken, derr = _outputs(q)
@@ -717,7 +739,8 @@ def fused_hmc_transition(
                  (q, u, g, inv_mass, p_std, scalars,
                   q_out, u_out, g_out, acc, taken, derr)),
             *prop_ptrs, steps_ptr, w, d, steps, tile, divergence_threshold,
-            seed & 0xFFFFFFFFFFFFFFFF, counter & 0xFFFFFFFF, stream)
+            seed & 0xFFFFFFFFFFFFFFFF, counter & 0xFFFFFFFF, walker_offset,
+            stream)
     _raise_on(rc, f"fused_hmc_transition[{name}]")
     fused_hmc_transition.launches += 1
     fused_hmc_transition.launches_by[
@@ -914,33 +937,46 @@ def _sum_in_kernel_order(terms: Tensor, split: int) -> Tensor:
     return lanes[:, 0]
 
 
-def nbody_accelerations_tiled_plain(x: Tensor, mass: Tensor, *,
+def nbody_accelerations_tiled_plain(x: Tensor, mass: Optional[Tensor], *,
                                     g_const: float, softening: float,
-                                    split: Optional[int] = None) -> Tensor:
+                                    split: Optional[int] = None,
+                                    sources=None) -> Tensor:
     """``a_i = G sum_{j != i} m_j r_ij / (|r_ij|^2 + eps^2)^{3/2}`` with
     ``r_ij = x_j - x_i``, for ``x`` ``[N, 3]``: the pairs of a block of
     target rows at a time, so that N = 16384 fits in memory. Each term is
     rounded op by op with an exact square root and division (kernel E fuses
     its multiply-adds and takes one reciprocal square root). The sum over
     the sources is a torch reduction, or, with ``split``, runs in kernel
-    E's order at that many lanes per target (:func:`nbody_split`)."""
-    n = x.shape[0]
-    rows = max(1, _PLAIN_PAIR_BLOCK // n)
+    E's order at that many lanes per target (:func:`nbody_split`).
+
+    ``sources=(x_src, m_src)`` (``[N_src, 3]``, ``[N_src]``) are the bodies
+    j, and ``mass`` is not read: the accelerations of the targets ``x``
+    from a block of sources, the tile of the ring sweep
+    (``parallel/ring.py``). No pair is then skipped by its index; a pair at
+    r^2 <= 0 has weight zero (the JAX ring's ``_block_accel`` rule, and the
+    kernel's), and every other self-pair term is exactly zero, so with the
+    targets as sources the result is the one-set result's bits."""
+    x_src, m_src = (x, mass) if sources is None else sources
+    n_src = x_src.shape[0]
+    rows = max(1, _PLAIN_PAIR_BLOCK // n_src)
     soft2 = float(softening) ** 2
     out = torch.empty_like(x)
-    cols = torch.arange(n, device=x.device)
+    cols = torch.arange(n_src, device=x.device)
     if split is not None:
         _check_split(split)
-    for start in range(0, n, rows):
-        stop = min(n, start + rows)
-        r = x[None, :, :] - x[start:stop, None, :]  # r[i, j] = x_j - x_i
+    for start in range(0, x.shape[0], rows):
+        stop = min(x.shape[0], start + rows)
+        r = x_src[None, :, :] - x[start:stop, None, :]  # r[i, j] = x_j - x_i
         r2 = (r[..., 0] * r[..., 0] + r[..., 1] * r[..., 1]
               + r[..., 2] * r[..., 2] + soft2)
-        self_pair = cols[None, :] == torch.arange(
-            start, stop, device=x.device)[:, None]
-        inv = torch.where(self_pair, 0.0,
-                          1.0 / torch.sqrt(torch.where(self_pair, 1.0, r2)))
-        terms = (mass[None, :] * (inv * inv * inv))[..., None] * r
+        if sources is None:
+            zero = cols[None, :] == torch.arange(
+                start, stop, device=x.device)[:, None]
+        else:
+            zero = r2 <= 0.0
+        inv = torch.where(zero, 0.0,
+                          1.0 / torch.sqrt(torch.where(zero, 1.0, r2)))
+        terms = (m_src[None, :] * (inv * inv * inv))[..., None] * r
         total = (torch.sum(terms, dim=1) if split is None
                  else _sum_in_kernel_order(terms, split))
         out[start:stop] = g_const * total
@@ -989,9 +1025,27 @@ def nbody_abs_sum(x: Tensor, mass: Tensor, *, g_const: float,
     return abs(g_const) * out
 
 
-def nbody_accelerations_tiled(x: Tensor, mass: Tensor, *, g_const: float,
-                              softening: float,
-                              split: Optional[int] = None) -> Tensor:
+def _check_bodies(name: str, x: Tensor, mass: Tensor, like: Tensor) -> None:
+    if x.device != like.device or x.dtype != like.dtype or x.ndim != 2 \
+            or x.shape[0] < 1 or x.shape[1] != 3:
+        raise ValueError(f"{name} must be a non-empty [N, 3] {like.dtype} "
+                         f"tensor on {like.device}, got {tuple(x.shape)} "
+                         f"{x.dtype} on {x.device}")
+    n = x.shape[0]
+    if mass is None or mass.device != x.device or mass.dtype != x.dtype or \
+            tuple(mass.shape) != (n,):
+        raise ValueError(
+            f"the masses of {name} must be [{n}] {x.dtype} on {x.device}, "
+            f"got " + ("None" if mass is None else
+                       f"{tuple(mass.shape)} {mass.dtype} on {mass.device}"))
+    if not (x.is_contiguous() and mass.is_contiguous()):
+        raise ValueError(f"{name} and its masses must be contiguous")
+
+
+def nbody_accelerations_tiled(x: Tensor, mass: Optional[Tensor], *,
+                              g_const: float, softening: float,
+                              split: Optional[int] = None,
+                              sources=None) -> Tensor:
     """Kernel E. Replaces ``nbody_accelerations_pallas``
     (physicsbasedbayesianinference_tpu/ops/pallas_kernels.py:252); see
     :func:`nbody_accelerations_tiled_plain` for the contract. ``x``
@@ -999,10 +1053,15 @@ def nbody_accelerations_tiled(x: Tensor, mass: Tensor, *, g_const: float,
     float64; ``softening`` is eps, added as eps^2 to r^2; ``split`` lanes
     share a target (:func:`nbody_split` of N unless given). A body at the
     origin with eps = 0 gets a finite acceleration: a pair at r^2 = 0 has
-    weight zero. Two launches on the same input give the same bits."""
+    weight zero. Two launches on the same input give the same bits.
+    ``sources=(x_src, m_src)``: the source-block form, the targets ``x``
+    pulled by those bodies (``mass`` is not read and may be None); with the
+    targets as sources it gives the one-set launch's bits.
+    ``launches_by`` counts the launches of each form."""
     if x.device.type == "cpu":
         return nbody_accelerations_tiled_plain(
-            x, mass, g_const=g_const, softening=softening, split=split)
+            x, mass, g_const=g_const, softening=softening, split=split,
+            sources=sources)
     if x.device.type != "cuda":
         raise ValueError(f"kernel E takes CPU or CUDA tensors, got "
                          f"{x.device}")
@@ -1013,27 +1072,33 @@ def nbody_accelerations_tiled(x: Tensor, mass: Tensor, *, g_const: float,
         raise ValueError(f"kernel E takes float32 or float64, got "
                          f"{x.dtype}")
     n = x.shape[0]
-    if mass.device != x.device or mass.dtype != x.dtype or \
-            tuple(mass.shape) != (n,):
-        raise ValueError(f"mass must be [{n}] {x.dtype} on {x.device}, got "
-                         f"{tuple(mass.shape)} {mass.dtype} on "
-                         f"{mass.device}")
-    if not (x.is_contiguous() and mass.is_contiguous()):
-        raise ValueError("x and mass must be contiguous")
+    if sources is None:
+        _check_bodies("x", x, mass, x)
+        x_src, m_src = x, mass
+    else:
+        x_src, m_src = sources
+        _check_bodies("x_src", x_src, m_src, x)
     split = nbody_split(n) if split is None else _check_split(split)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = load_library().pbbi_nbody_accelerations(
-            _NBODY_DTYPES[x.dtype], x.data_ptr(), mass.data_ptr(),
-            out.data_ptr(), n, split, float(softening), float(g_const),
-            stream)
+            _NBODY_DTYPES[x.dtype], x.data_ptr(), n, x_src.data_ptr(),
+            m_src.data_ptr(), x_src.shape[0], out.data_ptr(), split,
+            float(softening), float(g_const), stream)
     _raise_on(rc, "nbody_accelerations_tiled")
     nbody_accelerations_tiled.launches += 1
+    nbody_accelerations_tiled.launches_by[
+        "one_set" if sources is None else "source_block"] += 1
     return out
 
 
+E_FORMS = ("one_set", "source_block")
 nbody_accelerations_tiled.launches = 0  # type: ignore[attr-defined]
+# the same launches by form: the bodies as their own sources, or a block
+# of sources beside the targets
+nbody_accelerations_tiled.launches_by = dict.fromkeys(  # type: ignore
+    E_FORMS, 0)
 
 
 KERNELS = (fused_hmc_diag_quadratic, fused_hmc_transition,
@@ -1044,6 +1109,7 @@ def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
     fused_hmc_transition.launches_by = dict.fromkeys(B_VARIANTS, 0)
+    nbody_accelerations_tiled.launches_by = dict.fromkeys(E_FORMS, 0)
 
 
 def launch_counts() -> dict:

@@ -11,7 +11,9 @@ yields four uint32 words, turned into four normals by Box-Muller with both
 branches (``(w0, w1)`` -> dims ``4g, 4g+1``; ``(w2, w3)`` -> ``4g+2, 4g+3``).
 Site 0 is the momentum refresh, site 1 the Metropolis uniform (word 0 of
 group 0). Distinct transitions, walkers and sites never share a counter, so
-no per-transition host RNG is needed.
+no per-transition host RNG is needed. The walker word is the global walker
+index: ``walker_offset`` is the index of row 0 of a block of a sharded
+ensemble, so the block draws the rows that the whole ensemble draws.
 
 uint32 arithmetic runs in int64 tensors. The 32x32-bit multiply splits the
 constant multiplier into 16-bit halves so that no product exceeds 2^48.
@@ -77,12 +79,21 @@ def _box_muller(a: Tensor, b: Tensor) -> tuple[Tensor, Tensor]:
     return r * torch.cos(theta), r * torch.sin(theta)
 
 
+def _walkers(num_walkers: int, walker_offset: int, device) -> Tensor:
+    """The walker words of rows ``walker_offset .. + num_walkers``, as the
+    kernels form them (uint32 arithmetic)."""
+    return (torch.arange(num_walkers, dtype=torch.int64, device=device)
+            + walker_offset) & _MASK
+
+
 def momentum_normals(seed: int, counter: int, num_walkers: int,
-                     num_dims: int, device=None) -> Tensor:
-    """[W, D] standard normals of transition ``counter`` (site 0)."""
+                     num_dims: int, device=None,
+                     walker_offset: int = 0) -> Tensor:
+    """[W, D] standard normals of transition ``counter`` (site 0) for the
+    walkers ``walker_offset .. walker_offset + W - 1``."""
     k0, k1 = split_seed(seed)
     groups = -(-num_dims // 4)
-    w = torch.arange(num_walkers, dtype=torch.int64, device=device)[:, None]
+    w = _walkers(num_walkers, walker_offset, device)[:, None]
     g = torch.arange(groups, dtype=torch.int64, device=device)[None, :]
     x0, x1, x2, x3 = philox4x32_10(counter & _MASK, w, g, SITE_MOMENTUM,
                                    k0, k1)
@@ -93,9 +104,10 @@ def momentum_normals(seed: int, counter: int, num_walkers: int,
 
 
 def accept_uniforms(seed: int, counter: int, num_walkers: int,
-                    device=None) -> Tensor:
-    """[W] Metropolis uniforms in (0, 1] of transition ``counter``."""
+                    device=None, walker_offset: int = 0) -> Tensor:
+    """[W] Metropolis uniforms in (0, 1] of transition ``counter`` for the
+    walkers ``walker_offset .. walker_offset + W - 1``."""
     k0, k1 = split_seed(seed)
-    w = torch.arange(num_walkers, dtype=torch.int64, device=device)
+    w = _walkers(num_walkers, walker_offset, device)
     x0, _, _, _ = philox4x32_10(counter & _MASK, w, 0, SITE_ACCEPT, k0, k1)
     return uniform_from_bits(x0)

@@ -1,5 +1,5 @@
 """Tempered sequential Monte Carlo over the walker ensemble (port of the JAX
-package's ``smc.py``, without its ``mesh=`` sharding and ring resampler).
+package's ``smc.py``).
 
 A stage reweights the ensemble (log-space), picks the next inverse
 temperature ``beta`` by a fixed 30-step bisection on the effective sample
@@ -26,6 +26,20 @@ Mutation engines, picked by ``hmc.resolve_engine`` before the loop:
 
 Randomness: stage ``s`` mutates with the step keys ``(seed, s * K + k)``
 and resamples from a generator keyed ``(seed, 2^32 + s)``.
+
+``mesh=`` (a walker group, ``parallel.make_walker_mesh``) runs one block of
+the ensemble in each process. A stage all-gathers the ``[W]`` potentials
+and log-weights once, so every rank takes the bisection, the evidence, the
+ESS and the resample decision on the whole ensemble, bit for bit as one
+process does; it resamples with the ring resampler
+(``parallel.resample``: one all-gather of K integer totals and K - 1 ring
+hops of the walker blocks, the one-process indices exactly), and each
+mutation's acceptance mean is that of the all-gathered ``[W]``
+acceptances. So a stage makes 2 + K collectives and K - 1 hops, and the
+fused engine (each rank's walkers drawn by global index) repeats the
+one-process run. The composed engine folds the rank into its seed, so its
+sharded run is another draw of the same law. Only the systematic
+resampler runs on a mesh, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -239,6 +253,17 @@ def _tempered(potential_fn, beta):
     return tempered
 
 
+def _tempered_step(potential_fn, key, q: Tensor, beta, step_size, *,
+                   num_steps: int, temperature: float, constants: Constants,
+                   momentum=None, uniform=None):
+    """:func:`tempered_hmc_step` with every walker's acceptance."""
+    k = build_hmc_kernel(_tempered(potential_fn, beta), num_steps=num_steps,
+                         temperature=temperature, constants=constants)
+    state, info = k.step(key, k.init(q), step_size, momentum=momentum,
+                         uniform=uniform)
+    return state.ensemble.q, info.accept_prob
+
+
 def tempered_hmc_step(potential_fn, key, q: Tensor, beta, step_size, *,
                       num_steps: int, temperature: float = 1.0,
                       constants: Constants = NATURAL, momentum=None,
@@ -246,11 +271,11 @@ def tempered_hmc_step(potential_fn, key, q: Tensor, beta, step_size, *,
     """One composed HMC transition targeting ``exp(-beta U / (k_B T))``:
     ``(q', mean acceptance)``. ``momentum=`` / ``uniform=`` replace its
     draws (tests)."""
-    k = build_hmc_kernel(_tempered(potential_fn, beta), num_steps=num_steps,
-                         temperature=temperature, constants=constants)
-    state, info = k.step(key, k.init(q), step_size, momentum=momentum,
-                         uniform=uniform)
-    return state.ensemble.q, torch.mean(info.accept_prob)
+    q, accept = _tempered_step(
+        potential_fn, key, q, beta, step_size, num_steps=num_steps,
+        temperature=temperature, constants=constants, momentum=momentum,
+        uniform=uniform)
+    return q, torch.mean(accept)
 
 
 def run_smc(
@@ -271,6 +296,7 @@ def run_smc(
     constants: Constants = NATURAL,
     mutation_target_accept: float = 0.75,
     kernel: str = "auto",
+    mesh=None,
 ) -> SMCResult:
     """Anneal the ensemble from pi_{beta0} (near-flat) to pi_{beta_max} (the
     target) with ESS-adaptive tempering, resampling and HMC mutations, and
@@ -282,8 +308,14 @@ def run_smc(
     stages. ``kernel``: "auto" | "fused" | "composed", as
     ``hmc.resolve_engine`` decides it ("fused" raises where it cannot
     run).
+
+    ``mesh``: a walker group (module docstring). ``init_q`` is then the
+    global ensemble, the same on every rank; the result's ``q`` is this
+    rank's block, everything else the group's.
     """
-    init_q = torch.as_tensor(init_q, device=resolve_device(None, init_q))
+    init_q = torch.as_tensor(
+        init_q, device=resolve_device(None if mesh is None else mesh.device,
+                                      init_q))
     m = build_smc_machinery(
         potential_fn, init_q.shape[0], init_q.dtype,
         num_dims=init_q.shape[1], num_mutation_steps=num_mutation_steps,
@@ -294,7 +326,7 @@ def run_smc(
         max_stages=max_stages, resampler=resampler,
         temperature=temperature, constants=constants,
         mutation_target_accept=mutation_target_accept, kernel=kernel,
-        device=init_q.device)
+        device=init_q.device, mesh=mesh)
     carry = m["init_carry"](seed, init_q)
     while m["cond"](carry):
         carry = m["body"](carry)
@@ -321,6 +353,7 @@ def build_smc_machinery(
     mutation_target_accept: float = 0.75,
     kernel: str = "auto",
     device=None,
+    mesh=None,
 ) -> dict:
     """The SMC stage machinery as separate pieces:
 
@@ -331,11 +364,27 @@ def build_smc_machinery(
     :func:`run_smc` loops ``body`` while ``cond``; a checkpointing driver
     may save the carry after each stage and resume with the same pieces,
     which reproduce the uninterrupted run. ``device``: where the walkers
-    live (the engine is chosen for it).
+    live (the engine is chosen for it). ``mesh``: a walker group; the
+    carry then holds this rank's blocks, ``num_walkers`` is the global
+    count and ``init_carry`` takes the global ensemble.
     """
     if resampler not in RESAMPLERS:
         raise ValueError(f"bad resampler={resampler!r} (want one of "
                          f"{tuple(RESAMPLERS)})")
+    if mesh is not None:
+        if resampler != "systematic":
+            raise ValueError(
+                "sharded SMC (mesh=...) supports only the systematic "
+                f"resampler; got {resampler!r}")
+        from .parallel.mesh import check_divisible, gather_walkers
+        from .parallel.resample import ring_resample_blocks, \
+            systematic_offset
+        from .parallel.sharded import fold_rank
+        check_divisible(num_walkers, mesh)
+        device = mesh.device
+        block = mesh.block(num_walkers)
+    # the global index of this process's first walker
+    offset = 0 if mesh is None else block.start
     probe = torch.empty((0, num_dims), dtype=dtype,
                         device=resolve_device(device))
     engine = resolve_engine(kernel, potential_fn, probe)
@@ -347,24 +396,43 @@ def build_smc_machinery(
              if engine == "fused" else None)
 
     def resample_q(seed, stage, q, log_w):
+        """``q`` resampled by the weights ``log_w`` ``[W]`` (with a mesh,
+        this rank's block of q, by the ring)."""
+        if mesh is not None:
+            return ring_resample_blocks(
+                q, log_w[block], torch.logsumexp(log_w.double(), dim=0),
+                systematic_offset(seed, stage, log_w), mesh)
         gen = _step_generator((seed, _RESAMPLE_COUNTER + stage), q.device)
         return q.index_select(0, RESAMPLERS[resampler](gen, log_w,
                                                        num_walkers))
+
+    def whole(x: Tensor) -> Tensor:
+        """A walker-leading vector of the whole ensemble: with a mesh, the
+        ranks' blocks all-gathered."""
+        return x if mesh is None else gather_walkers(x, mesh)
+
+    def whole2(u: Tensor, log_w: Tensor) -> tuple[Tensor, Tensor]:
+        if mesh is None:
+            return u, log_w
+        both = gather_walkers(torch.stack((u, log_w), dim=1), mesh)
+        return both[:, 0].contiguous(), both[:, 1].contiguous()
 
     def cond(c: SMCCarry) -> bool:
         more = _host_read(c.beta < beta_max)
         return more and c.stage < max_stages
 
     def body(c: SMCCarry) -> SMCCarry:
+        # with a mesh the stage's weights are taken on the whole ensemble
+        u_all, log_w = whole2(c.u, c.log_w)
         new_beta = next_beta_by_ess(
-            base_beta * c.u, c.log_w, c.beta, target_frac=target_ess_frac,
+            base_beta * u_all, log_w, c.beta, target_frac=target_ess_frac,
             beta_max=beta_max)
-        inc = -(new_beta - c.beta) * base_beta * c.u
+        inc = -(new_beta - c.beta) * base_beta * u_all
         # evidence increment: log mean incremental weight under the
         # normalised current weights
         log_z = c.log_z + torch.logsumexp(
-            normalize_log_weights(c.log_w) + inc, dim=0)
-        log_w = c.log_w + inc
+            normalize_log_weights(log_w) + inc, dim=0)
+        log_w = log_w + inc
         ess = effective_sample_size(normalize_log_weights(log_w))
 
         # resample when depleted (decided on the device). A stage that
@@ -378,6 +446,8 @@ def build_smc_machinery(
         q = torch.where(do_resample,
                         resample_q(c.seed, c.stage, c.q, log_w), c.q)
         log_w = torch.where(do_resample, torch.zeros_like(log_w), log_w)
+        if mesh is not None:
+            log_w = log_w[block].contiguous()
 
         # K tempered mutations, each feeding its ensemble-mean acceptance
         # into dual averaging
@@ -396,16 +466,18 @@ def build_smc_machinery(
                 state, info, _ = fused(
                     (c.seed, c.stage * k_mut + k), state,
                     torch.exp(da.log_step), num_steps=num_leapfrog_steps,
-                    potential_scale=new_beta)
-                acc = torch.mean(info.accept_prob)
+                    potential_scale=new_beta, walker_offset=offset)
+                acc = torch.mean(whole(info.accept_prob))
                 da = da_update(da, acc, target=mutation_target_accept)
             q, u = state.ensemble.q, state.potential_energy
         else:
+            seed = c.seed if mesh is None else fold_rank(c.seed, mesh.rank)
             for k in range(k_mut):
-                q, acc = tempered_hmc_step(
-                    potential_fn, (c.seed, c.stage * k_mut + k), q, new_beta,
+                q, accept = _tempered_step(
+                    potential_fn, (seed, c.stage * k_mut + k), q, new_beta,
                     torch.exp(da.log_step), num_steps=num_leapfrog_steps,
                     temperature=temperature, constants=constants)
+                acc = torch.mean(whole(accept))
                 da = da_update(da, acc, target=mutation_target_accept)
             # unscaled target potential for the next reweighting
             u, _ = vg(q)
@@ -426,6 +498,11 @@ def build_smc_machinery(
     def init_carry(seed: int, init_q) -> SMCCarry:
         init_q = torch.as_tensor(init_q,
                                  device=resolve_device(device, init_q))
+        if mesh is not None:
+            if init_q.shape[0] != num_walkers:
+                raise ValueError(f"init_q has {init_q.shape[0]} walkers, "
+                                 f"want the whole ensemble of {num_walkers}")
+            init_q = init_q[block].contiguous()
         dev = init_q.device
         u0, _ = vg(init_q)
         betas = torch.full((max_stages + 1,), beta_max, dtype=dtype,
@@ -434,7 +511,7 @@ def build_smc_machinery(
         return SMCCarry(
             seed=seed, q=init_q, u=u0,
             beta=torch.full((), beta0, dtype=dtype, device=dev),
-            log_w=torch.zeros((num_walkers,), dtype=dtype, device=dev),
+            log_w=torch.zeros(init_q.shape[:1], dtype=dtype, device=dev),
             log_z=torch.zeros((), dtype=dtype, device=dev), stage=0,
             da=da_init(torch.full((), init_step_size, dtype=dtype,
                                   device=dev)),
@@ -445,7 +522,7 @@ def build_smc_machinery(
 
     def finalize(c: SMCCarry) -> SMCResult:
         # a final resample, so the returned ensemble is unweighted
-        q = resample_q(c.seed, c.stage, c.q, c.log_w)
+        q = resample_q(c.seed, c.stage, c.q, whole(c.log_w))
         return SMCResult(
             q=q, log_evidence=c.log_z, num_stages=c.stage, betas=c.betas,
             ess_history=c.ess_history, accept_history=c.accept_history,

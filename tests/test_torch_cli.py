@@ -86,8 +86,15 @@ def test_config_refusals():
         tconfig.RunConfig.from_json('{"num_walkers": 4, "bogus": 1}')
     with pytest.raises(ValueError, match="composed"):
         tconfig.RunConfig(kernel="xla")
-    with pytest.raises(ValueError, match="not ported"):
-        tconfig.RunConfig(sharded=True)
+    # sharded=True runs hmc with the diagonal metric; the rest is refused,
+    # naming what is missing
+    assert tconfig.RunConfig(sharded=True).sharded
+    for bad, named in ((dict(sampler="chees"), "sampler='chees'"),
+                       (dict(metric="dense"), "metric='dense'"),
+                       (dict(checkpoint_dir="ck"), "checkpoint_dir"),
+                       (dict(collect="stream"), "collect='stream'")):
+        with pytest.raises(ValueError, match=f"{named}.*not ported yet"):
+            tconfig.RunConfig(sharded=True, **bad)
     with pytest.raises(ValueError, match="numpyro"):
         tmain.build_potential(_cfg(model="numpyro:mod:fn"))
     with pytest.raises(ValueError, match="bad model reference"):

@@ -1088,3 +1088,70 @@ def test_run_nuts_on_cuda_reads_only_its_loop_conditions(dev):
     # stops before max_depth); doubling j's after leaves 1, 2, ..., 2^(j-1)
     assert depth <= nuts._host_read.reads - reads <= depth + 1 + sum(
         range(depth))
+
+
+@pytest.mark.parametrize("w,d", [(1000, 32), (999, 5), (64, 200)])
+def test_offset_halves_join_to_the_whole_launch(dev, w, d):
+    """Kernels A and B on two blocks of walkers at their global offsets
+    give the whole launch's bits (the draws name the global walker)."""
+    gen = torch.Generator(device="cpu").manual_seed(w + d)
+    q = torch.randn(w, d, generator=gen).to(dev)
+    im = (0.5 + torch.rand(d, generator=gen)).to(dev)
+    kw = dict(scalars=torch.tensor([0.3, 1.0, 1.0], device=dev),
+              p_std=torch.sqrt(1.0 / im), inv_mass=im, num_steps=8)
+    k, mu = torch.ones(d, device=dev), torch.zeros(d, device=dev)
+    rows = (slice(0, w // 3), slice(w // 3, w))
+    whole = kernels.fused_hmc_diag_quadratic(5, 2, q, k_diag=k, mean=mu,
+                                             **kw)
+    parts = [kernels.fused_hmc_diag_quadratic(
+        5, 2, q[r].contiguous(), k_diag=k, mean=mu, walker_offset=r.start,
+        **kw) for r in rows]
+    for a, b0, b1 in zip(whole, *parts):
+        assert torch.equal(a, torch.cat([b0, b1]))
+    if d <= kernels.MAX_GENERIC_DIMS:
+        a_ = torch.randn(d, d, generator=gen) / d**0.5
+        form = pot.make_gaussian(torch.zeros(d), cov=a_ @ a_.T + torch.eye(d),
+                                 device=dev).device_form
+        u, g = kernels.device_value_and_grad(form)(q)
+        whole = kernels.fused_hmc_transition(form, 5, 2, q, u, g, **kw)
+        parts = [kernels.fused_hmc_transition(
+            form, 5, 2, q[r].contiguous(), u[r].contiguous(),
+            g[r].contiguous(), walker_offset=r.start, **kw) for r in rows]
+        for a, b0, b1 in zip(whole, *parts):
+            assert torch.equal(a, torch.cat([b0, b1]))
+        # the second block against the plain version at the same offset
+        plain = kernels.fused_hmc_transition_plain(
+            form, 5, 2, q[rows[1]], u[rows[1]], g[rows[1]],
+            walker_offset=rows[1].start, **kw)
+        out_k = dict(zip(B_ORDER, parts[1]))
+        out_p = dict(zip(B_ORDER, plain))
+        for key in ("energy_error", "accept_prob"):
+            torch.testing.assert_close(out_k[key], out_p[key], rtol=1e-4,
+                                       atol=1e-4)
+
+
+@pytest.mark.parametrize("n,softening", [(1000, 0.05), (1000, 0.0),
+                                         (4097, 0.05)])
+def test_source_block_launches(dev, n, softening):
+    """Kernel E with the bodies as their own sources is the one-set launch
+    bit for bit; over two source blocks, summed, within the bound of the
+    one-set launch; launches counted by form."""
+    gen = torch.Generator(device="cpu").manual_seed(n)
+    x = torch.randn(n, 3, generator=gen).to(dev)
+    m = (0.5 + torch.rand(n, generator=gen)).to(dev)
+    kw = dict(g_const=1.0, softening=softening)
+    kernels.reset_launch_counts()
+    one = kernels.nbody_accelerations_tiled(x, m, **kw)
+    assert torch.equal(one, kernels.nbody_accelerations_tiled(
+        x, None, sources=(x, m), **kw))
+    half = n // 2
+    two = sum(kernels.nbody_accelerations_tiled(
+        x, None, sources=(x[r].contiguous(), m[r].contiguous()), **kw)
+        for r in (slice(0, half), slice(half, n)))
+    bound = kernels.nbody_bound(x, m, g_const=1.0, softening=softening)
+    assert bool(((two - one).abs().double() <= bound[:, None]).all())
+    assert kernels.nbody_accelerations_tiled.launches_by == {
+        "one_set": 1, "source_block": 3}
+    with pytest.raises(ValueError, match="x_src"):
+        kernels.nbody_accelerations_tiled(x, None, sources=(x[:, :2], m),
+                                          **kw)

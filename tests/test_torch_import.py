@@ -1,5 +1,5 @@
 """The port imports and runs without JAX (HMC with both integrator routes
-and the dense metric, the model DSL and ChEES-HMC on a model, SMC,
+and the dense metric, the multi-process modules of ``parallel/``, the model DSL and ChEES-HMC on a model, SMC,
 parallel tempering and NUTS, the command-line driver with its config,
 checkpoints and sample sink, the physics package, the native parser and
 every kernel wrapper), and
@@ -35,6 +35,10 @@ def test_port_imports_and_samples_without_jax():
         "    philox, potentials, integrators, _build)\n"
         "from physicsbasedbayesianinference_tpu_torch.utils import convert\n"
         "from physicsbasedbayesianinference_tpu_torch import native, physics\n"
+        "from physicsbasedbayesianinference_tpu_torch import parallel\n"
+        "from physicsbasedbayesianinference_tpu_torch.parallel import (\n"
+        "    distributed, mesh, resample, ring, sharded)\n"
+        "assert parallel.sharded_run_hmc and parallel.ring_simulate\n"
         "from physicsbasedbayesianinference_tpu_torch.physics import (\n"
         "    integrators as pi, nbody, simulate_lib)\n"
         "from physicsbasedbayesianinference_tpu_torch.ops.kernels import (\n"

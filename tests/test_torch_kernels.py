@@ -439,3 +439,70 @@ def test_kernel_b_takes_the_diagonal_form_for_the_proposal():
     np.testing.assert_allclose(a.ensemble.q.numpy(), b.ensemble.q.numpy(),
                                **TOL)
     np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), **TOL)
+
+
+def _form_at_offsets(name, rng, w):
+    """(device form, q) for each form kernel B takes."""
+    if name == "diag":
+        d = 6
+        return (("diag", (torch.as_tensor(rng.uniform(0.5, 2.0, d),
+                                          dtype=torch.float32),
+                          torch.as_tensor(rng.normal(size=d),
+                                          dtype=torch.float32))),
+                rng.normal(size=(w, d)))
+    if name == "logistic":
+        d, n = 5, 20
+        return (("logistic", (
+            torch.as_tensor(rng.normal(size=(n, d - 1)), dtype=torch.float32),
+            torch.as_tensor(rng.integers(0, 2, n), dtype=torch.float32))),
+            0.3 * rng.normal(size=(w, d)))
+    if name == "eight_schools_nc":
+        j = 8
+        return (("eight_schools_nc", (
+            torch.as_tensor(10 * rng.normal(size=j), dtype=torch.float32),
+            torch.as_tensor(rng.uniform(9, 18, j), dtype=torch.float32),
+            torch.tensor([1.5]))), 0.3 * rng.normal(size=(w, j + 2)))
+    _, params, q, _ = _target(name, rng, w)
+    return convert.potential_params_from_numpy(name, params).device_form, q
+
+
+@pytest.mark.parametrize("name", ["gaussian", "funnel", "banana", "mixture",
+                                  "nbody", "diag", "logistic",
+                                  "eight_schools_nc"])
+def test_plain_kernels_at_offsets_join_to_the_whole(name):
+    """The rows [0, W/2) at walker offset 0 and [W/2, W) at offset W/2 are
+    the whole launch's rows, bit for bit: kernel B for every form, kernel
+    A for the diagonal one (the draws name the global walker)."""
+    w, rng = 64, np.random.default_rng(8)
+    form, q = _form_at_offsets(name, rng, w)
+    q = torch.as_tensor(q, dtype=torch.float32)
+    d = q.shape[1]
+    u, g = tk.device_value_and_grad(form)(q)
+    im = torch.as_tensor(rng.uniform(0.5, 2.0, d), dtype=torch.float32)
+    # a step at which some walkers are accepted and some rejected
+    step = {"gaussian": 0.8, "banana": 0.2, "mixture": 0.8,
+            "nbody": 0.8}.get(name, 0.4)
+    kw = dict(scalars=torch.tensor([step, 1.0, 1.0]),
+              p_std=torch.sqrt(1.0 / im), inv_mass=im, num_steps=4)
+    halves = (slice(0, w // 2), slice(w // 2, w))
+    whole = tk.fused_hmc_transition(form, 3, 5, q, u, g, **kw)
+    parts = [tk.fused_hmc_transition(form, 3, 5, q[s], u[s], g[s],
+                                     walker_offset=s.start, **kw)
+             for s in halves]
+    for a, b0, b1 in zip(whole, *parts):
+        assert torch.equal(a, torch.cat([b0, b1]))
+    assert 0 < int(whole[4].sum()) < w  # accepted and rejected walkers
+    if name == "diag":
+        k_diag, mean = form[1]
+        whole = tk.fused_hmc_diag_quadratic(3, 5, q, k_diag=k_diag,
+                                            mean=mean, **kw)
+        parts = [tk.fused_hmc_diag_quadratic(
+            3, 5, q[s], k_diag=k_diag, mean=mean, walker_offset=s.start,
+            **kw) for s in halves]
+        for a, b0, b1 in zip(whole, *parts):
+            assert torch.equal(a, torch.cat([b0, b1]))
+    with pytest.raises(ValueError, match="walker_offset"):
+        tk.fused_hmc_transition(form, 3, 5, q, u, g, walker_offset=-1, **kw)
+    with pytest.raises(ValueError, match="walker_offset"):
+        tk.fused_hmc_transition(form, 3, 5, q, u, g,
+                                walker_offset=(1 << 32) - w + 1, **kw)

@@ -111,3 +111,36 @@ def test_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tk.nbody_accelerations_tiled(x, torch.empty(8, device="meta"),
                                      g_const=1.0, softening=0.0)
+
+
+@pytest.mark.parametrize("softening", [0.0, 0.05])
+@pytest.mark.parametrize("split", [None, 4])
+def test_source_block_form_with_its_targets_is_the_one_set_form(softening,
+                                                                split):
+    """No index test for the self-pair: with the targets as sources the
+    plain source-block form gives the one-set form's bits (the self-pair's
+    term is exactly zero either way)."""
+    x, m = (torch.as_tensor(a) for a in _bodies(300, 11))
+    kw = dict(g_const=1.3, softening=softening, split=split)
+    one = tk.nbody_accelerations_tiled(x, m, **kw)
+    assert torch.equal(one, tk.nbody_accelerations_tiled(
+        x, None, sources=(x, m), **kw))
+
+
+def test_two_source_blocks_sum_to_the_one_set_within_the_bound():
+    """The ring's tiles: the targets pulled by two blocks of sources, summed,
+    against the one-set form and against the JAX ring's ``_block_accel``
+    on each block, to the summation-order bound C u sqrt(N) S_i."""
+    from physicsbasedbayesianinference_tpu.parallel import ring as jring
+    x_np, m_np = _bodies(256, 12)
+    x, m = torch.as_tensor(x_np), torch.as_tensor(m_np)
+    kw = dict(g_const=1.0, softening=0.05)
+    blocks = (slice(0, 128), slice(128, 256))
+    two = sum(tk.nbody_accelerations_tiled(x, None, sources=(x[s], m[s]),
+                                           **kw) for s in blocks)
+    _assert_within_bound(two, tk.nbody_accelerations_tiled(x, m, **kw),
+                         x_np, m_np, 0.05)
+    ref = sum(jring._block_accel(jnp.asarray(x_np), jnp.asarray(x_np[s]),
+                                 jnp.asarray(m_np[s]), soft2=0.05**2,
+                                 mask_self=False) for s in blocks)
+    _assert_within_bound(two, np.asarray(ref), x_np, m_np, 0.05)
