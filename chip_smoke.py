@@ -50,8 +50,9 @@
    device forms (456 launches each, the leapfrog count read on the device,
    the warmup launches with the proposal outputs), moments held against a
    composed run of the same model (autograd through the DSL, 8192
-   walkers); 8c the funnel model under ``reparam="auto"``, which has no
-   device form, through the composed engine (no kernel launch); 8d the
+   walkers); 8c the funnel model decentred by a site dict
+   (``reparam={"x": True}``), which has no device form, through the
+   composed engine (no kernel launch); 8d the
    32-dim standard normal, whose sampling runs kernel A with the count
    read on the device; 8e the model of 8a through
    ``run_hmc(integrator="pallas_leapfrog")`` from 8a's posterior state:
@@ -131,6 +132,24 @@
    13d also run with two processes; on one card the phase says it ran one.
    With ``--sharded-rank PATH STEP`` the script is one rank of that
    two-process 13b run and needs the launcher's environment.
+14. Drives this slice's path. 14a kernel A with ``trajectory_dtype=
+   torch.bfloat16``: held against its plain version at W = 102400, D = 32
+   (and at D = 33; q' and g' the plain version's bits), timed beside the
+   float32 launch, then the TPU kernel's statistics test, 100 transitions
+   at W = 16384, step 0.6, with its four gates. 14c ChEES through the
+   command-line driver's entry (``main.run``) on every example model phase
+   8 did not run, at W = 102400, 200 + 256 transitions: linear regression
+   (N = 256, P = 30, numpy seeds 10, 11, 12), the centred eight schools,
+   the centred eight schools under ``--reparam auto``, the coin toss
+   (``examples/coin_toss.data.json``), the funnel and the funnel under
+   ``--reparam auto``, each with both phases in kernel B (456 launches);
+   moments against closed forms (the coins, the decentred funnel) or a
+   composed run (linear regression; the decentred eight schools against
+   phase 8b's), the two centred models gated on finite moments and their
+   divergence share. 14d kernel D on each new form through
+   ``run_hmc(integrator="pallas_leapfrog")`` from 14c's posterior. 14b
+   each new form in kernels B and D against its plain version on those
+   states, timed (the linear form bitwise).
 
 The line before the last is a JSON object with one entry per kernel, with
 its time beside its bound (``bound_ms``: the larger of the bytes it must
@@ -156,6 +175,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = Path(__file__).resolve().parent
 CSRC = "physicsbasedbayesianinference_tpu_torch/csrc"
@@ -176,6 +196,7 @@ DENSE_COV_GATE = 0.0141
 BLOCKING = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy",
             "cudaMemcpyAsync")
 CLI = "physicsbasedbayesianinference_tpu_torch.main"
+aten = torch.ops.aten
 
 
 def bound(nbytes: float, ops: float, dtype=torch.float32) -> dict:
@@ -217,6 +238,19 @@ def gradient_ops(form, d: int) -> float:
         return 2 * n * d + 8 * n
     if name == "eight_schools_nc":
         return 12 * params[0].shape[0] + 4 * d
+    if name == "linear":
+        # z = x w + b and x^T r: N D multiply-adds each; the residual, its
+        # square and its scaled copy about 4 a row
+        n = params[1].shape[0]
+        return 2 * n * d + 4 * n
+    if name == "eight_schools":
+        return 10 * params[0].shape[0] + 4 * d
+    if name == "coin":
+        return 12 * d              # two sigmoids a dim
+    if name == "funnel_model":
+        return 4 * d + 8
+    if name == "diag_model":
+        return 2 * d
     n = params[0].shape[0]         # nbody: n^2 pairs of 12
     return 12 * n * n
 
@@ -225,14 +259,15 @@ def fail(msg: str) -> None:
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def median_ms(fn, reps: int = 20, rounds: int = 7) -> float:
+def median_ms(fn, reps: int = 20, rounds: int = 7, warm: int = 3) -> float:
     """Device time of one ``fn()``: ``reps`` calls captured in a CUDA graph,
     so the host's Python overhead between launches is not timed; each
-    replay timed with CUDA events; the median over ``rounds`` replays."""
+    replay timed with CUDA events; the median over ``rounds`` replays,
+    after ``warm`` calls outside the graph."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
+        for _ in range(warm):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
@@ -280,6 +315,29 @@ def compare(case: str, kernel_out: dict, plain_out: dict, log_u) -> float:
                  f"{(k - p).abs().max().item()}")
         worst = max(worst, (k - p).abs().max().item())
     return worst
+
+
+def same_bits(a, b) -> bool:
+    """Bit for bit, NaNs included (``torch.equal`` holds a NaN unequal to
+    itself): float32 tensors are compared as their int32 words."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def close_where_finite(k, p, rtol=1e-5, atol=1e-5) -> bool:
+    """``k`` and ``p`` are finite at the same entries and close there: a
+    trajectory that overflowed leaves non-finite values on both sides (inf
+    on one, NaN on the other, as the operations met them)."""
+    fin = torch.isfinite(k)
+    return (torch.equal(fin, torch.isfinite(p))
+            and torch.allclose(k[fin], p[fin], rtol=rtol, atol=atol))
+
+
+def finite_err(k, p) -> float:
+    """The largest |k - p| where both are finite (0 where none is)."""
+    fin = torch.isfinite(k) & torch.isfinite(p)
+    return (k[fin] - p[fin]).abs().max().item() if bool(fin.any()) else 0.0
 
 
 def named(out, order) -> dict:
@@ -371,10 +429,16 @@ def main() -> None:
 
     # ---- 2. kernels against their plain versions ---------------------------
     def check_a(case, w, d, steps, step, random_metric, time_it,
-                threshold=1000.0, beta=1.0, scale=1.0):
+                threshold=1000.0, beta=1.0, scale=1.0, trajectory_dtype=None,
+                q=None):
         """Kernel A against its plain version; ``beta``, ``scale``: the
-        device scalars' (momenta thermal at beta, std sqrt(m / beta))."""
-        q = randn(w, d)
+        device scalars' (momenta thermal at beta, std sqrt(m / beta));
+        ``trajectory_dtype``: the drift/kick chain's (then q' and g' of
+        every walker whose decision agrees must be the plain version's
+        bits, and the line holds the float32 launch's time on the same
+        input beside it); ``q``: the positions (random unless given)."""
+        if q is None:
+            q = randn(w, d)
         if random_metric:
             k, mu, im = uniform(0.5, 2, d), randn(d), uniform(0.5, 2, d)
         else:
@@ -384,6 +448,8 @@ def main() -> None:
                   p_std=torch.sqrt(1.0 / (im * beta)),
                   inv_mass=im, k_diag=k, mean=mu, num_steps=steps,
                   divergence_threshold=threshold)
+        if trajectory_dtype is not None:
+            kw["trajectory_dtype"] = trajectory_dtype
         counter = 7
         out_k = named(kernels.fused_hmc_diag_quadratic(SEED, counter, q, **kw),
                       A_ORDER)
@@ -391,6 +457,11 @@ def main() -> None:
             SEED, counter, q, **kw), A_ORDER)
         log_u = torch.log(philox.accept_uniforms(SEED, counter, w, dev))
         err = compare(case, out_k, out_p, log_u)
+        if trajectory_dtype is not None:
+            agree = out_k["accepted"] == out_p["accepted"]
+            for key in ("q", "g"):
+                if not torch.equal(out_k[key][agree], out_p[key][agree]):
+                    fail(f"{case}: {key}' is not the plain version's bits")
         if threshold < 0 and not (
                 not bool(out_k["accepted"].any())
                 and torch.equal(out_k["q"], q)
@@ -408,6 +479,12 @@ def main() -> None:
             line["plain_ms"] = median_ms(
                 lambda: kernels.fused_hmc_diag_quadratic_plain(
                     SEED, counter, q, **kw))
+            if trajectory_dtype is not None:
+                f32 = {k: v for k, v in kw.items() if k != "trajectory_dtype"}
+                line["float32_ms"] = median_ms(
+                    lambda: kernels.fused_hmc_diag_quadratic(
+                        SEED, counter, q, **f32))
+                line["same_bits_as_plain"] = True
         print(json.dumps(line))
         return line
 
@@ -595,29 +672,35 @@ def main() -> None:
         return torch.randn(*shape, generator=gen2).to(dev)
 
     def check_d(case, form, w, d, steps, step, inv_mass, time_it=True, *,
-                q=None, p=None, library=None, bits=False):
+                q=None, p=None, library=None, bits=False, plain_timing=None,
+                check_steps=None):
         """Kernel D against its plain version on ``q``, ``p`` (random
         unless given); ``bits``: every output must be the plain version's
-        bits, and a second launch's."""
+        bits, and a second launch's; ``plain_timing``: median_ms's
+        arguments for the plain version (for the slow ones);
+        ``check_steps``: the comparison runs this many steps, the timing
+        ``steps``."""
         if q is None:
             q, p = randn2(w, d), randn2(w, d)
         kw = dict(step_size=torch.tensor([step], device=dev),
                   num_steps=steps, inv_mass=inv_mass)
-        out_k = kernels.leapfrog_trajectory(form, q, p, **kw)
-        out_p = kernels.leapfrog_trajectory_plain(form, q, p, **kw)
-        again = (kernels.leapfrog_trajectory(form, q, p, **kw) if bits
+        checked = kw if check_steps is None else {**kw,
+                                                  "num_steps": check_steps}
+        out_k = kernels.leapfrog_trajectory(form, q, p, **checked)
+        out_p = kernels.leapfrog_trajectory_plain(form, q, p, **checked)
+        again = (kernels.leapfrog_trajectory(form, q, p, **checked) if bits
                  else out_k)
         torch.cuda.synchronize()
         worst = 0.0
         for key, k, pl, k2 in zip(("q", "p", "u", "g"), out_k, out_p, again):
-            if not torch.allclose(k, pl, rtol=1e-5, atol=1e-5):
+            if not close_where_finite(k, pl):
                 fail(f"{case}: {key}' differs by up to "
                      f"{(k - pl).abs().max().item()}")
-            if bits and not (torch.equal(k, pl) and torch.equal(k, k2)):
+            if bits and not (torch.equal(k, pl) and same_bits(k, k2)):
                 fail(f"{case}: {key}' is not the plain version's bits, or "
                      f"a second launch's ({(k != pl).sum().item()} "
                      f"differ)")
-            worst = max(worst, (k - pl).abs().max().item())
+            worst = max(worst, finite_err(k, pl))
         # q, p in; q', p', g' and u' out
         line = {"case": case, "max_abs_err": worst,
                 **bound(4 * w * (5 * d + 1),
@@ -625,9 +708,12 @@ def main() -> None:
         if time_it:
             line["ms"] = median_ms(lambda: kernels.leapfrog_trajectory(
                 form, q, p, **kw))
+            if plain_timing is None:
+                plain_timing = {} if library is None else dict(reps=2,
+                                                               rounds=3)
             line["plain_ms"] = median_ms(
                 lambda: kernels.leapfrog_trajectory_plain(form, q, p, **kw),
-                **({} if library is None else dict(reps=2, rounds=3)))
+                **plain_timing)
             if library is not None:
                 line["library_ms"] = median_ms(lambda: library(q, steps))
         if bits:
@@ -1001,11 +1087,14 @@ def main() -> None:
         "8b", "eight schools non-centred", mp_es, 0.22)
 
     # 8c: a DSL model without a device form takes the composed route. The
-    # decentered funnel is v ~ N(0, 3), x_decentered ~ N(0, 1)^15.
+    # funnel decentred by a site dict (reparam={"x": True}, the rewrite
+    # "auto" makes, but no config the form registry knows) is v ~ N(0, 3),
+    # x_decentered ~ N(0, 1)^15.
     mp_fn = models.make_model_potential(models.funnel, (), {"dim": 15},
-                                        reparam="auto")
+                                        reparam={"x": True})
     if mp_fn.potential.device_form is not None or mp_fn.num_dims != 16:
-        fail("phase 8c: the reparameterised funnel has a device form")
+        fail("phase 8c: the funnel decentred by a site dict has a device "
+             "form")
     kernels.reset_launch_counts()
     reads = chees._host_count.reads
     res8c = run_chees_hmc(SEED + 10, mp_fn.potential, mp_fn.init(SEED, 8192),
@@ -1028,8 +1117,8 @@ def main() -> None:
              f"{kernels.launch_counts()}, {reads} host reads, mean "
              f"{mean_err} sd, var {var_err}")
     print(json.dumps({
-        "phase": "8c run_chees_hmc funnel model reparam=auto W=8192 D=16 "
-                 "(no device form: the composed route)",
+        "phase": "8c run_chees_hmc funnel model reparam={x: True} W=8192 "
+                 "D=16 (no device form: the composed route)",
         "kernel_used": res8c.kernel_used, "host_reads_of_the_count": reads,
         "max_mean_err_sd": mean_err, "max_rel_var_err": var_err,
         "accept_rate": res8c.accept_rate.item(),
@@ -1109,13 +1198,16 @@ def main() -> None:
 
     def check_b8(case, form, q, steps, step, time_it, *, counted=None,
                  proposal=False, plain_reps=20, library=None, mass=None,
-                 bits=False):
+                 bits=False, plain_timing=None, check_steps=None):
         """Kernel B against its plain version; ``counted``: the count goes
         as a device tensor with this max_steps (and the fixed-count
         kernel's first six outputs must be the same bits); ``mass``: the
         metric [D] (a random one unless given); ``bits``: q', u', g' of
         every walker whose decision agrees, and the proposal, must be the
-        plain version's bits."""
+        plain version's bits; ``plain_timing``: median_ms's arguments for
+        the plain version (``plain_reps`` replays of 3 rounds unless
+        given); ``check_steps``: the comparison runs this many steps, the
+        timing ``steps``."""
         w_, d_ = q.shape
         u, g = kernels.device_value_and_grad(form)(q)
         im = ((0.5 + 1.5 * torch.rand(d_, generator=gen8)).to(dev)
@@ -1128,25 +1220,27 @@ def main() -> None:
         else:
             kw.update(num_steps=steps)
         counter = 13
+        checked = kw if check_steps is None else {**kw,
+                                                  "num_steps": check_steps}
 
-        def run():
+        def run(**over):
             return kernels.fused_hmc_transition(form, SEED, counter, q, u, g,
-                                                **kw)
+                                                **{**kw, **over})
 
         def run_plain():
             return kernels.fused_hmc_transition_plain(form, SEED, counter, q,
-                                                      u, g, **kw)
+                                                      u, g, **checked)
 
-        out, again, plain = run(), run(), run_plain()
+        out, again, plain = run(**checked), run(**checked), run_plain()
         torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        if not all(same_bits(a, b) for a, b in zip(out, again)):
             fail(f"{case}: two launches on the same input differ")
         if counted is not None:
             fixed = kernels.fused_hmc_transition(
                 form, SEED, counter, q, u, g, **{
                     **kw, "num_steps": ran, "max_steps": None,
                     "emit_proposal": False})
-            if not all(torch.equal(a, b) for a, b in zip(out, fixed)):
+            if not all(same_bits(a, b) for a, b in zip(out, fixed)):
                 fail(f"{case}: the device count {steps} (max {counted}) "
                      f"does not give the fixed count {ran}'s bits")
         log_u = torch.log(philox.accept_uniforms(SEED, counter, w_, dev))
@@ -1162,10 +1256,10 @@ def main() -> None:
                          f"({(a != b).sum().item()} differ)")
         if proposal:
             for key, k, pl in zip(("q_prop", "p_prop"), out[6:], plain[6:]):
-                if not torch.allclose(k, pl, rtol=1e-5, atol=1e-5):
+                if not close_where_finite(k, pl):
                     fail(f"{case}: {key} differs by up to "
                          f"{(k - pl).abs().max().item()}")
-                err = max(err, (k - pl).abs().max().item())
+                err = max(err, finite_err(k, pl))
         line = {"case": case, "max_abs_err": err,
                 "accepted": out[4].float().mean().item(),
                 **({"same_bits_as_plain": True} if bits else {}),
@@ -1180,7 +1274,7 @@ def main() -> None:
             line["plain_ms"] = median_ms(
                 lambda: kernels.fused_hmc_transition_plain(
                     form, SEED, counter, q, u, g, **plain_kw),
-                reps=plain_reps, rounds=3)
+                **(plain_timing or dict(reps=plain_reps, rounds=3)))
             if library is not None:
                 line["library_ms"] = median_ms(lambda: library(q, ran))
         print(json.dumps(line))
@@ -2104,12 +2198,48 @@ def main() -> None:
         """What makes the host wait for the card: the synchronisations
         and the copies between host and card. A device-to-device
         cudaMemcpyAsync (NCCL's, a tensor's copy into the gather buffer)
-        does not, so copies are counted by the card's own records."""
+        does not, so copies are counted at the operators that make them
+        (``host_copies``): the profiler's records of the card's copies
+        gave the same run 0, 1 or 2 copies from pageable memory on an
+        H100 80GB HBM3 at 700 W. A copy made inside a
+        tensor factory (``torch.tensor(x, device=...)``) is no operator of
+        its own and is not counted."""
         out = {k: calls.get(k, 0) for k in (
             "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy")}
-        out["host_copies"] = sum(c for k, c in calls.items() if k.startswith(
-            ("Memcpy DtoH", "Memcpy HtoD")))
+        out["host_copies"] = calls["host_copies"]
         return out
+
+    class HostCopies(TorchDispatchMode):
+        """Counts the operators that move data between host and card: a
+        copy or a conversion from one to the other, and a scalar read from
+        the card."""
+
+        def __init__(self):
+            super().__init__()
+            self.count = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is aten._local_scalar_dense.default:
+                self.count += args[0].device.type == "cuda"
+            elif func in (aten._to_copy.default, aten.copy_.default):
+                src, dst = ((args[1], args[0]) if func is aten.copy_.default
+                            else (args[0], out))
+                self.count += {src.device.type, dst.device.type} == {
+                    "cpu", "cuda"}
+            return out
+
+    def profiled_with_copies(run):
+        """``profiled(run)``, and ``host_copies`` the copies between host
+        and card of a second run (``HostCopies``; not under the profiler,
+        which records an operator that a dispatch mode re-dispatches
+        twice)."""
+        calls = profiled(run)
+        mode = HostCopies()
+        with mode:
+            run()
+        torch.cuda.synchronize()
+        return {**calls, "host_copies": mode.count}
 
     q0 = torch.randn(w, d, generator=seeded(0), device=dev)
     # the step size fixed, no adaptation: run_hmc's final positions (and
@@ -2147,9 +2277,11 @@ def main() -> None:
     # are 4 warmup and 4 sampling transitions
     short = {}
     for n_w, n_s in ((4, 2), (8, 2), (4, 6)):
-        calls = profiled(lambda: par.sharded_run_hmc(
-            SEED, std32, q0, mesh=mesh, num_warmup=n_w, num_samples=n_s,
-            num_steps=steps, collect="moments"))
+        def run13():
+            return par.sharded_run_hmc(
+                SEED, std32, q0, mesh=mesh, num_warmup=n_w, num_samples=n_s,
+                num_steps=steps, collect="moments")
+        calls = profiled_with_copies(run13)
         short[n_w, n_s] = (census(calls), blocking(calls),
                            collectives(calls))
     per_warmup = (short[8, 2][0] - short[4, 2][0]) / 4
@@ -2167,7 +2299,7 @@ def main() -> None:
             torch.mean(info.accept_prob)
             torch.var_mean(state.ensemble.q, dim=0, correction=0)
 
-    blocking_two = blocking(profiled(two_transitions))
+    blocking_two = blocking(profiled_with_copies(two_transitions))
     if not (short[4, 2][0] > 0 and per_warmup <= 1 and per_sampling == 0
             and not any(blocking_two.values())
             and short[4, 2][1] == short[8, 2][1] == short[4, 6][1]):
@@ -2244,7 +2376,7 @@ def main() -> None:
         for _ in range(2):
             c = m13c["body"](c)
 
-    calls13c = profiled(two_stages)
+    calls13c = profiled_with_copies(two_stages)
     if not (n13c < 40 and res13c.betas[n13c] == 1.0 and z_err < 0.25
             and counts13c["fused_hmc_diag_quadratic"] == 3 * n13c
             and sum(counts13c.values()) == 3 * n13c and reads == n13c + 1
@@ -2389,6 +2521,349 @@ def main() -> None:
         "card": card}))
     dist.destroy_process_group()
 
+    # ---- 14. this slice: kernel A's bf16 trajectory, every example model ---
+    # 14a: kernel A with trajectory_dtype=bfloat16, the TPU kernel's option
+    # (pallas_kernels.py:900). Held against its plain version at the bench
+    # shape and at a D off the 16-byte path: kernel and plain version round
+    # the same operations of the chain once each and draw the same momenta,
+    # so q' and g' of every walker whose decision agrees must be the plain
+    # version's bits; the energies and the acceptance are held to
+    # compare()'s tolerance (float32 sums in another order). Timed beside
+    # the float32 launch on the same input. Then the driven path: the TPU
+    # kernel's statistics test (tests/test_pallas.py, TPU-only there), 100
+    # transitions at W=16384, D=32, L=16, step 0.6 from a standard normal
+    # start, with its gates: mean |dE| < 2 and acceptance in (0.3, 1] over
+    # the last 50, the mean 0 +- 0.02, the variance 1 +- 3%.
+    gen14 = torch.Generator(device="cpu").manual_seed(SEED + 14)
+
+    def randn14(*shape):
+        return torch.randn(*shape, generator=gen14).to(dev)
+
+    a_bf16 = check_a("A bf16 trajectory std_normal W=102400 D=32 L=16",
+                     102400, 32, 16, 0.3, False, True,
+                     trajectory_dtype=torch.bfloat16, q=randn14(102400, 32))
+    a_bf16_errs = [a_bf16["max_abs_err"], check_a(
+        "A bf16 trajectory random metric W=1000 D=33 L=16 (scalar path)",
+        1000, 33, 16, 0.2, True, False, trajectory_dtype=torch.bfloat16,
+        q=randn14(1000, 33))["max_abs_err"]]
+    w14a, d14a, n14a = 16384, 32, 100
+    one14 = torch.ones(d14a, device=dev)
+    kw14a = dict(scalars=scalars(0.6), p_std=one14, inv_mass=one14,
+                 k_diag=one14, mean=0.0 * one14, num_steps=16,
+                 trajectory_dtype=torch.bfloat16)
+    q14 = torch.randn(w14a, d14a, generator=seeded(14), device=dev)
+    accs14, errs14 = [], []
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(n14a):
+        q14, _, _, acc14, _, derr14 = kernels.fused_hmc_diag_quadratic(
+            SEED + 14, t, q14, **kw14a)
+        accs14.append(acc14.mean())
+        errs14.append(derr14.abs().mean())
+    torch.cuda.synchronize()
+    sec14a = time.perf_counter() - t0
+    counts14a = kernels.launch_counts()
+    launched_a_bf16 = kernels.fused_hmc_diag_quadratic.launches_by[
+        "bfloat16"]
+    mean_de = torch.stack(errs14[50:]).mean().item()
+    accept14a = torch.stack(accs14[50:]).mean().item()
+    mean14a, var14a = q14.mean().item(), q14.var().item()
+    var_dims14a = q14.var(0).mean().item()
+    if not (launched_a_bf16 == n14a and sum(counts14a.values()) == n14a
+            and mean_de < 2.0 and 0.3 < accept14a <= 1.0
+            and abs(mean14a) < 0.02 and abs(var14a - 1.0) < 0.03
+            and abs(var_dims14a - 1.0) < 0.03):
+        fail(f"phase 14a off: {launched_a_bf16} bf16 launches ({counts14a}),"
+             f" mean |dE| {mean_de} (< 2), accept {accept14a} ((0.3, 1]), "
+             f"mean {mean14a} (0 +- 0.02), var {var14a} and per dim "
+             f"{var_dims14a} (1 +- 3%)")
+    print(json.dumps({
+        "phase": f"14a kernel A trajectory_dtype=bfloat16 W={w14a} "
+                 f"D={d14a} L=16 step 0.6, {n14a} transitions",
+        "launches": launched_a_bf16, "mean_abs_energy_error": mean_de,
+        "accept_rate": accept14a, "mean": mean14a, "var": var14a,
+        "mean_var_per_dim": var_dims14a,
+        "ms_per_transition": 1e3 * sec14a / n14a,
+        "kernel_ms_bf16": a_bf16["ms"],
+        "kernel_ms_float32_same_input": a_bf16["float32_ms"],
+        "bound_ms": a_bf16["bound_ms"], "card": card}))
+
+    # 14c: ChEES through the command-line driver's entry (main.run), on
+    # every example model that phase 8 did not run, at the bench width:
+    # both phases must run in kernel B (456 launches: 200 with the
+    # proposal, 256 without). Moments against closed forms where they
+    # exist (the coins' logit-Beta posteriors: mean digamma(a) -
+    # digamma(b), variance trigamma(a) + trigamma(b); the decentred funnel:
+    # v ~ N(0, 9), x_decentered ~ N(0, 1)) within six standard errors of a
+    # 102400-walker mean as phase 7 (0.02 sd, 0.03); elsewhere against a
+    # composed run within phase 8's four standard errors of its 8192
+    # walkers (0.044 sd, 0.0625): linear regression against its own, the
+    # centred eight schools under reparam="auto" against phase 8b's (the
+    # non-centred model: the same potential of the same q). The centred
+    # eight schools and the centred funnel are pathological for HMC: their
+    # gates are finite moments, at most 30% divergent transitions (a
+    # composed run at W=1024 on the CPU diverged in 13% and 2%; a faulty
+    # form makes most transitions divergent or NaN) and the kernel-plain
+    # checks of 14b; their moments are printed.
+    x_lin, y_lin = models.linear_regression_data(256, 30)
+    coin_raw = json.loads((ROOT / "examples" / "coin_toss.data.json")
+                          .read_text())
+    coin_np = {k: np.asarray(coin_raw[k], np.float32) for k in ("c1", "c2")}
+    es_data = ROOT / "examples" / "eight_schools.data.json"
+    mp_lin = models.make_model_potential(models.linear_regression,
+                                         (x_lin, y_lin), {})
+    cases14 = {
+        # label: (model, data, reparam, init step, potential, reference)
+        "linear_regression": ("linear_regression", "linear", "", 0.02,
+                              mp_lin, "composed"),
+        "eight_schools": ("eight_schools", es_data, "", 0.1,
+                          models.make_model_potential(
+                              models.eight_schools, (),
+                              models.EIGHT_SCHOOLS_DATA),
+                          "pathological"),
+        "eight_schools reparam=auto": (
+            "eight_schools", es_data, "auto", 0.22,
+            models.make_model_potential(models.eight_schools, (),
+                                        models.EIGHT_SCHOOLS_DATA,
+                                        reparam="auto"), ref8b),
+        "coin_toss": ("coin_toss", ROOT / "examples" / "coin_toss.data.json",
+                      "", 0.5, models.make_model_potential(
+                          models.coin_toss, (), coin_np), "closed"),
+        "funnel": ("funnel", None, "", 0.1,
+                   models.make_model_potential(models.funnel, (), {}),
+                   "pathological"),
+        "funnel reparam=auto": ("funnel", None, "auto", 0.5,
+                                models.make_model_potential(
+                                    models.funnel, (), {}, reparam="auto"),
+                                "closed"),
+    }
+
+    def closed_form(label, nd):
+        if label == "coin_toss":
+            a = torch.tensor([coin_np[k].sum() + 1.0 for k in ("c1", "c2")],
+                             dtype=torch.float64, device=dev)
+            b = torch.tensor([(1.0 - coin_np[k]).sum() + 1.0
+                              for k in ("c1", "c2")], dtype=torch.float64,
+                             device=dev)
+            return (torch.special.digamma(a) - torch.special.digamma(b),
+                    torch.special.polygamma(1, a)
+                    + torch.special.polygamma(1, b))
+        var = torch.ones(nd, dtype=torch.float64, device=dev)
+        var[0] = 9.0
+        return torch.zeros(nd, dtype=torch.float64, device=dev), var
+
+    summaries14, launched14 = {}, {}
+    with tempfile.TemporaryDirectory(prefix="pbbi_models_") as tmp14:
+        lin_json = Path(tmp14) / "linear.json"
+        lin_json.write_text(json.dumps({"x": x_lin.tolist(),
+                                        "y": y_lin.tolist()}))
+        for label, (name, data, rep, init_step, mp14, ref) in \
+                cases14.items():
+            cfg = RunConfig(
+                model=f"example:{name}", sampler="chees", num_walkers=w,
+                num_warmup=n_warm8, num_samples=n_samp8,
+                init_step_size=init_step, collect="moments", reparam=rep,
+                seed=SEED + 14,
+                data_path=(str(lin_json) if data == "linear"
+                           else None if data is None else str(data)))
+            kernels.reset_launch_counts()
+            s14, _ = cli_run(cfg)
+            counts = kernels.launch_counts()
+            by = dict(kernels.fused_hmc_transition.launches_by)
+            launched14[label] = counts["fused_hmc_transition"]
+            mean = torch.tensor(s14["posterior_mean"], device=dev,
+                                dtype=torch.float64)
+            var = torch.tensor(s14["posterior_var"], device=dev,
+                               dtype=torch.float64)
+            gates = {}
+            if ref == "composed":
+                ref = run_chees_hmc(
+                    SEED + 15, mp14.potential, mp14.init(SEED, 8192),
+                    num_warmup=n_warm8, num_samples=n_samp8,
+                    init_step_size=init_step, collect="moments",
+                    kernel="composed")
+                if ref.kernel_used != "composed":
+                    fail(f"phase 14c {label}: the reference ran "
+                         f"{ref.kernel_used}")
+            if ref == "closed":
+                want_mean, want_var = closed_form(label, mean.shape[0])
+                limits = (0.02, 0.03)
+            elif ref != "pathological":
+                want_mean, want_var = ref.mean.double(), ref.var.double()
+                limits = (0.044, 0.0625)
+            else:
+                want_mean = None
+            accept, div = s14["accept_rate"], s14["divergence_rate"]
+            ok = ((s14["kernel_used"], s14["warmup_kernel_used"])
+                  == ("fused", "fused")
+                  and launched14[label] == n_warm8 + n_samp8
+                  and by["counted"] == n_samp8
+                  and by["counted+proposal"] == n_warm8
+                  and sum(counts.values()) == launched14[label]
+                  and bool(torch.isfinite(mean).all())
+                  and bool(torch.isfinite(var).all()))
+            if want_mean is not None:
+                gates["max_mean_err_sd"] = (
+                    (mean - want_mean) / want_var.sqrt()).abs().max().item()
+                gates["max_rel_var_err"] = (
+                    var / want_var - 1.0).abs().max().item()
+                ok = ok and (gates["max_mean_err_sd"] < limits[0]
+                             and gates["max_rel_var_err"] < limits[1]
+                             and 0.6 <= accept <= 0.99 and div <= 0.01)
+            else:
+                ok = ok and div <= 0.3 and 0.5 <= accept <= 0.99
+            if not ok:
+                fail(f"phase 14c {label} off: {s14['warmup_kernel_used']}/"
+                     f"{s14['kernel_used']}, launches {counts} ({by}), "
+                     f"accept {accept}, divergence rate {div}, {gates}, "
+                     f"mean {s14['posterior_mean']}")
+            summaries14[label] = s14
+            print(json.dumps({
+                "phase": f"14c CLI chees example:{name}"
+                         + (f" reparam={rep}" if rep else "")
+                         + f" W={w} warmup={n_warm8} samples={n_samp8}",
+                "form": mp14.potential.device_form[0],
+                "kernel_used": s14["kernel_used"],
+                "warmup_kernel_used": s14["warmup_kernel_used"],
+                "launches": launched14[label], "launches_by": by,
+                "against": ("closed form" if isinstance(ref, str)
+                            and ref == "closed" else "none (pathological)"
+                            if isinstance(ref, str) else "composed W=8192"),
+                **gates, "accept_rate": accept, "divergence_rate": div,
+                "step_size": s14["step_size"],
+                "trajectory_time": s14["trajectory_time"],
+                "mean_num_steps": s14["mean_num_steps"],
+                "run_ms_per_transition": 1e3 * s14["wall_seconds"]
+                / (n_warm8 + n_samp8),
+                "posterior_mean": s14["posterior_mean"],
+                "posterior_var": s14["posterior_var"],
+                "wall_seconds_of_run": s14["wall_seconds"]}))
+
+    # 14d: kernel D on each new form as a user reaches it,
+    # run_hmc(integrator="pallas_leapfrog"), from states near the posterior
+    # under their variance as the metric and half the 14c run's step: one
+    # launch a transition, finite moments. The states: the non-centred
+    # eight schools (the form of the centred model under "auto") phase
+    # 8b's posterior state; the two centred models the last state of a
+    # ChEES run of their own (200 + 64 transitions), since their chains
+    # keep out of the neck that independent draws (and the exact
+    # posterior) reach, where energies far above the chain's round past
+    # compare()'s tolerance and two steps can overflow; the others draws
+    # from their 14c moments, each clipped to 2 sd.
+    q8b = res8b.state.ensemble.q
+
+    def near_posterior(label, nd):
+        s14 = summaries14[label]
+        mean = torch.tensor(s14["posterior_mean"], device=dev)
+        sd = torch.tensor(s14["posterior_var"], device=dev).sqrt()
+        z = randn14(w, nd).clamp(-2.0, 2.0)
+        if label == "eight_schools reparam=auto":
+            q = q8b.clone()
+        elif label in ("eight_schools", "funnel"):  # the chain's own states
+            mp_ = cases14[label][4]
+            q = run_chees_hmc(SEED + 17, mp_.potential, mp_.init(SEED, w),
+                              num_warmup=n_warm8, num_samples=64,
+                              init_step_size=cases14[label][3],
+                              collect="none").state.ensemble.q
+        else:
+            q = mean + sd * z
+        return q.contiguous(), q.var(0)
+
+    new_forms14 = ("linear_regression", "eight_schools", "coin_toss",
+                   "funnel", "funnel reparam=auto")
+    states14, launched14d = {}, {}
+    for label in new_forms14:
+        mp14 = cases14[label][4]
+        q14, var14 = near_posterior(label, mp14.num_dims)
+        step14 = 0.5 * summaries14[label]["step_size"]
+        states14[label] = (q14, var14, step14)
+        kernels.reset_launch_counts()
+        res14 = run_hmc(SEED + 16, mp14.potential, q14, num_warmup=20,
+                        num_samples=20, num_steps=steps,
+                        init_step_size=step14, collect="moments",
+                        integrator="pallas_leapfrog")
+        counts = kernels.launch_counts()
+        launched14d[label] = counts["leapfrog_trajectory"]
+        if not (res14.kernel_used == "composed"
+                and launched14d[label] == 40
+                and sum(counts.values()) == 40
+                and bool(torch.isfinite(res14.mean).all())):
+            fail(f"phase 14d {label} off: {res14.kernel_used}, launches "
+                 f"{counts}, mean {res14.mean}")
+        print(json.dumps({
+            "phase": f"14d run_hmc integrator=pallas_leapfrog {label} "
+                     f"W={w} L={steps} 20 + 20 from 14c's posterior",
+            "form": mp14.potential.device_form[0],
+            "launches": launched14d[label],
+            "accept_rate": res14.accept_rate.item(),
+            "ms_per_transition": 1e3 * res14.sampling_seconds / 20}))
+
+    # 14b: each new form in kernels B and D against its plain version at
+    # the bench width, on the states of 14d under their metric (the mass
+    # the inverse of the posterior variance) and half 14c's step, timed
+    # with CUDA graphs at L=16; B also with the count on the device and the
+    # proposal at W=8192 (n=40 clipped to 16). The linear form's outputs
+    # must be the plain version's bits, as the logistic form's. The two
+    # centred models are compared over 2 steps (n=5 clipped to 2), timed
+    # at 16: in their necks a float32 trajectory amplifies a last-bit
+    # difference between kernel and plain version past compare()'s
+    # tolerance within 16 steps (the centred eight schools' energy error
+    # by 7.3e-4 on an H100 80GB HBM3), which says nothing of the form's
+    # arithmetic.
+    x_lin_dev, y_lin_dev, c_lin = mp_lin.potential.device_form[1]
+
+    def linear_library(q, steps_):
+        """What one PyTorch call per product makes of the linear form's
+        gradients over a transition: two torch.matmul and the elementwise
+        residual terms for each of its steps + 1 gradients."""
+        for _ in range(steps_ + 1):
+            s_ = q[:, -1:]
+            resid = q[:, :-2] @ x_lin_dev.T + q[:, -2:-1] - y_lin_dev
+            e = resid * torch.exp(-2.0 * s_)
+            grad = torch.cat([q[:, :-2] * c_lin[0] + e @ x_lin_dev,
+                              q[:, -2:-1] * c_lin[0] + e.sum(1, keepdim=True),
+                              torch.exp(2.0 * s_) - 1.0 + y_lin_dev.shape[0]
+                              - torch.exp(-2.0 * s_)
+                              * (resid * resid).sum(1, keepdim=True)], 1)
+        return grad
+
+    b14, d14, errs14b = {}, {}, {}
+    slow = dict(reps=1, rounds=1, warm=1)  # the linear form's 3 s plain
+    for label in new_forms14 + ("eight_schools reparam=auto",):
+        mp14 = cases14[label][4]
+        form14 = mp14.potential.device_form
+        nd = mp14.num_dims
+        if label in states14:
+            q14, var14, step14 = states14[label]
+        else:
+            q14, var14 = near_posterior(label, nd)
+            step14 = 0.5 * summaries14[label]["step_size"]
+        lin = form14[0] == "linear"
+        short = label in ("eight_schools", "funnel")
+        tag = f"(tile {kernels.logistic_tile(w, 256, nd)})" if lin else ""
+        tag += " (compared over 2 steps)" if short else ""
+        b14[label] = check_b8(
+            f"B {form14[0]} ({label}) W={w} D={nd} L=16 {tag}".strip(),
+            form14, q14, 16, step14, True, mass=1.0 / var14, bits=lin,
+            library=linear_library if lin else None,
+            check_steps=2 if short else None,
+            **(dict(plain_timing=slow) if lin else dict(plain_reps=2)))
+        n_max = (5, 2) if short else (40, 16)
+        errs14b[label] = [b14[label]["max_abs_err"], check_b8(
+            f"B {form14[0]} ({label}) counted+proposal W=8192 D={nd} "
+            f"n={n_max[0]} max={n_max[1]}", form14, q14[:8192].contiguous(),
+            n_max[0], step14, False, counted=n_max[1], proposal=True,
+            mass=1.0 / var14, bits=lin)["max_abs_err"]]
+        if label in new_forms14:
+            d14[label] = check_d(
+                f"D {form14[0]} ({label}) W={w} D={nd} L=16 {tag}".strip(),
+                form14, w, nd, 16, step14, var14.contiguous(),
+                q=q14, p=randn14(w, nd) / var14.sqrt(),
+                library=linear_library if lin else None, bits=lin,
+                check_steps=2 if short else None,
+                plain_timing=slow if lin else dict(reps=2, rounds=3))
+
     def entry(name, source, replaces, launches, errs, main):
         return {"name": name, "case": main["case"], "route": "cuda",
                 "source": source,
@@ -2460,6 +2935,19 @@ def main() -> None:
               [b_off["max_abs_err"]], b_off),
         entry("nbody_accelerations_tiled", f"{CSRC}/nbody.cu", 252,
               launched_13e, [e_src["max_abs_err"]], e_src),
+        # this slice: kernel A's bf16 trajectory (14a's chain), each example
+        # model's form in kernel B (14c's ChEES runs; the linear form is a
+        # data-matmul potential, the TPU's kernel C route) and in kernel D
+        # (14d)
+        entry("fused_hmc_diag_quadratic", SOURCE, 900, launched_a_bf16,
+              a_bf16_errs, a_bf16),
+        *[entry("fused_hmc_transition", f"{CSRC}/forms.cuh",
+                576 if label == "linear_regression" else 373,
+                launched14[label], errs14b[label], b14[label])
+          for label in b14],
+        *[entry("leapfrog_trajectory", f"{CSRC}/forms.cuh", 140,
+                launched14d[label], [d14[label]["max_abs_err"]], d14[label])
+          for label in d14],
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -18,12 +18,12 @@
 // of 4 T + kBufPad floats; the rows of a lane group's R walkers lie
 // row_step floats apart.
 //
-// The Gaussian and the logistic regression are the forms with arithmetic
-// enough to bound a kernel (a D x D matvec, or two N x D products, per
-// leapfrog step against 4 D floats moved), and the ones that take R > 1
-// (kTiled): a thread keeps the [R][4] tile of the gradient in registers
-// and reads each operand from shared memory once for its R walkers
-// (GaussianForm::grad, LogisticForm::grad). A tiled form may keep scratch
+// The Gaussian and the logistic and linear regressions are the forms with
+// arithmetic enough to bound a kernel (a D x D matvec, or two N x D
+// products, per leapfrog step against 4 D floats moved), and the ones that
+// take R > 1 (kTiled): a thread keeps the [R][4] tile of the gradient in
+// registers and reads each operand from shared memory once for its R
+// walkers (GaussianForm::grad, LogisticForm::grad). A tiled form may keep scratch
 // for each lane group after the walkers' buffer rows (scratch_floats), and
 // may evaluate the R values together (kTiledValue). The other forms take
 // one walker a lane group, as written for it.
@@ -125,21 +125,27 @@ __device__ __forceinline__ void share_walker(const float qv[4], int lane,
   __syncwarp();
 }
 
-// U = 0.5 sum_d k_d (q_d - mu_d)^2 (kernel A's targets); gradient
-// k_d (q_d - mu_d), separable, so no walker buffer.
+// U = 0.5 sum_d k_d (q_d - mu_d)^2 + c (kernel A's targets, with c = 0;
+// c is a model's normalising constant, the funnel model's under
+// reparam="auto"); gradient k_d (q_d - mu_d), separable, so no walker
+// buffer.
 struct DiagQuadraticForm {
-  const float* k;     // [D]
-  const float* mean;  // [D]
+  const float* k;                 // [D]
+  const float* mean;              // [D]
+  const float* consts = nullptr;  // [1]: c, or null for 0
   static constexpr bool kTiled = false;
   static constexpr int kBufPad = 1;
 
-  __host__ __device__ int shared_floats(int d, int) const { return 2 * d; }
+  __host__ __device__ int shared_floats(int d, int) const {
+    return 2 * d + 1;
+  }
 
   __device__ void stage(float* sh, int d, int) const {
     for (int i = threadIdx.x; i < d; i += blockDim.x) {
       sh[i] = k[i];
       sh[d + i] = mean[i];
     }
+    if (threadIdx.x == 0) sh[2 * d] = consts != nullptr ? consts[0] : 0.0f;
   }
 
   __device__ void grad(const float qv[4], float gv[4], int lane, int,
@@ -162,7 +168,7 @@ struct DiagQuadraticForm {
         const float qc = qv[e] - sh[d + base + e];
         part += sh[base + e] * qc * qc;
       }
-    return 0.5f * segment_sum(part, tpw);
+    return 0.5f * segment_sum(part, tpw) + sh[2 * d];
   }
 };
 
@@ -293,18 +299,21 @@ struct GaussianForm {
   }
 };
 
-// Neal's funnel, q = (v, x): U = v^2 / (2 s^2) + (D-1)/2 v + e^-v |x|^2 / 2.
-// params = (2 s^2, (D-1)/2).
+// Neal's funnel, q = (v, x): U = v^2 / (2 s^2) + (D-1)/2 v + e^-v |x|^2 / 2
+// + c. params = (2 s^2, (D-1)/2); c = 0 for the analytic target, the
+// normalising constant for the funnel model of the DSL.
 struct FunnelForm {
-  const float* params;  // [2]
+  const float* params;            // [2]
+  const float* consts = nullptr;  // [1]: c, or null for 0
 
   static constexpr bool kTiled = false;
   static constexpr int kBufPad = 1;
 
-  __host__ __device__ int shared_floats(int, int) const { return 2; }
+  __host__ __device__ int shared_floats(int, int) const { return 3; }
 
   __device__ void stage(float* sh, int, int) const {
     if (threadIdx.x < 2) sh[threadIdx.x] = params[threadIdx.x];
+    if (threadIdx.x == 2) sh[2] = consts != nullptr ? consts[0] : 0.0f;
   }
 
   // v and sum_{i >= 1} x_i^2 of the walker, on every lane
@@ -333,7 +342,7 @@ struct FunnelForm {
                          int d, const float* sh, float* buf) const {
     float v, sx;
     reduce(qv, lane, d, buf, &v, &sx);
-    return v * v / sh[0] + sh[1] * v + 0.5f * expf(-v) * sx;
+    return v * v / sh[0] + sh[1] * v + 0.5f * expf(-v) * sx + sh[2];
   }
 };
 
@@ -591,16 +600,21 @@ struct LogisticForm {
     return kBlock / tpw * tile_floats(tpw, tile);
   }
 
-  __device__ void stage(float* sh, int d, int tpw) const {
+  // x's `cols` columns, then a column of ones, zeros after; then y
+  __device__ void stage_rows(float* sh, int cols, int tpw) const {
     const int st = stride(tpw), nr = rows(tpw);
     for (int i = threadIdx.x; i < nr * st; i += blockDim.x) {
       const int r = i / st, c = i - r * st;
       float v = 0.0f;
-      if (r < n) v = c < d - 1 ? x[r * (d - 1) + c] : (c == d - 1 ? 1.0f : 0.0f);
+      if (r < n) v = c < cols ? x[r * cols + c] : (c == cols ? 1.0f : 0.0f);
       sh[i] = v;
     }
     for (int i = threadIdx.x; i < nr; i += blockDim.x)
       sh[nr * st + i] = i < n ? y[i] : 0.0f;
+  }
+
+  __device__ void stage(float* sh, int d, int tpw) const {
+    stage_rows(sh, d - 1, tpw);
   }
 
   // the R walkers' q into their buffer rows (zeros past D)
@@ -683,6 +697,28 @@ struct LogisticForm {
     }
   }
 
+  // the gradient pass over a chunk of rows from row c: gv[r] += x_j
+  // res[j][r] for the chunk's rows j in index order, one fmaf each
+  template <int R>
+  __device__ __forceinline__ static void accumulate_rows(
+      const float* sh, const float* res, int c, int st, int ch, int lane,
+      float (*gv)[4]) {
+    const float4* xc = reinterpret_cast<const float4*>(sh + c * st) + lane;
+#pragma unroll 4
+    for (int j = 0; j < ch; ++j) {
+      const float4 xv = xc[j * (st / 4)];
+      float rv[R];
+      load_tile<R>(res + j * R, rv);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        gv[r][0] = fmaf(rv[r], xv.x, gv[r][0]);
+        gv[r][1] = fmaf(rv[r], xv.y, gv[r][1]);
+        gv[r][2] = fmaf(rv[r], xv.z, gv[r][2]);
+        gv[r][3] = fmaf(rv[r], xv.w, gv[r][3]);
+      }
+    }
+  }
+
   template <int R>
   __device__ __forceinline__ void grad(const float (*qv)[4], float (*gv)[4],
                                        int lane, int tpw, int d,
@@ -714,20 +750,7 @@ struct LogisticForm {
         store_tile<R>(res + (m * tpw + lane) * R, rv);
       }
       __syncwarp();
-      const float4* xc = reinterpret_cast<const float4*>(sh + c * st) + lane;
-#pragma unroll 4
-      for (int j = 0; j < ch; ++j) {
-        const float4 xv = xc[j * (st / 4)];
-        float rv[R];
-        load_tile<R>(res + j * R, rv);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          gv[r][0] = fmaf(rv[r], xv.x, gv[r][0]);
-          gv[r][1] = fmaf(rv[r], xv.y, gv[r][1]);
-          gv[r][2] = fmaf(rv[r], xv.z, gv[r][2]);
-          gv[r][3] = fmaf(rv[r], xv.w, gv[r][3]);
-        }
-      }
+      accumulate_rows<R>(sh, res, c, st, ch, lane, gv);
       __syncwarp();  // the tile is rewritten by the next chunk
     }
 #pragma unroll
@@ -771,6 +794,138 @@ struct LogisticForm {
       for (int e = 0; e < 4; ++e) quad += qv[r][e] * qv[r][e];
       u[r] = (0.5f * segment_sum(quad, tpw) + segment_sum(lik[r], tpw)) +
              0.918938533204672742f * (float)d;
+    }
+  }
+};
+
+// Bayesian linear regression, q = (w [P], b, s), D = P + 2, s the log of
+// the noise scale sigma, over N rows of data (x [N, P], y [N]): the
+// potential of models/examples.py linear_regression (w, b ~ N(0, prior^2),
+// sigma ~ HalfNormal(1) with the Jacobian of sigma = e^s, y ~ N(x w + b,
+// sigma)) in unconstrained coordinates,
+//   U = (|w|^2 + b^2) / (2 prior^2) + sigma^2 / 2 - s + N s
+//       + sum_n r_n^2 / (2 sigma^2) + c,   r = x w + b - y,
+// c its normalising constants (summed on the host in float64). consts =
+// (1 / prior^2, c).
+//
+// It is the logistic form's register tile with an identity link: x is
+// staged with a column of ones (b's) and one of zeros (s's, so that z = x
+// w + b takes all D dims in the same pass), the z pass and the x^T r pass
+// are LogisticForm's, and the residual tile holds r_n e^-2s. The sums of
+// r_n^2 (the value's, and the gradient's in s, sigma^2 - 1 + N - e^-2s
+// sum_n r_n^2) run as the value's likelihood terms do: lane l its rows l,
+// l + T, ... in turn, then a butterfly.
+struct LinearForm : LogisticForm {
+  const float* consts;  // [2]
+
+  __device__ void stage(float* sh, int d, int tpw) const {
+    stage_rows(sh, d - 2, tpw);
+  }
+
+  // s of each of the R walkers, from their buffer rows
+  template <int R>
+  __device__ __forceinline__ static void log_scales(const float* buf,
+                                                    int row_step, int d,
+                                                    float s[R]) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[r] = buf[r * row_step + d - 1];
+  }
+
+  template <int R>
+  __device__ __forceinline__ void grad(const float (*qv)[4], float (*gv)[4],
+                                       int lane, int tpw, int d,
+                                       const float* sh, float* buf,
+                                       int row_step) const {
+    share<R>(qv, lane, buf, row_step);
+    const int st = stride(tpw), nr = rows(tpw), ch = chunk(tpw);
+    const float* ys = sh + nr * st;
+    float* res = residuals<R>(sh, d, tpw, row_step);
+    float s[R], iv[R], ss[R];
+    log_scales<R>(buf, row_step, d, s);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      iv[r] = expf(-2.0f * s[r]);
+      ss[r] = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gv[r][e] = 0.0f;
+    }
+    for (int c = 0; c < nr; c += ch) {
+      float z[kLogisticRows][R];
+      logits<R>(sh, buf, row_step, c + lane, st, tpw, d, z);
+#pragma unroll
+      for (int m = 0; m < kLogisticRows; ++m) {
+        const int row = c + m * tpw + lane;
+        float rv[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          rv[r] = 0.0f;
+          if (row < n) {
+            const float rr = z[m][r] - ys[row];
+            ss[r] += rr * rr;
+            rv[r] = rr * iv[r];
+          }
+        }
+        store_tile<R>(res + (m * tpw + lane) * R, rv);
+      }
+      __syncwarp();
+      accumulate_rows<R>(sh, res, c, st, ch, lane, gv);
+      __syncwarp();  // the tile is rewritten by the next chunk
+    }
+    const float ip = consts[0], nf = (float)n;
+    const int base = 4 * lane;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float s2 = segment_sum(ss[r], tpw);
+      const float gs = ((expf(2.0f * s[r]) - 1.0f) + nf) - iv[r] * s2;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        gv[r][e] = base + e == d - 1 ? gs : qv[r][e] * ip + gv[r][e];
+    }
+  }
+
+  template <int R>
+  __device__ __forceinline__ void values(const float (*qv)[4], int lane,
+                                         int tpw, int d, const float* sh,
+                                         float* buf, int row_step,
+                                         float u[R]) const {
+    share<R>(qv, lane, buf, row_step);
+    const int st = stride(tpw), nr = rows(tpw), ch = chunk(tpw);
+    const float* ys = sh + nr * st;
+    float s[R], lik[R];
+    log_scales<R>(buf, row_step, d, s);
+#pragma unroll
+    for (int r = 0; r < R; ++r) lik[r] = 0.0f;
+    for (int c = 0; c < nr; c += ch) {
+      float z[kLogisticRows][R];
+      logits<R>(sh, buf, row_step, c + lane, st, tpw, d, z);
+#pragma unroll
+      for (int m = 0; m < kLogisticRows; ++m) {
+        const int row = c + m * tpw + lane;
+        if (row < n) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float rr = z[m][r] - ys[row];
+            lik[r] += rr * rr;
+          }
+        }
+      }
+    }
+    __syncwarp();
+    const float ip = consts[0], cst = consts[1], nf = (float)n;
+    const int base = 4 * lane;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float quad = 0.0f;  // |w|^2 + b^2: s left out
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v = base + e < d - 1 ? qv[r][e] : 0.0f;
+        quad += v * v;
+      }
+      const float iv = expf(-2.0f * s[r]), sig2 = expf(2.0f * s[r]);
+      u[r] = (((((0.5f * ip) * segment_sum(quad, tpw) + 0.5f * sig2) - s[r]) +
+               nf * s[r]) +
+              (0.5f * iv) * segment_sum(lik[r], tpw)) +
+             cst;
     }
   }
 };
@@ -855,6 +1010,141 @@ struct EightSchoolsForm {
   }
 };
 
+// Centred eight schools over J groups, q = (mu, log tau, theta [J]), D = J
+// + 2, data y [J], sigma [J]: the potential of models/examples.py
+// eight_schools in unconstrained coordinates,
+//   U = mu^2 / 50 + log1p((tau / 5)^2) - log tau + J log tau
+//       + sum_j ((theta_j - mu) / tau)^2 / 2 + sum_j ((y_j - theta_j) /
+//       sigma_j)^2 / 2 + c,  tau = e^q1,
+// from mu ~ N(0, 5), tau ~ HalfCauchy(5) with the Jacobian of tau = e^q1,
+// theta_j ~ N(mu, tau) and y_j ~ N(theta_j, sigma_j); c (consts[0]) the
+// normalising constants, which are the non-centred model's. Every lane of
+// the walker runs the J terms in index order.
+struct EightSchoolsCentredForm {
+  const float* y;       // [J]
+  const float* sigma;   // [J]
+  const float* consts;  // [1]
+  int j;
+
+  static constexpr bool kTiled = false;
+  static constexpr int kBufPad = 1;
+
+  __host__ __device__ int shared_floats(int, int) const { return 2 * j + 1; }
+
+  __device__ void stage(float* sh, int, int) const {
+    for (int i = threadIdx.x; i < j; i += blockDim.x) {
+      sh[i] = y[i];
+      sh[j + i] = sigma[i];
+    }
+    if (threadIdx.x == 0) sh[2 * j] = consts[0];
+  }
+
+  __device__ void grad(const float qv[4], float gv[4], int lane, int, int d,
+                       const float* sh, float* buf) const {
+    share_walker(qv, lane, d, buf);
+    const float mu = buf[0], tau = expf(buf[1]);
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int i = 0; i < j; ++i) {
+      const float z = (buf[2 + i] - mu) / tau;
+      s1 += z;
+      s2 += z * z;
+    }
+    const int base = 4 * lane;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int dim = base + e;
+      float v = 0.0f;
+      if (dim == 0) {
+        v = mu / 25.0f - s1 / tau;
+      } else if (dim == 1) {
+        const float t = tau / 5.0f;
+        v = (((2.0f * (t * t)) / (1.0f + t * t) - 1.0f) + (float)j) - s2;
+      } else if (dim < d) {
+        const int i = dim - 2;
+        const float z = (qv[e] - mu) / tau;
+        const float o = (sh[i] - qv[e]) / sh[j + i];
+        v = z / tau - o / sh[j + i];
+      }
+      gv[e] = v;
+    }
+    __syncwarp();
+  }
+
+  __device__ float value(const float qv[4], const float[4], int lane, int,
+                         int d, const float* sh, float* buf) const {
+    share_walker(qv, lane, d, buf);
+    const float mu = buf[0], lt = buf[1], tau = expf(buf[1]);
+    float s2 = 0.0f, sz = 0.0f;
+    for (int i = 0; i < j; ++i) {
+      const float z = (buf[2 + i] - mu) / tau;
+      const float o = (sh[i] - buf[2 + i]) / sh[j + i];
+      s2 += z * z;
+      sz += o * o;
+    }
+    __syncwarp();
+    const float t = tau / 5.0f;
+    return (((((mu * mu) / 50.0f + log1pf(t * t)) - lt) + (float)j * lt) +
+            0.5f * s2) +
+           0.5f * sz + sh[2 * j];
+  }
+};
+
+__device__ __forceinline__ float softplus(float x) {
+  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
+}
+
+// Independent coins on the logit scale, D = K: the potential of
+// models/examples.py coin_toss (p_k ~ Uniform(0, 1) through p = sigmoid(x)
+// with its Jacobian, Bernoulli observations reduced on the host to heads
+// and tails per coin),
+//   U = sum_k a_k softplus(-x_k) + b_k softplus(x_k),  a = heads + 1,
+//   b = tails + 1,
+// whose normalising constant is 0; gradient b_k sigmoid(x_k) - a_k
+// sigmoid(-x_k). Separable, so no walker buffer; the value's terms are
+// summed lane by lane, then a butterfly.
+struct CoinForm {
+  const float* a;  // [D]
+  const float* b;  // [D]
+
+  static constexpr bool kTiled = false;
+  static constexpr int kBufPad = 1;
+
+  __host__ __device__ int shared_floats(int d, int) const { return 2 * d; }
+
+  __device__ void stage(float* sh, int d, int) const {
+    for (int i = threadIdx.x; i < d; i += blockDim.x) {
+      sh[i] = a[i];
+      sh[d + i] = b[i];
+    }
+  }
+
+  __device__ void grad(const float qv[4], float gv[4], int lane, int, int d,
+                       const float* sh, float*) const {
+    const int base = 4 * lane;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int dim = base + e;
+      const float x = qv[e];
+      gv[e] = dim < d ? sh[d + dim] * (1.0f / (1.0f + expf(-x))) -
+                            sh[dim] * (1.0f / (1.0f + expf(x)))
+                      : 0.0f;
+    }
+  }
+
+  __device__ float value(const float qv[4], const float[4], int lane,
+                         int tpw, int d, const float* sh, float*) const {
+    const int base = 4 * lane;
+    float part = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int dim = base + e;
+      if (dim < d)
+        part += sh[dim] * softplus(-qv[e]) + sh[d + dim] * softplus(qv[e]);
+    }
+    return segment_sum(part, tpw);
+  }
+};
+
 // The gradients and the values of a lane group's R walkers: a tiled form
 // takes them together, any other one walker after the other (R = 1 for
 // them, see with_tile).
@@ -932,7 +1222,12 @@ int with_tile(int tile, Body body) {
 // (G, eps^2); count = N, D a multiple of N), 5 diagonal quadratic (param0
 // k, param1 mean), 6 logistic regression (param0 x, param1 y; count = N
 // rows, D - 1 columns), 7 non-centred eight schools (param0 y, param1
-// sigma, param2 the constant; count = J = D - 2). Returns
+// sigma, param2 the constant; count = J = D - 2), and the example models'
+// forms: 8 linear regression (param0 x, param1 y, param2 (1 / prior^2, the
+// constant); count = N rows, D - 2 columns), 9 centred eight schools (as
+// 7), 10 coins (param0 heads + 1, param1 tails + 1), 11 the funnel model
+// (param0 as 1, param1 the constant), 12 the diagonal form with a
+// constant (param0, param1 as 5, param2 the constant). Returns
 // cudaErrorInvalidValue for a form or parameter count it does not take.
 template <class Body>
 int with_form(int form, const float* param0, const float* param1,
@@ -961,6 +1256,19 @@ int with_form(int form, const float* param0, const float* param1,
       if (count <= 0 || num_dims != count + 2)
         return (int)cudaErrorInvalidValue;
       return body(EightSchoolsForm{param0, param1, param2, count});
+    case 8:
+      if (count <= 0 || num_dims < 2) return (int)cudaErrorInvalidValue;
+      return body(LinearForm{{param0, param1, count}, param2});
+    case 9:
+      if (count <= 0 || num_dims != count + 2)
+        return (int)cudaErrorInvalidValue;
+      return body(EightSchoolsCentredForm{param0, param1, param2, count});
+    case 10:
+      return body(CoinForm{param0, param1});
+    case 11:
+      return body(FunnelForm{param0, param1});
+    case 12:
+      return body(DiagQuadraticForm{param0, param1, param2});
     default:
       return (int)cudaErrorInvalidValue;
   }

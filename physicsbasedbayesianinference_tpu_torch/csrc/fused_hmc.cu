@@ -57,9 +57,11 @@
 // read again and not kept. Kernel A has no proposal outputs, as on the TPU:
 // kernel B takes the diagonal form where they are asked for. The TPU's
 // kernel C was also its route for the models' data-matmul potentials; here
-// those are device forms of kernel B (forms.cuh: LogisticForm,
-// EightSchoolsForm).
+// those are device forms of kernel B (forms.cuh: LogisticForm, LinearForm,
+// and the other example models' EightSchoolsForm, EightSchoolsCentredForm,
+// CoinForm and the funnel and diagonal forms with a constant).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -115,6 +117,18 @@ __device__ __forceinline__ Decision metropolis(float h0, float h1, float beta,
 // so any D works with a fixed register budget.
 //
 // Both draw the same Philox bits and round every sum in the same order.
+//
+// kBf16 (D <= 128 only; the TPU kernel's trajectory_dtype=bfloat16): the
+// drift/kick chain runs on bfloat16 pairs. q0, the momentum after the
+// first half kick, k, mu, dt * inv_mass and dt * scale are rounded to
+// bfloat16 (to nearest even), each of the chain's operations is one
+// correctly rounded __nv_bfloat162 instruction (the _rn forms, which the
+// compiler never contracts into a multiply-add: the plain version rounds
+// each operation once, as torch's bfloat16 tensors do), and the end point
+// comes back to float32 for the last half kick, both energies and the
+// Metropolis test. A lane's four dims are two pairs, so a step is six
+// paired instructions where float32 takes twelve (no contraction here
+// either): the chain is what bounds kernel A by instruction issue.
 // ---------------------------------------------------------------------------
 
 #ifndef PBBI_A_BLOCK
@@ -125,7 +139,41 @@ __device__ __forceinline__ Decision metropolis(float h0, float h1, float beta,
 #endif
 constexpr int kBlockA = PBBI_A_BLOCK;
 
-template <bool kVec, bool kDyn>
+// L steps of q += p dtim; p -= ck (k (q - mu)) on the lane's four dims as
+// two bfloat16 pairs, from and back to float32
+__device__ __forceinline__ void bf16_chain(float qv[4], float pv[4],
+                                           const float kv[4],
+                                           const float mv[4],
+                                           const float dtim[4], float ck,
+                                           int num_steps) {
+  __nv_bfloat162 qb[2], pb[2], kb[2], mb[2], db[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qb[h] = __floats2bfloat162_rn(qv[2 * h], qv[2 * h + 1]);
+    pb[h] = __floats2bfloat162_rn(pv[2 * h], pv[2 * h + 1]);
+    kb[h] = __floats2bfloat162_rn(kv[2 * h], kv[2 * h + 1]);
+    mb[h] = __floats2bfloat162_rn(mv[2 * h], mv[2 * h + 1]);
+    db[h] = __floats2bfloat162_rn(dtim[2 * h], dtim[2 * h + 1]);
+  }
+  const __nv_bfloat162 cb = __float2bfloat162_rn(ck);
+  for (int s = 0; s < num_steps; ++s) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      qb[h] = __hadd2_rn(qb[h], __hmul2_rn(pb[h], db[h]));
+      pb[h] = __hsub2_rn(
+          pb[h], __hmul2_rn(cb, __hmul2_rn(kb[h], __hsub2_rn(qb[h], mb[h]))));
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qv[2 * h] = __low2float(qb[h]);
+    qv[2 * h + 1] = __high2float(qb[h]);
+    pv[2 * h] = __low2float(pb[h]);
+    pv[2 * h + 1] = __high2float(pb[h]);
+  }
+}
+
+template <bool kVec, bool kDyn, bool kBf16>
 __global__ void __launch_bounds__(kBlockA, PBBI_A_MIN_BLOCKS)
 diag_quadratic_kernel(
     const float* __restrict__ q, const float* __restrict__ kdiag,
@@ -202,11 +250,15 @@ diag_quadratic_kernel(
     pv[e] = p0 - (0.5f * ck) * (kv[e] * qc);
     qv[e] = q0[e];
   }
-  for (int s = 0; s < num_steps; ++s) {
+  if (kBf16) {
+    bf16_chain(qv, pv, kv, mv, dtim, ck, num_steps);
+  } else {
+    for (int s = 0; s < num_steps; ++s) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      qv[e] += pv[e] * dtim[e];
-      pv[e] -= ck * (kv[e] * (qv[e] - mv[e]));
+      for (int e = 0; e < 4; ++e) {
+        qv[e] += pv[e] * dtim[e];
+        pv[e] -= ck * (kv[e] * (qv[e] - mv[e]));
+      }
     }
   }
   float g1[4];
@@ -552,34 +604,45 @@ const char* pbbi_error_string(int code) {
 }
 
 // Kernel A. steps_dev: null, or a device int holding the leapfrog count,
-// and num_steps is then the most it may be. walker_offset: the global index
-// of row 0 of q, the walker index of its Philox draws (0 for a whole
-// ensemble; a process holding rows [o, o + W) of a sharded one passes o and
-// draws what the whole launch draws for those rows).
+// and num_steps is then the most it may be. trajectory_bf16: nonzero runs
+// the drift/kick chain in bfloat16 (D <= 128; above, cudaErrorInvalidValue
+// and no launch). walker_offset: the global index of row 0 of q, the
+// walker index of its Philox draws (0 for a whole ensemble; a process
+// holding rows [o, o + W) of a sharded one passes o and draws what the
+// whole launch draws for those rows).
 int pbbi_fused_hmc_diag_quadratic(
     const float* q, const float* kdiag, const float* mean,
     const float* inv_mass, const float* p_std, const float* scalars,
     float* q_out, float* g_out, float* u_out, float* acc_out,
     uint8_t* taken_out, float* derr_out, const int* steps_dev,
-    int num_walkers, int num_dims, int num_steps, float threshold,
-    uint64_t seed, uint32_t counter, uint32_t walker_offset, void* stream) {
+    int trajectory_bf16, int num_walkers, int num_dims, int num_steps,
+    float threshold, uint64_t seed, uint32_t counter, uint32_t walker_offset,
+    void* stream) {
   if (num_walkers <= 0 || num_dims <= 0 || num_steps < 0)
     return (int)cudaErrorInvalidValue;
   const int tpw = threads_per_walker(num_dims);
   const bool looped = (num_dims + 3) / 4 > tpw;  // D > kMaxGenericDims
+  if (looped && trajectory_bf16) return (int)cudaErrorInvalidValue;
   const int wpb = (looped ? kBlock : kBlockA) / tpw;
   const unsigned blocks = (unsigned)((num_walkers + wpb - 1) / wpb);
   const bool vec = num_dims % 4 == 0 && !misaligned16(q) &&
                    !misaligned16(q_out) && !misaligned16(g_out);
   using Kernel = decltype(&diag_quadratic_loop_kernel<false>);
   const bool dyn = steps_dev != nullptr;
-  const Kernel fixed = looped ? &diag_quadratic_loop_kernel<false>
-                       : vec  ? &diag_quadratic_kernel<true, false>
-                              : &diag_quadratic_kernel<false, false>;
-  const Kernel counted = looped ? &diag_quadratic_loop_kernel<true>
-                         : vec  ? &diag_quadratic_kernel<true, true>
-                                : &diag_quadratic_kernel<false, true>;
-  const Kernel kernel = dyn ? counted : fixed;
+  // [bf16][vec][dyn]
+  static const Kernel grouped[2][2][2] = {
+      {{&diag_quadratic_kernel<false, false, false>,
+        &diag_quadratic_kernel<false, true, false>},
+       {&diag_quadratic_kernel<true, false, false>,
+        &diag_quadratic_kernel<true, true, false>}},
+      {{&diag_quadratic_kernel<false, false, true>,
+        &diag_quadratic_kernel<false, true, true>},
+       {&diag_quadratic_kernel<true, false, true>,
+        &diag_quadratic_kernel<true, true, true>}}};
+  const Kernel kernel =
+      looped ? (dyn ? &diag_quadratic_loop_kernel<true>
+                    : &diag_quadratic_loop_kernel<false>)
+             : grouped[trajectory_bf16 != 0][vec][dyn];
   kernel<<<blocks, looped ? kBlock : kBlockA, 0, (cudaStream_t)stream>>>(
       q, kdiag, mean, inv_mass, p_std, scalars, q_out, g_out, u_out, acc_out,
       taken_out, derr_out, steps_dev, num_walkers, num_dims, tpw, num_steps,
@@ -590,8 +653,8 @@ int pbbi_fused_hmc_diag_quadratic(
 
 // Kernel B for the device form `form` (forms.cuh with_form; ops/kernels.py
 // FORM_IDS). walker_tile: walkers a lane group owns, 1, 2 or 4 for the
-// Gaussian and logistic forms (ops/kernels.py walker_tile, logistic_tile),
-// 1 for any other. q_prop and
+// Gaussian, logistic and linear forms (ops/kernels.py walker_tile,
+// logistic_tile), 1 for any other. q_prop and
 // p_prop: both null, or where to write every walker's endpoint (q1, -p1).
 // steps_dev: null, or a device int holding the leapfrog count, and
 // num_steps is then the most it may be. walker_offset: as kernel A's.

@@ -14,11 +14,12 @@
 //
 // The TPU traced any jnp potential into the kernel. Here the potential is
 // one of the device forms of forms.cuh (the Gaussian, funnel, banana,
-// mixture, N-body, diagonal quadratic, logistic regression and eight
-// schools), in kernel B's warp layout: T lanes per walker, one dim-group of
-// four per lane, so D <= 128; with the Gaussian and logistic forms a lane
-// group owns R walkers (1, 2 or 4), whose 4 x R tile of the gradient a lane
-// keeps in registers (forms.cuh).
+// mixture, N-body, diagonal quadratic, and the example models' logistic and
+// linear regression, both eight schools and the coins), in kernel B's warp
+// layout: T lanes per walker, one dim-group of four per lane, so D <= 128;
+// with the Gaussian, logistic and linear forms a lane group owns R walkers
+// (1, 2 or 4), whose 4 x R tile of the gradient a lane keeps in registers
+// (forms.cuh).
 //
 // The gradient on entry: the TPU kernel recomputes (u, g) at q
 // (pallas_kernels.py:186). This one takes the caller's cached (u, g) when
@@ -168,7 +169,7 @@ extern "C" {
 // Kernel D for the device form `form` (forms.cuh with_form, every form).
 // u and g are both given (the cached pair at q) or both null. step is a
 // device float holding dt. walker_tile: walkers a lane group owns, 1, 2 or
-// 4 for the Gaussian and logistic forms (ops/kernels.py walker_tile,
+// 4 for the Gaussian, logistic and linear forms (ops/kernels.py walker_tile,
 // logistic_tile), 1 for any other.
 int pbbi_leapfrog_trajectory(
     int form, const float* param0, const float* param1, const float* param2,

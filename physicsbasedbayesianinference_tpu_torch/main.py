@@ -16,9 +16,10 @@ run (``ops.kernels.launch_counts``).
 Model references:
   builtin:<name>   analytic target from ops.potentials.builtin_potentials
   example:<name>   model of the DSL from models.examples, with --data-path
-                   JSON (the reference's data-file convention); logistic
-                   regression and non-centred eight schools run inside the
-                   fused kernels on CUDA (models/device_forms.py)
+                   JSON (the reference's data-file convention); every
+                   example model runs inside the fused kernels on CUDA, and
+                   so do the centred eight schools and the funnel under
+                   --reparam auto (models/device_forms.py)
 
 ``numpyro:`` references are the JAX package's only: NumPyro is JAX.
 

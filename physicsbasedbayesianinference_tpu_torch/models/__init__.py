@@ -25,6 +25,7 @@ from .examples import (
     eight_schools_noncentered,
     funnel,
     linear_regression,
+    linear_regression_data,
     logistic_regression,
     logistic_regression_data,
 )
@@ -38,5 +39,5 @@ __all__ = [
     "ModelPotential", "make_model_potential",
     "EXAMPLE_MODELS", "EIGHT_SCHOOLS_DATA", "coin_toss", "eight_schools",
     "eight_schools_noncentered", "logistic_regression", "linear_regression",
-    "funnel", "logistic_regression_data",
+    "funnel", "logistic_regression_data", "linear_regression_data",
 ]

@@ -192,11 +192,15 @@ class reparam(_Handler):
 
 def reparametrized(model: Callable, config="auto") -> Callable:
     """Wrap a model so that it always runs under :class:`reparam`; the
-    wrapped model's latent space uses the decentered coordinates."""
+    wrapped model's latent space uses the decentered coordinates. The
+    wrapper names what it wraps (``reparam_of``, ``reparam_config``), so
+    that ``device_forms.py`` can find a form registered for the pair."""
     def wrapped(*args, **kwargs):
         with reparam(config):
             return model(*args, **kwargs)
     wrapped.__name__ = getattr(model, "__name__", "model") + "_reparam"
+    wrapped.reparam_of = model
+    wrapped.reparam_config = config
     return wrapped
 
 

@@ -113,3 +113,20 @@ def logistic_regression_data(num_rows: int = 256, num_features: int = 31,
     u = np.random.default_rng(seeds[2]).uniform(size=num_rows)
     labels = (u < 1.0 / (1.0 + np.exp(-(x @ w_true)))).astype(np.float32)
     return x, labels
+
+
+def linear_regression_data(num_rows: int = 256, num_features: int = 30,
+                           seeds=(10, 11, 12), noise: float = 0.5):
+    """Synthetic data for :func:`linear_regression`, numpy float32 ``(x [N,
+    P], y [N])``: normal features from ``default_rng(seeds[0])`` scaled by
+    1 / sqrt(P) (so that ``x @ w_true`` has unit variance), true weights
+    from ``seeds[1]``, and ``y = x @ w_true + 1 + noise * eps`` with
+    ``eps`` from ``seeds[2]`` (numpy seeds, as
+    :func:`logistic_regression_data`, so that both packages and the card
+    see the same data)."""
+    x = (np.random.default_rng(seeds[0]).normal(
+        size=(num_rows, num_features)) / np.sqrt(num_features))
+    w_true = np.random.default_rng(seeds[1]).normal(size=num_features)
+    eps = np.random.default_rng(seeds[2]).normal(size=num_rows)
+    y = (x @ w_true + 1.0 + noise * eps).astype(np.float32)
+    return x.astype(np.float32), y

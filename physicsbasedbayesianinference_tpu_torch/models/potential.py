@@ -194,16 +194,16 @@ def make_model_potential(
     (``device.default_device()`` unless given).
 
     ``potential.device_form`` is the model's device form where
-    ``device_forms.py`` has one (not for a reparameterised wrapper), else
-    None."""
+    ``device_forms.py`` has one for the model under this ``reparam``
+    (every example model as written; the centred eight schools and the
+    funnel under ``"auto"``), else None."""
     device = resolve_device(device)
     model_args = tuple(data_to_device(a, device) for a in model_args)
     model_kwargs = {k: data_to_device(v, device)
                     for k, v in (model_kwargs or {}).items()}
-    form = (device_form_for(model, model_args, model_kwargs, device)
-            if reparam is None else None)
     if reparam is not None:
         model = core.reparametrized(model, reparam)
+    form = device_form_for(model, model_args, model_kwargs, device)
     sites = core.trace_model(model, model_args, model_kwargs,
                              rng=_generator(0, device))
     specs = []

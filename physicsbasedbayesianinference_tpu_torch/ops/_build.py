@@ -35,9 +35,10 @@ SOURCES = CU_SOURCES + ("forms.cuh", "philox.cuh")
 # Gaussian form's matvec (forms.cuh, fmaf), whose plain version rounds each
 # multiply-add once as well.
 # -split-compile 0: nvcc optimises a source's kernels on all the host's
-# cores; fused_hmc.cu holds some 100 instantiations of kernel B (8 forms,
-# the Gaussian's and the logistic form's 3 walker tiles, the 16-byte path or
-# not, the count fixed or on the device, with or without the proposal); at
+# cores; fused_hmc.cu holds some 140 instantiations of kernel B (11 form
+# structs, the Gaussian's, the logistic and the linear form's 3 walker
+# tiles, the 16-byte path or not, the count fixed or on the device, with or
+# without the proposal); at
 # some 80 it built in 25 s with it against 55 s without, on the 8 cores of
 # an H100 host with CUDA 12.9.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -51,8 +52,8 @@ _TAIL = [_I, _I, _I, _F, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_uint32,
          _P]
 _SIGNATURES = {
     # 13 pointers: q, k, mean, inv_mass, p_std, scalars, 6 outputs, the
-    # device step count (or null)
-    "pbbi_fused_hmc_diag_quadratic": [_P] * 13 + _TAIL,
+    # device step count (or null); the bfloat16 trajectory flag
+    "pbbi_fused_hmc_diag_quadratic": [_P] * 13 + [_I] + _TAIL,
     # form id, 3 parameter pointers, parameter count, then 15 pointers:
     # q, u, g, inv_mass, p_std, scalars, 6 outputs, the 2 proposal outputs
     # (or null), the device step count (or null); W, D, L, walker tile and

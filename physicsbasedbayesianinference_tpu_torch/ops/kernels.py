@@ -46,15 +46,18 @@ Tensor = torch.Tensor
 MAX_GENERIC_DIMS = 128
 # Parameter floats a device form may stage in shared memory (128 KiB).
 MAX_FORM_FLOATS = 32768
-# Kernels B and D with the Gaussian and logistic forms (the tiled forms):
-# walkers a lane group may own (the register tile of their products,
-# csrc/forms.cuh), and the blocks of 256
+# Kernels B and D with the Gaussian, logistic and linear forms (the tiled
+# forms): walkers a lane group may own (the register tile of their
+# products, csrc/forms.cuh), and the blocks of 256
 # threads that fill the card: 128, all but 4 of an H100's 132 SMs, since
 # walker counts are powers of two more often than multiples of 132 (at
 # W = 8192, D = 32 tile 2 makes 128 blocks and takes 0.017 ms where tile 1
 # with 256 blocks takes 0.025; tools/kernel_sweeps.py).
 WALKER_TILES = (1, 2, 4)
-TILED_FORMS = ("gaussian", "logistic")
+TILED_FORMS = ("gaussian", "logistic", "linear")
+# the tiled forms over rows of data (csrc/forms.cuh LogisticForm and
+# LinearForm: the same shared-memory layout, the same tile chooser)
+DATA_FORMS = ("logistic", "linear")
 _BLOCK_THREADS = 256
 _FILL_BLOCKS = 128
 # rows of x a lane of the logistic form takes together (kLogisticRows)
@@ -75,6 +78,13 @@ FORM_IDS = {
     "diag": (5, ("k_diag", "mean")),
     "logistic": (6, ("x", "y")),
     "eight_schools_nc": (7, ("y", "sigma", "consts")),
+    # the example models' forms (models/device_forms.py): each the model's
+    # potential with its normalising constant
+    "linear": (8, ("x", "y", "consts")),
+    "eight_schools": (9, ("y", "sigma", "consts")),
+    "coin": (10, ("a", "b")),
+    "funnel_model": (11, ("params", "consts")),
+    "diag_model": (12, ("k_diag", "mean", "consts")),
 }
 _HALF_LOG_2PI = 0.9189385332046727
 
@@ -182,18 +192,39 @@ def _raise_on(rc: int, name: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _trajectory_bf16(trajectory_dtype) -> bool:
+    """Whether kernel A runs its drift/kick chain in bfloat16: None or
+    float32 keep it in float32, bfloat16 takes it; nothing else."""
+    if trajectory_dtype in (None, torch.float32):
+        return False
+    if trajectory_dtype == torch.bfloat16:
+        return True
+    raise ValueError(f"trajectory_dtype must be None, torch.float32 or "
+                     f"torch.bfloat16, got {trajectory_dtype!r}")
+
+
 def fused_hmc_diag_quadratic_plain(
     seed: int, counter: int, q: Tensor, *, scalars: Tensor, p_std: Tensor,
     inv_mass: Tensor, k_diag: Tensor, mean: Tensor, num_steps,
     divergence_threshold: float = 1000.0, max_steps: Optional[int] = None,
-    walker_offset: int = 0,
+    walker_offset: int = 0, trajectory_dtype=None,
 ):
     """One HMC transition for ``U = 0.5 sum_d k_d (q_d - mean_d)^2``.
 
     Returns ``(q', g', u', accept_prob, accepted, energy_error)``; u and g
     are computed from q (no cached values in), g' is the gradient of the
     selected state.
+
+    ``trajectory_dtype=torch.bfloat16`` runs the drift/kick chain in
+    bfloat16, as the TPU kernel's option of that name: q, the momentum
+    after the first half kick, k, mean, dt * inv_mass and dt * scale are
+    rounded to bfloat16, each operation of the L steps rounds to bfloat16
+    (as torch's bfloat16 tensors round it), and the end point comes back
+    to float32 for the last half kick. The momentum draw, both
+    Hamiltonians and the Metropolis test stay in float32, so the test is
+    exact for the map that was simulated.
     """
+    bf16 = _trajectory_bf16(trajectory_dtype)
     num_steps = _host_steps(num_steps, max_steps)
     walker_offset = _check_offset(walker_offset, q.shape[0])
     dt, beta, s = scalars[0], scalars[1], scalars[2]
@@ -204,10 +235,13 @@ def fused_hmc_diag_quadratic_plain(
     dtim = dt * inv_mass
     ck = dt * s
     p = p0 - (0.5 * ck) * (k_diag * qc0)
-    q1 = q
+    low = torch.bfloat16 if bf16 else q.dtype  # .to(q.dtype): no copy
+    kt, mt, dtimt, ckt = (t.to(low) for t in (k_diag, mean, dtim, ck))
+    q1, p = q.to(low), p.to(low)
     for _ in range(num_steps):
-        q1 = q1 + p * dtim
-        p = p - ck * (k_diag * (q1 - mean))
+        q1 = q1 + p * dtimt
+        p = p - ckt * (kt * (q1 - mt))
+    q1, p = q1.to(q.dtype), p.to(q.dtype)
     qc1 = q1 - mean
     p = p + (0.5 * ck) * (k_diag * qc1)
     u1 = 0.5 * torch.sum(k_diag * qc1 * qc1, dim=1)
@@ -223,22 +257,28 @@ def fused_hmc_diag_quadratic(
     seed: int, counter: int, q: Tensor, *, scalars: Tensor, p_std: Tensor,
     inv_mass: Tensor, k_diag: Tensor, mean: Tensor, num_steps,
     divergence_threshold: float = 1000.0, max_steps: Optional[int] = None,
-    walker_offset: int = 0,
+    walker_offset: int = 0, trajectory_dtype=None,
 ):
     """Kernel A. Replaces ``make_fused_hmc_diag_quadratic``
     (physicsbasedbayesianinference_tpu/ops/pallas_kernels.py:893), its
     ``dynamic_steps`` variant with a tensor ``num_steps`` (module
-    docstring); see :func:`fused_hmc_diag_quadratic_plain` for the
+    docstring) and its ``trajectory_dtype`` (:900; bfloat16 up to D = 128,
+    refused above); see :func:`fused_hmc_diag_quadratic_plain` for the
     contract. Any D; up to D = 128 each walker's q' and g' are stored once,
     in 16-byte accesses when D % 4 == 0 and the tensors' storage is 16-byte
-    aligned."""
+    aligned. ``launches_by`` counts the launches by trajectory dtype."""
     if q.device.type == "cpu":
         return fused_hmc_diag_quadratic_plain(
             seed, counter, q, scalars=scalars, p_std=p_std,
             inv_mass=inv_mass, k_diag=k_diag, mean=mean,
             num_steps=num_steps, divergence_threshold=divergence_threshold,
-            max_steps=max_steps, walker_offset=walker_offset)
+            max_steps=max_steps, walker_offset=walker_offset,
+            trajectory_dtype=trajectory_dtype)
+    bf16 = _trajectory_bf16(trajectory_dtype)
     d = q.shape[-1]
+    if bf16 and d > MAX_GENERIC_DIMS:
+        raise ValueError(f"kernel A takes a bfloat16 trajectory up to "
+                         f"D={MAX_GENERIC_DIMS}, got D={d}")
     _check(q, {"q": q, "scalars": scalars, "p_std": p_std,
                "inv_mass": inv_mass, "k_diag": k_diag, "mean": mean},
            {"q": tuple(q.shape), "scalars": (3,), "p_std": (d,),
@@ -252,15 +292,21 @@ def fused_hmc_diag_quadratic(
         rc = load_library().pbbi_fused_hmc_diag_quadratic(
             *map(Tensor.data_ptr,
                  (q, k_diag, mean, inv_mass, p_std, scalars, *outs)),
-            steps_ptr, q.shape[0], d, steps, divergence_threshold,
-            seed & 0xFFFFFFFFFFFFFFFF, counter & 0xFFFFFFFF, walker_offset,
-            stream)
+            steps_ptr, int(bf16), q.shape[0], d, steps,
+            divergence_threshold, seed & 0xFFFFFFFFFFFFFFFF,
+            counter & 0xFFFFFFFF, walker_offset, stream)
     _raise_on(rc, "fused_hmc_diag_quadratic")
     fused_hmc_diag_quadratic.launches += 1
+    fused_hmc_diag_quadratic.launches_by[
+        "bfloat16" if bf16 else "float32"] += 1
     return q_out, g_out, u_out, acc, taken.view(torch.bool), derr
 
 
+A_TRAJECTORIES = ("float32", "bfloat16")
 fused_hmc_diag_quadratic.launches = 0  # type: ignore[attr-defined]
+# the same launches by the dtype of the drift/kick chain
+fused_hmc_diag_quadratic.launches_by = dict.fromkeys(  # type: ignore
+    A_TRAJECTORIES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -284,9 +330,18 @@ def _param_shapes(device_form, d: int):
     if name == "logistic":
         n = params[1].shape[0]
         return {"x": (n, d - 1), "y": (n,)}, n
-    if name == "eight_schools_nc":
+    if name in ("eight_schools_nc", "eight_schools"):
         j = params[0].shape[0]
         return {"y": (j,), "sigma": (j,), "consts": (1,)}, j
+    if name == "linear":
+        n = params[1].shape[0]
+        return {"x": (n, d - 2), "y": (n,), "consts": (2,)}, n
+    if name == "coin":
+        return {"a": (d,), "b": (d,)}, 0
+    if name == "funnel_model":
+        return {"params": (2,), "consts": (1,)}, 0
+    if name == "diag_model":
+        return {"k_diag": (d,), "mean": (d,), "consts": (1,)}, 0
     n = params[0].shape[0]
     return {"mass": (n,), "consts": (2,)}, n
 
@@ -294,11 +349,12 @@ def _param_shapes(device_form, d: int):
 def logistic_shared_bytes(num_rows: int, num_dims: int,
                           tile: int = 1) -> int:
     """Dynamic shared memory of a block of kernels B and D with the
-    logistic form at walker tile ``tile`` (csrc/forms.cuh LogisticForm):
-    x with its column of ones, padded to a multiple of a chunk of
-    ``LOGISTIC_ROWS`` T rows of 4 T + 4 floats, y, a buffer row of 4 T + 4
-    floats for each of the block's walkers, and each lane group's residual
-    tile of a chunk's rows times ``tile`` walkers, plus 4 floats."""
+    logistic or the linear form at walker tile ``tile`` (csrc/forms.cuh
+    LogisticForm, LinearForm): x with its column of ones, padded to a
+    multiple of a chunk of ``LOGISTIC_ROWS`` T rows of 4 T + 4 floats, y,
+    a buffer row of 4 T + 4 floats for each of the block's walkers, and
+    each lane group's residual tile of a chunk's rows times ``tile``
+    walkers, plus 4 floats."""
     t = threads_per_walker(num_dims)
     chunk = LOGISTIC_ROWS * t
     rows = -(-num_rows // chunk) * chunk
@@ -324,15 +380,18 @@ def _unsupported(device_form, num_dims: int, kernel: str) -> Optional[str]:
     if name == "nbody" and num_dims % params[0].shape[0]:
         return (f"D={num_dims} is not a multiple of the "
                 f"{params[0].shape[0]} bodies")
-    if name == "eight_schools_nc" and num_dims != params[0].shape[0] + 2:
-        return (f"the eight_schools_nc form of {params[0].shape[0]} groups "
+    if (name in ("eight_schools_nc", "eight_schools")
+            and num_dims != params[0].shape[0] + 2):
+        return (f"the {name} form of {params[0].shape[0]} groups "
                 f"takes D={params[0].shape[0] + 2}, got D={num_dims}")
+    if name == "linear" and num_dims < 2:
+        return f"the linear form takes D >= 2, got D={num_dims}"
     shapes, _ = _param_shapes(device_form, num_dims)
     floats = sum(math.prod(shape) for shape in shapes.values())
     if floats > MAX_FORM_FLOATS:
         return (f"the {name} form's {floats} parameter floats exceed "
                 f"{MAX_FORM_FLOATS} in shared memory")
-    if name == "logistic":
+    if name in DATA_FORMS:
         # at walker tile 1, the least that logistic_tile falls back to
         return _logistic_too_large(params[1].shape[0], num_dims, 1)
     return None
@@ -345,7 +404,7 @@ def _logistic_too_large(num_rows: int, num_dims: int,
     need = logistic_shared_bytes(num_rows, num_dims, tile)
     if need <= MAX_SHARED_BYTES:
         return None
-    return (f"the logistic form at N={num_rows}, D={num_dims}, tile {tile} "
+    return (f"the data form at N={num_rows}, D={num_dims}, tile {tile} "
             f"needs {need} bytes of shared memory a block, over "
             f"{MAX_SHARED_BYTES}")
 
@@ -407,17 +466,18 @@ def _tile_for(device_form, num_walkers: int, num_dims: int,
     name, params = device_form
     if name not in TILED_FORMS:
         if tile not in (None, 1):
-            raise ValueError(f"only the gaussian form and the logistic form "
-                             f"take a walker tile, got {tile} for {name!r}")
+            raise ValueError(f"only the gaussian form, the logistic form and "
+                             f"the linear form take a walker tile, got "
+                             f"{tile} for {name!r}")
         return 1
     if tile is None:
-        if name == "logistic":
+        if name in DATA_FORMS:
             return logistic_tile(num_walkers, params[1].shape[0], num_dims)
         return walker_tile(num_walkers, num_dims)
     if tile not in WALKER_TILES:
         raise ValueError(f"tile must be one of {WALKER_TILES}, got {tile}")
     why = (_logistic_too_large(params[1].shape[0], num_dims, tile)
-           if name == "logistic" else None)
+           if name in DATA_FORMS else None)
     if why:
         raise ValueError(why)
     return tile
@@ -591,14 +651,10 @@ def _logistic_vg(x, y):
             acc = _fma32(r[:, i:i + 1], xa[i], acc)
         lik = (torch.clamp_min(z, 0.0)
                + torch.log1p(torch.exp(-torch.abs(z)))) - y * z
-        q4 = torch.cat([q, q.new_zeros(w, 4 * t - d)], 1).reshape(w, t, 4)
-        quad = q.new_zeros(w, t)
-        for e in range(4):
-            quad = quad + q4[:, :, e] * q4[:, :, e]
         # filled on q's device: no host-to-device copy
         const = torch.full((), _HALF_LOG_2PI, dtype=q.dtype,
                            device=q.device) * float(d)
-        u = (0.5 * _segment_sum(quad)
+        u = (0.5 * _dim_sum(q * q, t)
              + _segment_sum(_lane_partials(lik, t))) + const
         return u, q + acc
     return vg
@@ -633,11 +689,132 @@ def _eight_schools_vg(y, sigma, consts):
     return vg
 
 
+def _dim_sum(terms: Tensor, t: int) -> Tensor:
+    """``terms`` ``[W, D]`` summed over the dims as a walker's T lanes sum
+    them: lane l adds its dims 4 l .. 4 l + 3 in order, then the
+    butterfly."""
+    w, d = terms.shape
+    t4 = torch.cat([terms, terms.new_zeros(w, 4 * t - d)],
+                   1).reshape(w, t, 4)
+    part = terms.new_zeros(w, t)
+    for e in range(4):
+        part = part + t4[:, :, e]
+    return _segment_sum(part)
+
+
+def _linear_vg(x, y, consts):
+    """Bayesian linear regression over ``x`` ``[N, D - 2]``, ``y`` ``[N]``,
+    q = (w, b, log noise), as kernels B and D evaluate it (csrc/forms.cuh
+    LinearForm): z as :func:`_logistic_vg` takes it over the columns of x,
+    a column of ones and one of zeros (s = log noise adds nothing to z),
+    the residuals ``r = z - y``, the gradient's ``acc_k = fma(r_n e^-2s,
+    x_nk, acc_k)`` over the rows in index order, and the sums of ``r^2``
+    (the value's and the noise scale's gradient's) as the walker's T lanes
+    take the rows. ``consts`` = (1 / prior_scale^2, the normalising
+    constant)."""
+    n = y.shape[0]
+    ip, const = consts[0], consts[1]
+
+    def vg(q):
+        w, d = q.shape
+        t = threads_per_walker(d)
+        xa = torch.cat([x, x.new_ones(n, 1), x.new_zeros(n, 1)], dim=1)
+        z = q.new_zeros(w, n)
+        for k in range(d):
+            z = _fma32(xa[:, k], q[:, k:k + 1], z)
+        s = q[:, d - 1]
+        iv, sig2 = torch.exp(-2.0 * s), torch.exp(2.0 * s)
+        r = z - y
+        e = r * iv[:, None]
+        acc = torch.zeros_like(q)
+        for i in range(n):
+            acc = _fma32(e[:, i:i + 1], xa[i], acc)
+        s2 = _segment_sum(_lane_partials(r * r, t))
+        g = q * ip + acc
+        g[:, d - 1] = ((sig2 - 1.0) + float(n)) - iv * s2
+        wb = torch.cat([q[:, :d - 1], q.new_zeros(w, 1)], 1)
+        u = (((((0.5 * ip) * _dim_sum(wb * wb, t) + 0.5 * sig2) - s)
+              + float(n) * s) + (0.5 * iv) * s2) + const
+        return u, g
+    return vg
+
+
+def _eight_schools_centred_vg(y, sigma, consts):
+    """Centred eight schools, q = (mu, log tau, theta [J]), its J terms in
+    index order (csrc/forms.cuh EightSchoolsCentredForm)."""
+    j = y.shape[0]
+
+    def vg(q):
+        mu, lt, th = q[:, 0], q[:, 1], q[:, 2:]
+        tau = torch.exp(lt)
+        s1, s2, sz = (torch.zeros_like(mu) for _ in range(3))
+        gt = []
+        for i in range(j):
+            z = (th[:, i] - mu) / tau
+            o = (y[i] - th[:, i]) / sigma[i]
+            s1 = s1 + z
+            s2 = s2 + z * z
+            sz = sz + o * o
+            gt.append(z / tau - o / sigma[i])
+        t = tau / 5.0
+        g = torch.cat([
+            (mu / 25.0 - s1 / tau)[:, None],
+            ((((2.0 * (t * t)) / (1.0 + t * t) - 1.0) + float(j))
+             - s2)[:, None],
+            torch.stack(gt, dim=1)], dim=1)
+        u = ((((((mu * mu) / 50.0 + torch.log1p(t * t)) - lt)
+               + float(j) * lt) + 0.5 * s2) + 0.5 * sz) + consts[0]
+        return u, g
+    return vg
+
+
+def _softplus(x: Tensor) -> Tensor:
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def _coin_vg(a, b):
+    """Independent coins with flat priors on logit scale, ``U = sum_k a_k
+    softplus(-x_k) + b_k softplus(x_k)`` with a = heads + 1, b = tails +
+    1 (csrc/forms.cuh CoinForm), the terms summed as the lanes take
+    them."""
+    def vg(q):
+        terms = a * _softplus(-q) + b * _softplus(q)
+        g = (b * (1.0 / (1.0 + torch.exp(-q)))
+             - a * (1.0 / (1.0 + torch.exp(q))))
+        return _dim_sum(terms, threads_per_walker(q.shape[1])), g
+    return vg
+
+
+def _funnel_model_vg(fp, consts):
+    """The funnel form plus a constant: the funnel model of the DSL."""
+    funnel = _funnel_vg(fp)
+
+    def vg(q):
+        u, g = funnel(q)
+        return u + consts[0], g
+    return vg
+
+
+def _diag_model_vg(k_diag, mean, consts):
+    """The diagonal form plus a constant (the funnel model under
+    reparam="auto"); the value's sum over dims as kernel B's lanes take
+    it."""
+    def vg(q):
+        qc = q - mean
+        u = 0.5 * _dim_sum(k_diag * qc * qc, threads_per_walker(q.shape[1]))
+        return u + consts[0], k_diag * qc
+    return vg
+
+
 _PLAIN_FORMS = {"gaussian": _gaussian_vg, "funnel": _funnel_vg,
                 "banana": _banana_vg, "mixture": _mixture_vg,
                 "nbody": _nbody_vg, "diag": _diag_vg,
                 "logistic": _logistic_vg,
-                "eight_schools_nc": _eight_schools_vg}
+                "eight_schools_nc": _eight_schools_vg,
+                "linear": _linear_vg,
+                "eight_schools": _eight_schools_centred_vg,
+                "coin": _coin_vg, "funnel_model": _funnel_model_vg,
+                "diag_model": _diag_model_vg}
 
 
 def device_value_and_grad(device_form):
@@ -1108,6 +1285,7 @@ KERNELS = (fused_hmc_diag_quadratic, fused_hmc_transition,
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    fused_hmc_diag_quadratic.launches_by = dict.fromkeys(A_TRAJECTORIES, 0)
     fused_hmc_transition.launches_by = dict.fromkeys(B_VARIANTS, 0)
     nbody_accelerations_tiled.launches_by = dict.fromkeys(E_FORMS, 0)
 

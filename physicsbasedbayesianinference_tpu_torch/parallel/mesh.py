@@ -164,16 +164,19 @@ def gather_rows(x: Tensor, mesh: WalkerMesh) -> Tensor:
 
 def gather_walkers(x: Tensor, mesh: WalkerMesh,
                    dst: Optional[int] = None) -> Optional[Tensor]:
-    """The walker-leading blocks ``x`` of every rank joined in rank order
-    (one all-gather): on every rank, or with ``dst`` on that rank only
-    (None elsewhere), as the command-line driver gathers its samples for
-    the summary."""
+    """The walker-leading blocks ``x`` of every rank joined in rank order:
+    on every rank (one all-gather), or with ``dst`` on that group rank
+    only (one gather: the other ranks receive nothing and get None), as
+    the command-line driver gathers its samples for the summary."""
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(mesh.size)]
-    dist.all_gather(parts, x, group=mesh.group)
-    if dst is not None and mesh.rank != dst:
-        return None
-    return torch.cat(parts)
+    if dst is None:
+        parts = [torch.empty_like(x) for _ in range(mesh.size)]
+        dist.all_gather(parts, x, group=mesh.group)
+        return torch.cat(parts)
+    here = mesh.rank == dst % mesh.size
+    parts = [torch.empty_like(x) for _ in range(mesh.size)] if here else None
+    dist.gather(x, parts, dst=mesh.peer(dst), group=mesh.group)
+    return torch.cat(parts) if here else None
 
 
 def ring_shift(tensors, mesh: WalkerMesh) -> list:

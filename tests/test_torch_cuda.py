@@ -901,8 +901,10 @@ def test_chees_routes_on_cuda(dev):
     assert kernels.fused_hmc_transition.launches_by[
         "counted+proposal"] == 40
     assert float((res.var - 1).abs().max()) < 0.1
+    # a site dict, not "auto": the same decentred funnel without a form
     mp = models.make_model_potential(models.funnel, (), {"dim": 3},
-                                     reparam="auto", device=dev)
+                                     reparam={"x": True}, device=dev)
+    assert mp.potential.device_form is None
     kernels.reset_launch_counts()
     before = chees._host_count.reads
     res = pt.run_chees_hmc(1, mp.potential, mp.init(0, 512), **kw)
@@ -1155,3 +1157,220 @@ def test_source_block_launches(dev, n, softening):
     with pytest.raises(ValueError, match="x_src"):
         kernels.nbody_accelerations_tiled(x, None, sources=(x[:, :2], m),
                                           **kw)
+
+
+# ---------------------------------------------------------------------------
+# Kernel A's bfloat16 trajectory and the example models' forms
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("w,d", [(1, 1), (41, 3), (37, 5), (300, 32),
+                                 (64, 33), (70, 128)])
+def test_diag_kernel_bf16_from_rest_is_the_plain_versions_bits(dev, w, d):
+    """From rest (p_std = 0) kernel and plain version round the same
+    operations of the bfloat16 chain, each once: q' and g' are the plain
+    version's bits where the decisions agree, and q' is a bfloat16 value;
+    the energies sum in another order (``_assert_match``). Above D = 128
+    the bfloat16 trajectory is refused before any launch."""
+    rng = np.random.default_rng(w * 1000 + d)
+    q = _t(rng.normal(size=(w, d)), dev)
+    im = _t(rng.uniform(0.5, 2.0, d), dev)
+    kw = dict(scalars=_t([0.4, 1.3, 0.5], dev), p_std=torch.zeros_like(im),
+              inv_mass=im, k_diag=_t(rng.uniform(0.5, 2.0, d), dev),
+              mean=_t(rng.normal(size=d), dev), num_steps=12,
+              trajectory_dtype=torch.bfloat16)
+    before = dict(kernels.fused_hmc_diag_quadratic.launches_by)
+    out_k = dict(zip(A_ORDER, kernels.fused_hmc_diag_quadratic(
+        99, 5, q, **kw)))
+    assert kernels.fused_hmc_diag_quadratic.launches_by["bfloat16"] == \
+        before["bfloat16"] + 1
+    out_p = dict(zip(A_ORDER, kernels.fused_hmc_diag_quadratic_plain(
+        99, 5, q, **kw)))
+    torch.cuda.synchronize()
+    _assert_match(out_k, out_p, 99, 5)
+    agree = out_k["accepted"] == out_p["accepted"]
+    _same_bits(out_k["q"], out_p["q"], agree)
+    _same_bits(out_k["g"], out_p["g"], agree)
+    assert torch.equal(out_k["q"].to(torch.bfloat16).float()[agree],
+                       out_p["q"][agree])
+    wide = _t(rng.normal(size=(4, 129)), dev)
+    ones = torch.ones(129, device=dev)
+    launches = kernels.fused_hmc_diag_quadratic.launches
+    with pytest.raises(ValueError, match="bfloat16 trajectory up to"):
+        kernels.fused_hmc_diag_quadratic(
+            99, 5, wide, scalars=kw["scalars"], p_std=ones, inv_mass=ones,
+            k_diag=ones, mean=0 * ones, num_steps=2,
+            trajectory_dtype=torch.bfloat16)
+    assert kernels.fused_hmc_diag_quadratic.launches == launches
+
+
+def test_diag_kernel_bf16_samples_the_standard_normal(dev):
+    """The TPU kernel's test (tests/test_pallas.py, TPU-only there): 100
+    transitions at W = 16384, D = 32, L = 16, step 0.6 from a standard
+    normal start: mean |dE| < 2 over the last 50, acceptance in (0.3, 1],
+    the mean 0 +- 0.02 and the variance 1 +- 3%."""
+    w, d = 16384, 32
+    q = torch.randn(w, d, device=dev,
+                    generator=torch.Generator(dev).manual_seed(0))
+    one = torch.ones(d, device=dev)
+    kw = dict(scalars=_t([0.6, 1.0, 1.0], dev), p_std=one, inv_mass=one,
+              k_diag=one, mean=0 * one, num_steps=16,
+              trajectory_dtype=torch.bfloat16)
+    accs, errs = [], []
+    for t in range(100):
+        q, _, _, acc, _, derr = kernels.fused_hmc_diag_quadratic(
+            11, t, q, **kw)
+        accs.append(acc.mean())
+        errs.append(derr.abs().mean())
+    assert float(torch.stack(errs[50:]).mean()) < 2.0
+    assert 0.3 < float(torch.stack(accs[50:]).mean()) <= 1.0
+    assert abs(float(q.mean())) < 0.02
+    assert abs(float(q.var()) - 1.0) < 0.03
+    assert abs(float(q.var(0).mean()) - 1.0) < 0.03
+
+
+def _example_forms(dev):
+    """Every example model's ``(form, D)`` at a few shapes, built by the
+    registry from the models (data on the card)."""
+    from physicsbasedbayesianinference_tpu_torch import models
+    coin = _coin_data()
+    made = {}
+    for n, p in ((256, 30), (7, 4), (40, 33), (257, 1)):
+        made[f"linear N={n} D={p + 2}"] = models.make_model_potential(
+            models.linear_regression, models.linear_regression_data(n, p),
+            {}, device=dev)
+    made["eight_schools"] = models.make_model_potential(
+        models.eight_schools, (), models.EIGHT_SCHOOLS_DATA, device=dev)
+    made["coin"] = models.make_model_potential(models.coin_toss, (), coin,
+                                               device=dev)
+    for dim in (5, 15):
+        made[f"funnel dim={dim}"] = models.make_model_potential(
+            models.funnel, (), {"dim": dim}, device=dev)
+        made[f"funnel dim={dim} auto"] = models.make_model_potential(
+            models.funnel, (), {"dim": dim}, reparam="auto", device=dev)
+    return {k: (mp.potential.device_form, mp.num_dims)
+            for k, mp in made.items()}
+
+
+EXAMPLE_FORMS = ["linear N=256 D=32", "linear N=7 D=6", "linear N=40 D=35",
+                 "linear N=257 D=3", "eight_schools", "coin",
+                 "funnel dim=5", "funnel dim=15", "funnel dim=5 auto",
+                 "funnel dim=15 auto"]
+
+
+@pytest.mark.parametrize("name", EXAMPLE_FORMS)
+def test_example_model_forms_match_plain(dev, name):
+    """Kernels B (its four variants: the count fixed or on the device, with
+    or without the proposal) and D (with and without the cached pair) on
+    every example model's form, against the plain versions. The linear
+    form sums and rounds as the logistic form does: B's q', u', g' where
+    the decisions agree, its proposal and D's outputs are the plain
+    version's bits, at every walker tile. The others: ``_assert_match``
+    for B, 1e-5 for D, and their proposal to 1e-5. A second launch gives
+    the same bits."""
+    form, d = _example_forms(dev)[name]
+    w = 75
+    q, u, g, kw = _b_case(form, w, d, dev, spread=0.3, step=0.02)
+    bits = form[0] == "linear"
+    if bits:  # about the least-squares fit, where the steps are stable
+        q = q / 6.0 + _least_squares(form)
+        u, g = kernels.device_value_and_grad(form)(q)
+    tiles = kernels.WALKER_TILES if bits else (None,)
+    for counted in (False, True):
+        for prop in (False, True):
+            extra = dict(emit_proposal=prop)
+            extra.update(dict(num_steps=_count(6, dev), max_steps=8)
+                         if counted else dict(num_steps=6))
+            want = kernels.fused_hmc_transition_plain(form, 7, 3, q, u, g,
+                                                      **kw, **extra)
+            for tile in tiles:
+                out = kernels.fused_hmc_transition(form, 7, 3, q, u, g,
+                                                   tile=tile, **kw, **extra)
+                again = kernels.fused_hmc_transition(
+                    form, 7, 3, q, u, g, tile=tile, **kw, **extra)
+                torch.cuda.synchronize()
+                for a, b in zip(out, again):
+                    _same_bits(a, b)
+                got, ref = dict(zip(B_ORDER, out)), dict(zip(B_ORDER, want))
+                _assert_match(got, ref, 7, 3)
+                agree = got["accepted"] == ref["accepted"]
+                for a, b in zip(out[6:], want[6:]):
+                    if bits:
+                        _same_bits(a, b)
+                    else:
+                        torch.testing.assert_close(a, b, rtol=1e-5,
+                                                   atol=1e-5)
+                if bits:
+                    for key in ("q", "u", "g"):
+                        _same_bits(got[key], ref[key], agree)
+    p = _t(np.random.default_rng(d).normal(size=(w, d)), dev)
+    for cached in (False, True):
+        lk = dict(step_size=_t([0.02], dev), num_steps=5,
+                  inv_mass=kw["inv_mass"])
+        if cached:
+            lk.update(grad=g, potential_energy=u)
+        want = kernels.leapfrog_trajectory_plain(form, q, p, **lk)
+        for tile in tiles:
+            out = kernels.leapfrog_trajectory(form, q, p, tile=tile, **lk)
+            torch.cuda.synchronize()
+            for a, b in zip(out, want):
+                if bits:
+                    _same_bits(a, b)
+                else:
+                    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name,reparam,form", [
+    ("linear_regression", None, "linear"),
+    ("eight_schools", None, "eight_schools"),
+    ("eight_schools", "auto", "eight_schools_nc"),
+    ("coin_toss", None, "coin"),
+    ("funnel", None, "funnel_model"),
+    ("funnel", "auto", "diag_model")])
+def test_run_chees_on_every_example_model_runs_in_kernel_b(
+        dev, name, reparam, form):
+    """Each example model (as the command line loads it) runs ChEES with
+    both phases in kernel B: 100 + 60 launches, none of A or D."""
+    from physicsbasedbayesianinference_tpu_torch import models
+    if name == "linear_regression":
+        args, kwargs = models.linear_regression_data(64, 6), {}
+    elif name == "coin_toss":
+        args, kwargs = (), {k: v for k, v in _coin_data().items()}
+    elif name == "funnel":
+        args, kwargs = (), {"dim": 7}
+    else:
+        args, kwargs = (), models.EIGHT_SCHOOLS_DATA
+    mp = models.make_model_potential(models.EXAMPLE_MODELS[name], args,
+                                     kwargs, reparam=reparam, device=dev)
+    assert mp.potential.device_form[0] == form
+    q0 = 0.3 * torch.randn(4096, mp.num_dims, device=dev,
+                           generator=torch.Generator(dev).manual_seed(0))
+    kernels.reset_launch_counts()
+    res = pt.run_chees_hmc(4, mp.potential, q0, num_warmup=100,
+                           num_samples=60, max_steps=64, init_step_size=0.1,
+                           collect="moments")
+    assert (res.kernel_used, res.warmup_kernel_used) == ("fused", "fused")
+    assert kernels.launch_counts() == {
+        "fused_hmc_diag_quadratic": 0, "fused_hmc_transition": 160,
+        "leapfrog_trajectory": 0, "nbody_accelerations_tiled": 0}
+    assert bool(torch.isfinite(res.mean).all())
+
+
+def _least_squares(form):
+    """The linear form's (w, b, log noise) at the data's least-squares
+    fit."""
+    x, y, _ = (t.double().cpu() for t in form[1])
+    xa = torch.cat([x, torch.ones(x.shape[0], 1, dtype=x.dtype)], 1)
+    coef = torch.linalg.lstsq(xa, y[:, None]).solution[:, 0]
+    resid = y - xa @ coef
+    log_noise = 0.5 * torch.log((resid * resid).mean() + 1e-6)
+    return torch.cat([coef, log_noise[None]]).float().to(form[1][0].device)
+
+
+def _coin_data():
+    import json
+    from pathlib import Path
+    with open(Path(__file__).resolve().parent.parent / "examples"
+              / "coin_toss.data.json") as f:
+        return {k: np.asarray(v, np.float32) for k, v in json.load(f).items()
+                if k in ("c1", "c2")}

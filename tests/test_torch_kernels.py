@@ -77,6 +77,60 @@ def test_diag_quadratic_plain_matches_pallas(scale, beta):
     np.testing.assert_allclose(t["g"], k * qc, rtol=1e-5, atol=1e-6)
 
 
+# kernel A's bfloat16 trajectory: one bf16 unit in the last place of |q'|,
+# 2^-7 |q'|, for q' and g' (XLA may keep a bf16 intermediate in float32
+# inside its fused loop, which moves the trajectory's last bits; on this
+# jax the interpret-mode kernel rounds every operation, as the plain
+# version does, and q' agrees bit for bit); the energy error and u' to
+# 1e-3 absolute and relative, what such a last-bit move of q' makes of
+# them over 32 dims. A float32 trajectory is 0.47-0.51 off in the energy
+# error and 0.06-0.13 in q' at these settings, so the test tells the two
+# apart; q' must also be representable in bfloat16.
+BF16_ULP = 2.0**-7
+
+
+@pytest.mark.parametrize("steps,step,scale", [(4, 0.2, 1.0),
+                                              (16, 0.6, 0.5)])
+def test_diag_quadratic_bf16_trajectory_matches_pallas(steps, step, scale):
+    w, d, beta = 256, 32, 1.3
+    rng = np.random.default_rng(0)
+    q = rng.normal(size=(w, d)).astype(np.float32)
+    k = rng.uniform(0.5, 2.0, d).astype(np.float32)
+    mu = rng.normal(size=d).astype(np.float32)
+    im = rng.uniform(0.5, 2.0, d).astype(np.float32)
+    jout = jk.make_fused_hmc_diag_quadratic(
+        num_steps=steps, trajectory_dtype=jnp.bfloat16)(
+        jnp.int32(5), jnp.asarray(q), step_size=jnp.float32(step),
+        p_std=0.0, inv_mass=jnp.asarray(im), beta=beta,
+        k_diag=jnp.asarray(k), mean=jnp.asarray(mu),
+        scale=jnp.float32(scale))
+    kw = dict(scalars=torch.tensor([step, beta, scale]),
+              p_std=torch.zeros(d), inv_mass=torch.as_tensor(im),
+              k_diag=torch.as_tensor(k), mean=torch.as_tensor(mu),
+              num_steps=steps)
+    tout = tk.fused_hmc_diag_quadratic(
+        5, 0, torch.as_tensor(q), trajectory_dtype=torch.bfloat16, **kw)
+    names = ("q", "g", "u", "accept_prob", "accepted", "energy_error")
+    j = dict(zip(names, (np.asarray(x) for x in jout)))
+    t = dict(zip(names, (x.numpy() for x in tout)))
+    both = j["accepted"] & t["accepted"]
+    assert both.mean() > 0.5
+    for key in ("energy_error", "accept_prob"):
+        np.testing.assert_allclose(t[key], j[key], rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(t["u"][both], j["u"][both], rtol=1e-3,
+                               atol=1e-3)
+    ulp = BF16_ULP * np.abs(j["q"][both])
+    assert (np.abs(t["q"][both] - j["q"][both]) <= ulp).all()
+    assert (np.abs(t["g"][both] - j["g"][both]) <= k * ulp + 1e-6).all()
+    q_out = tout[0]
+    assert torch.equal(q_out.to(torch.bfloat16).float(), q_out)
+    f32 = tk.fused_hmc_diag_quadratic(5, 0, torch.as_tensor(q), **kw)
+    assert (f32[5] - tout[5]).abs().max() > 0.1
+    with pytest.raises(ValueError, match="trajectory_dtype"):
+        tk.fused_hmc_diag_quadratic(5, 0, torch.as_tensor(q),
+                                    trajectory_dtype=torch.float16, **kw)
+
+
 def _target(kind, rng, w):
     """(JAX potential, numpy parameters, start positions, step size)."""
     if kind == "gaussian":

@@ -1,12 +1,28 @@
-"""The two model device forms (``"logistic"``, ``"eight_schools_nc"``):
-their plain versions, which sum in the CUDA kernels' order, against the
-DSL potentials of the port (``vmap(grad_and_value)``) and of the JAX
-package (``batched_value_and_grad``) on the same numpy inputs, and the
-registry that attaches them.
+"""The model device forms (``"logistic"``, ``"eight_schools_nc"`` and the
+example models' ``"linear"``, ``"eight_schools"``, ``"coin"``,
+``"funnel_model"``, and the ``reparam="auto"`` routes to
+``"eight_schools_nc"`` and ``"diag_model"``): their plain versions, which
+sum in the CUDA kernels' order, against the DSL potentials of the port
+(``vmap(grad_and_value)``) and of the JAX package
+(``batched_value_and_grad``) on the same numpy inputs, and the registry
+that attaches them.
 
 Tolerance: value and gradient rtol=1e-4, atol=1e-5, float32 (found: up to
 2e-5 relative in the value, whose 256 likelihood terms the form sums lane
-by lane; the gradients agree to about 1e-6)."""
+by lane; the gradients agree to about 1e-6). The linear regression's
+gradient is a sum over the rows of terms far larger than itself where q
+is off the posterior (terms of 10^3, sums of 10^-1 here), so its
+tolerance adds 8 u S_k, with u = 2^-24 and S_k the sum of the magnitudes
+of component k's terms (the two sides round r_n / sigma^2 differently:
+found up to 4.1 u S_k).
+
+A ChEES run on the CPU for each new route (``test_fused_chees_on_cpu_*``):
+the fused engine (the kernels' plain versions) against the composed engine
+on the same model, each from its own draws, moments within Monte-Carlo
+error (limits stated there)."""
+
+import json
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +38,7 @@ from physicsbasedbayesianinference_tpu_torch.ops import kernels as tk
 from physicsbasedbayesianinference_tpu_torch.ops import potentials as tp
 
 TOL = dict(rtol=1e-4, atol=1e-5)
+ROOT = Path(__file__).resolve().parent.parent
 
 
 def _logistic(n, p):
@@ -44,11 +61,64 @@ def _eight_schools():
     return jmp, tmp, 1.0
 
 
+def _linear(n, p):
+    x, y = tm.linear_regression_data(n, p)
+    jmp = jm.make_model_potential(jm.examples.linear_regression,
+                                  (jnp.asarray(x), jnp.asarray(y)), {})
+    tmp = tm.make_model_potential(tm.linear_regression, (x, y), {},
+                                  device="cpu")
+    return jmp, tmp, 0.3
+
+
+def _eight_schools_centred(reparam=None):
+    data = tm.EIGHT_SCHOOLS_DATA
+    jmp = jm.make_model_potential(
+        jm.examples.eight_schools, (),
+        {"J": 8, "sigma": jnp.asarray(data["sigma"]),
+         "y": jnp.asarray(data["y"])}, reparam=reparam)
+    tmp = tm.make_model_potential(tm.eight_schools, (), data, device="cpu",
+                                  reparam=reparam)
+    return jmp, tmp, 1.0
+
+
+def coin_data():
+    """``examples/coin_toss.data.json``'s two coins, float32 numpy."""
+    with open(ROOT / "examples" / "coin_toss.data.json") as f:
+        raw = json.load(f)
+    return {k: np.asarray(raw[k], np.float32) for k in ("c1", "c2")}
+
+
+def _coin():
+    data = coin_data()
+    jmp = jm.make_model_potential(
+        jm.examples.coin_toss, (),
+        {k: jnp.asarray(v) for k, v in data.items()})
+    tmp = tm.make_model_potential(tm.coin_toss, (), data, device="cpu")
+    return jmp, tmp, 1.0
+
+
+def _funnel(reparam=None):
+    jmp = jm.make_model_potential(jm.examples.funnel, (), {},
+                                  reparam=reparam)
+    tmp = tm.make_model_potential(tm.funnel, (), {}, device="cpu",
+                                  reparam=reparam)
+    return jmp, tmp, 1.0
+
+
 CASES = {
     "logistic N=256 D=32": lambda: _logistic(256, 31),
     "logistic N=7 D=6": lambda: _logistic(7, 5),
     "logistic N=40 D=34": lambda: _logistic(40, 33),
     "eight_schools_nc D=10": _eight_schools,
+    "linear N=256 D=32": lambda: _linear(256, 30),
+    "linear N=7 D=6": lambda: _linear(7, 4),
+    "linear N=40 D=35": lambda: _linear(40, 33),
+    "eight_schools D=10": _eight_schools_centred,
+    "eight_schools_nc (eight_schools reparam=auto) D=10":
+        lambda: _eight_schools_centred("auto"),
+    "coin D=2": _coin,
+    "funnel_model D=16": _funnel,
+    "diag_model (funnel reparam=auto) D=16": lambda: _funnel("auto"),
 }
 
 
@@ -66,7 +136,28 @@ def test_plain_form_matches_both_dsl_potentials(case):
     ju, jg = jp.batched_value_and_grad(jmp.potential)(jnp.asarray(q))
     for u, g in ((tu.numpy(), tg.numpy()), (np.asarray(ju), np.asarray(jg))):
         np.testing.assert_allclose(fu.numpy(), u, **TOL)
-        np.testing.assert_allclose(fg.numpy(), g, **TOL)
+        if form[0] == "linear":
+            bound = (TOL["atol"] + TOL["rtol"] * np.abs(g)
+                     + 8 * 2.0**-24 * _linear_term_sums(form, q))
+            assert (np.abs(fg.numpy() - g) <= bound).all()
+        else:
+            np.testing.assert_allclose(fg.numpy(), g, **TOL)
+
+
+def _linear_term_sums(form, q):
+    """S_k of the linear form's gradient at q, in float64: sum_n |r_n x_nk|
+    / sigma^2 + |q_k| / prior^2 for the weights and the bias, and the sum
+    of the magnitudes of the noise scale's four terms."""
+    x, y, consts = (t.numpy().astype(np.float64) for t in form[1])
+    q = q.astype(np.float64)
+    n, p = x.shape
+    s = q[:, -1]
+    r = q[:, :p] @ x.T + q[:, p:p + 1] - y
+    xa = np.concatenate([x, np.ones((n, 1)), np.zeros((n, 1))], 1)
+    sums = (np.abs(r) * np.exp(-2 * s)[:, None]) @ np.abs(xa) \
+        + np.abs(q) * consts[0]
+    sums[:, -1] = np.exp(2 * s) + 1 + n + np.exp(-2 * s) * (r * r).sum(1)
+    return sums
 
 
 def test_forms_are_attached_by_model_function_only():
@@ -100,15 +191,52 @@ def test_forms_are_attached_by_model_function_only():
 
     assert tm.make_model_potential(
         subsampled, (x, y), {}, **kw).potential.device_form is None
-    # registered models only: the centred eight schools has no form
+    # registered models only: the same centred eight schools written
+    # anew has no form
+    def eight_schools(J, sigma, y):
+        mu = tcore.sample("mu", td.Normal(0.0, 5.0))
+        tau = tcore.sample("tau", td.HalfCauchy(5.0))
+        with tcore.plate("J", J):
+            theta = tcore.sample("theta", td.Normal(mu, tau))
+            tcore.sample("obs", td.Normal(theta, sigma), obs=y)
+
     assert tm.make_model_potential(
-        tm.eight_schools, (), tm.EIGHT_SCHOOLS_DATA, **kw
+        eight_schools, (), tm.EIGHT_SCHOOLS_DATA, **kw
     ).potential.device_form is None
     assert tm.device_form_for(lambda: None, (), {}, "cpu") is None
     # every potential carries the three attributes the engines read
-    mp = tm.make_model_potential(tm.funnel, **kw)
+    mp = tm.make_model_potential(eight_schools, (), tm.EIGHT_SCHOOLS_DATA,
+                                 **kw)
     assert (mp.potential.device_form, mp.potential.diag_quadratic,
             mp.potential.analytic_grad) == (None, None, None)
+
+
+def test_reparam_forms_for_auto_only():
+    """The registry sees through ``reparam="auto"`` of the two models whose
+    rewrite is a known function of q (the test above holds the values);
+    every other config, and "auto" of any other model, keeps None."""
+    kw = dict(device="cpu")
+    data = tm.EIGHT_SCHOOLS_DATA
+
+    def form(model, reparam, args=(), kwargs=None):
+        return tm.make_model_potential(
+            model, args, data if kwargs is None else kwargs,
+            reparam=reparam, **kw).potential.device_form
+
+    assert form(tm.eight_schools, "auto")[0] == "eight_schools_nc"
+    assert form(tm.funnel, "auto", kwargs={})[0] == "diag_model"
+    for config in (["theta"], {"theta": True}, "theta", {"theta": False}):
+        assert form(tm.eight_schools, config) is None, config
+    for config in (["x"], {"x": True}, "x"):
+        assert form(tm.funnel, config, kwargs={}) is None, config
+    # a tensor scale would decentre v too: another latent space
+    assert form(tm.funnel, "auto",
+                kwargs={"scale": torch.tensor(3.0)}) is None
+    x, y = tm.linear_regression_data(16, 3)
+    assert form(tm.linear_regression, "auto", (x, y), {}) is None
+    wrapped = tcore.reparametrized(tm.funnel, "auto")
+    assert (wrapped.reparam_of, wrapped.reparam_config) == (tm.funnel,
+                                                            "auto")
 
 
 def test_form_limits_are_decided_before_any_launch():
@@ -130,6 +258,21 @@ def test_form_limits_are_decided_before_any_launch():
     ok = ("logistic", (torch.zeros(256, 31), torch.zeros(256)))
     assert tk.generic_unsupported(ok, 32) is None
     assert "parameters" in tk.generic_unsupported(("logistic", (y8,)), 3)
+    # the example models' forms
+    centred = ("eight_schools", (y8, y8.abs() + 1.0, torch.zeros(1)))
+    assert "takes D=10" in tk.leapfrog_unsupported(centred, 12)
+    assert tk.generic_unsupported(centred, 10) is None
+    big_linear = ("linear", (torch.zeros(2048, 30), torch.zeros(2048),
+                             torch.zeros(2)))
+    assert "exceed" in tk.generic_unsupported(big_linear, 32)
+    wide_linear = ("linear", (torch.zeros(8000, 1), torch.zeros(8000),
+                              torch.zeros(2)))
+    assert "shared memory" in tk.generic_unsupported(wide_linear, 3)
+    assert "D >= 2" in tk.generic_unsupported(
+        ("linear", (torch.zeros(4, 0), torch.zeros(4), torch.zeros(2))), 1)
+    coin = ("coin", (torch.ones(129), torch.ones(129)))
+    assert "D <= 128" in tk.generic_unsupported(coin, 129)
+    assert tk.walker_tile(102400, 32) == tk.logistic_tile(102400, 256, 32)
     # a too-large model is routed to the composed engine when it is built
     from physicsbasedbayesianinference_tpu_torch import hmc
 

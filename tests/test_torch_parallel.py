@@ -22,6 +22,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -46,26 +47,48 @@ def spawn_ranks(script: str, k: int, tmp_path: Path, timeout: float = 240):
     """Run ``script`` as ``k`` rank processes (argv: rank, k, directory),
     joined by a gloo group through a file in ``tmp_path`` (no port), and
     return rank 0's results (``torch.load`` of ``rank0.pt``) and every
-    rank's standard output."""
+    rank's standard output.
+
+    Each rank writes its standard output and error to files in
+    ``tmp_path``, not to pipes, so that no rank can stall on a full pipe
+    while the others wait for it in a collective; all ranks are waited on
+    together, against one deadline. A failed spawn reports every rank's
+    return code and the tail of its standard error."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     env.pop("XLA_FLAGS", None)
     for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                  "MASTER_PORT"):
         env.pop(name, None)
-    procs = [subprocess.Popen(
-        [sys.executable, script, str(rank), str(k), str(tmp_path)],
-        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for rank in range(k)]
-    outs = []
+    logs = [(tmp_path / f"rank{rank}.out", tmp_path / f"rank{rank}.err")
+            for rank in range(k)]
+    procs = []
     try:
-        for p in procs:
-            out, err = p.communicate(timeout=timeout)
-            assert p.returncode == 0, err[-3000:]
-            outs.append(out)
+        for rank, (out, err) in enumerate(logs):
+            with open(out, "w") as fo, open(err, "w") as fe:
+                procs.append(subprocess.Popen(
+                    [sys.executable, script, str(rank), str(k),
+                     str(tmp_path)], cwd=ROOT, env=env, stdout=fo,
+                    stderr=fe, stdin=subprocess.DEVNULL))
+        deadline = time.monotonic() + timeout
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        report = [f"rank {rank}: return code {code}"
+                  + (" (killed at the {timeout} s limit)"
+                     .format(timeout=timeout) if code == -9 else "")
+                  + "\n" + err.read_text()[-1500:]
+                  for rank, (code, (_, err)) in enumerate(zip(codes, logs))]
+        raise AssertionError(f"{k}-rank spawn of {Path(script).name} "
+                             f"failed:\n" + "\n".join(report))
+    outs = [out.read_text() for out, _ in logs]
     return torch.load(tmp_path / "rank0.pt", weights_only=False), outs
 
 
@@ -74,6 +97,25 @@ def join_group(rank: int, k: int, directory: str):
     par.initialize_distributed(f"file://{directory}/rendezvous", k, rank,
                                device="cpu")
     return par.make_walker_mesh()
+
+
+def leave_group() -> None:
+    """End a rank process's group with the others: a rank that exits while
+    its gloo group is alive can abort in teardown (``terminate called
+    without an active exception``, return code -6) after it has done its
+    work, when a peer closes their connections first. A barrier, then the
+    group destroyed, before any rank exits."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def run_rank(worker) -> None:
+    """A test file run as one rank process: ``worker(rank, k, directory)``
+    from the command line, then :func:`leave_group`."""
+    worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+    leave_group()
 
 
 def _q(w, d, seed=0, scale=1.0):
@@ -150,17 +192,64 @@ def _worker(rank: int, k: int, directory: str) -> None:
     out["smc/fused"] = (res.log_evidence, res.num_stages, res.kernel_used,
                         par.gather_walkers(res.q, mesh), res.betas,
                         res.accept_history, res.final_step_size)
+    # a gather to rank 0: its result there is the all-gather's
+    block = torch.arange(6.0).reshape(3, 2) + 100.0 * rank
+    out["gather_dst0"] = (par.gather_walkers(block, mesh),
+                          par.gather_walkers(block, mesh, dst=0))
     # the command-line driver, last: it leaves the group
     from physicsbasedbayesianinference_tpu_torch import main as tmain
     stdout, stderr = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(stdout), \
-            contextlib.redirect_stderr(stderr):
+            contextlib.redirect_stderr(stderr), \
+            _received_bytes() as received:
         tmain.main(CLI + ["--output-path", f"{directory}/cli.npz"])
     out["cli"] = (stdout.getvalue(), stderr.getvalue())
+    out["cli_received"] = received
     if rank == 0:
         torch.save(out, Path(directory) / "rank0.pt")
     else:
-        print(json.dumps({"rank": rank, "cli_stdout": out["cli"][0]}))
+        print(json.dumps({"rank": rank, "cli_stdout": out["cli"][0],
+                          "cli_received": received,
+                          "gather_dst0_is_none": out["gather_dst0"][1]
+                          is None}))
+
+
+@contextlib.contextmanager
+def _received_bytes():
+    """``[(collective, bytes)]``: what each collective that the package
+    calls delivered to this rank while the block ran (the other ranks'
+    blocks of an all-gather, or of a gather to this rank; the buffer of
+    an all-reduce)."""
+    import torch.distributed as dist
+    log = []
+    orig = {name: getattr(dist, name)
+            for name in ("all_gather", "gather", "all_reduce")}
+
+    def size(t):
+        return t.numel() * t.element_size()
+
+    def all_gather(parts, x, *args, **kwargs):
+        log.append(("all_gather", size(x) * (len(parts) - 1)))
+        return orig["all_gather"](parts, x, *args, **kwargs)
+
+    def gather(x, gather_list=None, *args, **kwargs):
+        log.append(("gather", 0 if gather_list is None
+                    else size(x) * (len(gather_list) - 1)))
+        return orig["gather"](x, gather_list, *args, **kwargs)
+
+    def all_reduce(t, *args, **kwargs):
+        log.append(("all_reduce", size(t)))
+        return orig["all_reduce"](t, *args, **kwargs)
+
+    patched = {"all_gather": all_gather, "gather": gather,
+               "all_reduce": all_reduce}
+    for name, fn in patched.items():
+        setattr(dist, name, fn)
+    try:
+        yield log
+    finally:
+        for name, fn in orig.items():
+            setattr(dist, name, fn)
 
 
 @pytest.fixture(scope="module", params=[2, 4], ids=["K2", "K4"])
@@ -313,6 +402,29 @@ def test_cli_sharded_on_the_cpu(ranks):
         assert saved["samples"].shape == (20, 256, 2)
 
 
+def test_cli_sharded_gathers_the_samples_to_rank_0_only(ranks):
+    """The samples of a sharded CLI run go to rank 0 in one gather: no
+    collective of the run delivers another rank anything near a block of
+    samples ([20, 256 / K, 2] float32; what the others receive are the
+    warmup's small all-reduces), and rank 0's array is every rank's block
+    in rank order, as the all-gather gave it."""
+    k, _, out, stdouts = ranks
+    block = 20 * (256 // k) * 2 * 4
+    lead = out["cli_received"]
+    assert ("gather", (k - 1) * block) in lead
+    assert not any(name == "all_gather" and size >= block
+                   for name, size in lead)
+    for line in stdouts[1:]:
+        rank = json.loads(line.splitlines()[-1])
+        assert rank["gather_dst0_is_none"]
+        assert ["gather", 0] in rank["cli_received"]
+        assert max(size for _, size in rank["cli_received"]) < block
+    whole, to_lead = out["gather_dst0"]
+    assert torch.equal(to_lead, whole)
+    assert torch.equal(whole, torch.cat([torch.arange(6.0).reshape(3, 2)
+                                         + 100.0 * r for r in range(k)]))
+
+
 def test_shard_ensemble_specs_and_divisibility():
     """A [D] mass stays whole where D equals W; a per-walker mass is split;
     W not divisible by the group raises. A WalkerMesh without a process
@@ -365,4 +477,4 @@ def test_initialize_distributed_without_environment_is_a_noop(monkeypatch):
 
 
 if __name__ == "__main__":
-    _worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+    run_rank(_worker)

@@ -8,13 +8,12 @@ floor(W w_i) or ceil(W w_i) copies.
 
 from __future__ import annotations
 
-import sys
 
 import numpy as np
 import pytest
 import torch
 
-from test_torch_parallel import join_group, spawn_ranks
+from test_torch_parallel import join_group, run_rank, spawn_ranks
 
 from physicsbasedbayesianinference_tpu_torch import parallel as par
 from physicsbasedbayesianinference_tpu_torch import smc as tsmc
@@ -109,4 +108,4 @@ def test_ring_resampler_law_matches_jax(ranks):
 
 
 if __name__ == "__main__":
-    _worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+    run_rank(_worker)

@@ -11,13 +11,12 @@ float64 accelerations to 1e-12 relative of the dense ones.
 
 from __future__ import annotations
 
-import sys
 
 import numpy as np
 import pytest
 import torch
 
-from test_torch_parallel import join_group, spawn_ranks
+from test_torch_parallel import join_group, run_rank, spawn_ranks
 
 from physicsbasedbayesianinference_tpu_torch import parallel as par
 from physicsbasedbayesianinference_tpu_torch.ops import kernels
@@ -148,4 +147,4 @@ def test_pad_bodies_matches_jax_and_body_divisibility():
 
 
 if __name__ == "__main__":
-    _worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+    run_rank(_worker)
