@@ -150,6 +150,22 @@
    ``run_hmc(integrator="pallas_leapfrog")`` from 14c's posterior. 14b
    each new form in kernels B and D against its plain version on those
    states, timed (the linear form bitwise).
+15. Drives every sampler over the one-rank NCCL group of phase 13: 15a
+   ``run_chees_hmc(mesh=)`` on 8a's logistic regression (456 launches of
+   kernel B, 8a's bits), 15b ``run_parallel_tempering`` on a 1 x 1
+   replica mesh at phase 10's configuration (3600 launches of B, phase
+   10's bits), 15c ``run_nuts(mesh=)`` at phase 11's (its bits and host
+   reads), 15d the dense metric sharded at 12g's configuration (12g's
+   gates: its step folds the rank into its seed), 15e ``main.run`` with
+   ``sharded=True``: SMC against 12d's log Z bit for bit, a checkpointed
+   chees run stopped after its first chunk and resumed against the
+   uninterrupted run and 12c's, stream mode against 12f's rows. Each
+   prints its ms a transition beside the unsharded phase's, its
+   collectives and host copies a transition and its launches. 15w times a
+   warmup transition of ``sharded_run_hmc`` against ``run_hmc`` at the
+   bench configuration and prints the profiler's host operators that the
+   sharded one adds. With two or more cards 15a and 15e's SMC also run
+   with two processes (``--sharded-rank-15 PATH``).
 
 The line before the last is a JSON object with one entry per kernel, with
 its time beside its bound (``bound_ms``: the larger of the bytes it must
@@ -1597,6 +1613,7 @@ def main() -> None:
     torch.cuda.synchronize()
     seconds11 = time.perf_counter() - t0
     reads = nuts._host_read.reads - reads
+    reads11 = reads / (n_warm11 + n_samp11)
     var11, mean11 = torch.var_mean(res11.samples.reshape(-1, d11), dim=0)
     mean_err = (mean11 / sd11).abs().max().item()
     var_err = (var11 / sd11**2 - 1.0).abs().max().item()
@@ -1970,6 +1987,7 @@ def main() -> None:
             num_samples=64, num_steps=steps, thin=4, collect="stream",
             output_path=str(out)))
         data = np.asarray(native.read_samples(str(out)))
+        rows12f = data
         mean_err = float(np.abs(data.mean(0)).max())
         sd_err = float(np.abs(data.std(0) - 1.0).max())
         launched_12f = kernels.launch_counts()["fused_hmc_diag_quadratic"]
@@ -2138,7 +2156,11 @@ def main() -> None:
               "two_tiles_ratio_u_sqrtN_S": ratios, "allowed_ratio": allowed_e,
               **bound(4 * (6 * n16 + 4 * 8192), 12.0 * n16 * 8192),
               "ms": median_ms(lambda: kernels.nbody_accelerations_tiled(
-                  x16, None, sources=tiles[1], **kw_e))}
+                  x16, None, sources=tiles[1], **kw_e)),
+              "plain_ms": median_ms(
+                  lambda: kernels.nbody_accelerations_tiled_plain(
+                      x16, None, sources=tiles[1], **kw_e),
+                  reps=3, rounds=3)}
     print(json.dumps(e_src))
     print(json.dumps(e_tile))
 
@@ -2225,8 +2247,11 @@ def main() -> None:
             elif func in (aten._to_copy.default, aten.copy_.default):
                 src, dst = ((args[1], args[0]) if func is aten.copy_.default
                             else (args[0], out))
-                self.count += {src.device.type, dst.device.type} == {
-                    "cpu", "cuda"}
+                # under torch.func's transforms an operand may be a number
+                self.count += (isinstance(src, torch.Tensor)
+                               and isinstance(dst, torch.Tensor)
+                               and {src.device.type, dst.device.type}
+                               == {"cpu", "cuda"})
             return out
 
     def profiled_with_copies(run):
@@ -2519,7 +2544,6 @@ def main() -> None:
         "max_abs_x_err_vs_simulate": x_err13, "x_tolerance": tol13,
         "steps_per_s": n_ring / sec13e, "steps_per_s_phase_6": steps_per_s_6,
         "card": card}))
-    dist.destroy_process_group()
 
     # ---- 14. this slice: kernel A's bf16 trajectory, every example model ---
     # 14a: kernel A with trajectory_dtype=bfloat16, the TPU kernel's option
@@ -2864,6 +2888,328 @@ def main() -> None:
                 check_steps=2 if short else None,
                 plain_timing=slow if lin else dict(reps=2, rounds=3))
 
+    # ---- 15. every sampler over the walker group of phase 13 -----------------
+    # The one-rank NCCL group of phase 13, at full width. A group of one
+    # reduces in one order and a fused step at walker offset 0 draws the
+    # whole launch's bits, so 15a-15c and 15e's runs must be the unsharded
+    # phases' bits; 15d's dense step folds the rank into its seed, so it is
+    # another draw, held to 12g's gates. Each sub-phase prints its ms a
+    # transition beside the unsharded phase's (host clock around
+    # synchronised runs), its collectives and host copies a transition
+    # (from three short runs, whose differences are the transitions) and
+    # its launches.
+    def per_transition(run, short=((4, 2), (8, 2), (4, 6))):
+        """Collectives and host copies a warmup and a sampling transition
+        of ``run(num_warmup, num_samples)``, from three short runs."""
+        got = {}
+        for n_w, n_s in short:
+            calls = profiled_with_copies(lambda: run(n_w, n_s))
+            got[n_w, n_s] = (census(calls), calls["host_copies"],
+                             collectives(calls))
+        (a_w, a_s), (b_w, _), (_, c_s) = short
+        out = {}
+        for i, what in enumerate(("collectives", "host_copies")):
+            out[f"{what}_per_warmup_transition"] = (
+                got[b_w, a_s][i] - got[a_w, a_s][i]) / (b_w - a_w)
+            out[f"{what}_per_sampling_transition"] = (
+                got[a_w, c_s][i] - got[a_w, a_s][i]) / (c_s - a_s)
+        out["collectives_by_name_short_run"] = got[short[0]][2]
+        return out
+
+    def same(a, b):
+        return bool(torch.equal(a, b))
+
+    # 15a: ChEES on 8a's logistic regression, both phases in kernel B
+    kw15a = dict(num_warmup=n_warm8, num_samples=n_samp8,
+                 max_steps=max_steps8, init_step_size=0.05,
+                 collect="moments")
+    q15a = 0.3 * torch.randn(w, 32, generator=seeded(0), device=dev)
+    kernels.reset_launch_counts()
+    res15a, wall15a = timed(lambda: run_chees_hmc(
+        SEED + 8, mp_lr.potential, q15a, kernel="auto", mesh=mesh, **kw15a))
+    launched_15a = kernels.launch_counts()["fused_hmc_transition"]
+    by15a = dict(kernels.fused_hmc_transition.launches_by)
+    bits15a = all(same(a, b) for a, b in (
+        (res15a.state.ensemble.q, res8a.state.ensemble.q),
+        (res15a.mean, res8a.mean), (res15a.var, res8a.var),
+        (res15a.step_size, res8a.step_size),
+        (res15a.trajectory_time, res8a.trajectory_time)))
+    coll15a = per_transition(lambda n_w, n_s: run_chees_hmc(
+        SEED + 8, mp_lr.potential, q15a, kernel="auto", mesh=mesh,
+        **dict(kw15a, num_warmup=n_w, num_samples=n_s)))
+    print(json.dumps({
+        "phase": f"15a run_chees_hmc(mesh=) logistic regression N=256 W={w} "
+                 f"D=32 warmup={n_warm8} samples={n_samp8} one-rank NCCL "
+                 f"group",
+        "kernel_used": [res15a.warmup_kernel_used, res15a.kernel_used],
+        "launches": launched_15a, "launches_by": by15a,
+        "same_bits_as_8a": bits15a,
+        "sampling_ms": 1e3 * res15a.sampling_seconds / n_samp8,
+        "sampling_ms_8a": 1e3 * res8a.sampling_seconds / n_samp8,
+        "warmup_ms": 1e3 * res15a.warmup_seconds / n_warm8,
+        "warmup_ms_8a": 1e3 * res8a.warmup_seconds / n_warm8,
+        "wall_seconds": wall15a, **coll15a, "card": card}))
+    if not (bits15a and launched_15a == n_warm8 + n_samp8
+            and by15a["counted"] == n_samp8
+            and by15a["counted+proposal"] == n_warm8
+            and coll15a["collectives_per_warmup_transition"] == 2
+            and coll15a["collectives_per_sampling_transition"] == 0
+            and coll15a["host_copies_per_sampling_transition"] == 0):
+        fail(f"phase 15a off: 8a's bits {bits15a}, launches {launched_15a} "
+             f"({by15a}), per transition {coll15a}")
+
+    # 15b: parallel tempering on phase 10's mixture, a 1 x 1 replica mesh
+    rm15 = par.make_replica_mesh(1)
+    kw15b = dict(num_replicas=r10, beta_min=0.02, num_steps=10)
+    kernels.reset_launch_counts()
+    res15b, wall15b = timed(lambda: run_parallel_tempering(
+        SEED + 14, bimodal, q10, num_warmup=n_warm10, num_samples=n_samp10,
+        collect="samples", mesh=rm15, **kw15b))
+    counts15b = kernels.launch_counts()
+    launched_15b = counts15b["fused_hmc_transition"]
+    right15 = (res15b.samples[:, :, 0] > 0).float().mean().item()
+    bits15b = all(same(a, b) for a, b in (
+        (res15b.samples, res10.samples), (res15b.q, res10.q),
+        (res15b.accept_rate, res10.accept_rate),
+        (res15b.swap_rate, res10.swap_rate),
+        (res15b.step_sizes, res10.step_sizes)))
+    coll15b = per_transition(lambda n_w, n_s: run_parallel_tempering(
+        SEED + 14, bimodal, q10, num_warmup=n_w, num_samples=n_s,
+        collect="moments", mesh=rm15, **kw15b))
+    print(json.dumps({
+        "phase": f"15b run_parallel_tempering(mesh=) 1 x 1 replica mesh, "
+                 f"phase 10's mixture R={r10} W={w10}",
+        "kernel_used": res15b.kernel_used, "launches": launched_15b,
+        "same_bits_as_phase_10": bits15b, "right_mode_share": right15,
+        "right_mode_share_10": right,
+        "ms_per_transition": 1e3 * wall15b / (n_warm10 + n_samp10),
+        "ms_per_transition_10": 1e3 * seconds10 / (n_warm10 + n_samp10),
+        "sampling_ms": 1e3 * res15b.sampling_seconds / n_samp10,
+        "sampling_ms_10": 1e3 * res10.sampling_seconds / n_samp10,
+        **coll15b, "card": card}))
+    if not (bits15b and launched_15b == r10 * (n_warm10 + n_samp10)
+            and sum(counts15b.values()) == launched_15b
+            and coll15b["collectives_per_warmup_transition"] == 1
+            and coll15b["collectives_per_sampling_transition"] == 0
+            and coll15b["host_copies_per_sampling_transition"] == 0):
+        fail(f"phase 15b off: phase 10's bits {bits15b}, launches "
+             f"{counts15b}, right-mode share {right15}, per transition "
+             f"{coll15b}")
+
+    # 15c: lockstep NUTS at phase 11's configuration
+    kernels.reset_launch_counts()
+    reads = nuts._host_read.reads
+    res15c, wall15c = timed(lambda: run_nuts(
+        SEED + 15, target11, q11, num_warmup=n_warm11,
+        num_samples=n_samp11, max_depth=8, mesh=mesh))
+    reads15c = (nuts._host_read.reads - reads) / (n_warm11 + n_samp11)
+    bits15c = all(same(a, b) for a, b in (
+        (res15c.samples, res11.samples), (res15c.step_size, res11.step_size),
+        (res15c.accept_rate, res11.accept_rate),
+        (res15c.mean_depth, res11.mean_depth)))
+    coll15c = per_transition(lambda n_w, n_s: run_nuts(
+        SEED + 15, target11, q11, num_warmup=n_w, num_samples=n_s,
+        max_depth=8, collect="none", mesh=mesh),
+        short=((2, 1), (4, 1), (2, 3)))
+    print(json.dumps({
+        "phase": f"15c run_nuts(mesh=) phase 11's Gaussian W={w11} "
+                 f"max_depth=8 one-rank NCCL group",
+        "launches": sum(kernels.launch_counts().values()),
+        "same_bits_as_phase_11": bits15c,
+        "host_reads_per_transition": reads15c,
+        "host_reads_per_transition_11": reads11,
+        "sampling_ms": 1e3 * res15c.sampling_seconds / n_samp11,
+        "sampling_ms_11": 1e3 * res11.sampling_seconds / n_samp11,
+        "ms_per_transition": 1e3 * wall15c / (n_warm11 + n_samp11),
+        "ms_per_transition_11": 1e3 * seconds11 / (n_warm11 + n_samp11),
+        **coll15c, "card": card}))
+    if not (bits15c and sum(kernels.launch_counts().values()) == 0
+            and reads15c == reads11
+            and coll15c["collectives_per_warmup_transition"] == 1
+            and coll15c["collectives_per_sampling_transition"] == 0):
+        fail(f"phase 15c off: phase 11's bits {bits15c}, per transition "
+             f"{coll15c}")
+
+    # 15d: the dense metric at 12g's configuration (composed, no kernel;
+    # the rank folded into the step's seed, so held to 12g's gates)
+    q15d = torch.randn(w, d, generator=seeded(0), device=dev)
+    kw15d = dict(num_steps=steps, collect="moments", metric="dense")
+    kernels.reset_launch_counts()
+    res15d, wall15d = timed(lambda: par.sharded_run_hmc(
+        SEED + 3, pot.make_gaussian(mean7, cov=cov7), q15d, mesh=mesh,
+        num_warmup=n_warm, num_samples=n_samp, **kw15d))
+    mean_err = ((res15d.mean.cpu() - mean7) / sd7).abs().max().item()
+    var_err = (res15d.var.cpu() / sd7**2 - 1.0).abs().max().item()
+    cov_err = (torch.linalg.norm(res15d.metric_cov.cpu() - cov7)
+               / torch.linalg.norm(cov7)).item()
+    accept = res15d.accept_rate.item()
+    coll15d = per_transition(lambda n_w, n_s: par.sharded_run_hmc(
+        SEED + 3, pot.make_gaussian(mean7, cov=cov7), q15d, mesh=mesh,
+        num_warmup=n_w, num_samples=n_s, **kw15d))
+    print(json.dumps({
+        "phase": f"15d sharded_run_hmc(metric=dense) 12g's Gaussian W={w} "
+                 f"L={steps} one-rank NCCL group",
+        "kernel_used": res15d.kernel_used,
+        "launches": sum(kernels.launch_counts().values()),
+        "max_mean_err_sd": mean_err, "max_rel_var_err": var_err,
+        "metric_cov_rel_frobenius_err": cov_err, "accept_rate": accept,
+        "sampling_ms": 1e3 * res15d.sampling_seconds / n_samp,
+        "sampling_ms_12g": 1e3 * res12g.sampling_seconds / n_samp,
+        "warmup_ms": 1e3 * (wall15d - res15d.sampling_seconds) / n_warm,
+        **coll15d, "card": card}))
+    if not (res15d.kernel_used == "dense"
+            and sum(kernels.launch_counts().values()) == 0
+            and mean_err < 0.02 and var_err < 0.03
+            and cov_err < DENSE_COV_GATE and 0.6 <= accept <= 0.99
+            and coll15d["collectives_per_warmup_transition"] == 1
+            and coll15d["collectives_per_sampling_transition"] == 0):
+        fail(f"phase 15d off: mean {mean_err} sd (limit 0.02), var "
+             f"{var_err} (0.03), Sigma {cov_err} ({DENSE_COV_GATE}), accept "
+             f"{accept}, per transition {coll15d}")
+
+    # 15e: the CLI with sharded=True, in this process (main.run in the
+    # group): SMC against 12d's summary, a checkpointed chees run stopped
+    # after its first chunk and resumed against the uninterrupted run (and
+    # 12c's unsharded one), stream mode against 12f's rows
+    kernels.reset_launch_counts()
+    s15_smc, _ = cli_run(RunConfig(
+        model="builtin:std_normal_32d", sampler="smc", num_walkers=w,
+        num_steps=10, smc_beta0=0.02, sharded=True))
+    launched_15e_smc = kernels.launch_counts()["fused_hmc_diag_quadratic"]
+    smc_ok = (s15_smc["log_evidence"] == s_d1["log_evidence"]
+              and s15_smc["num_stages"] == s_d1["num_stages"]
+              and launched_15e_smc == 3 * s_d1["num_stages"]
+              and max(abs(a - b) for a, b in zip(
+                  s15_smc["posterior_mean"], s_d1["posterior_mean"])) < 1e-5)
+    with tempfile.TemporaryDirectory(prefix="pbbi_sharded_cli_") as tmp15:
+        tmp15 = Path(tmp15)
+        base = dict(model="example:eight_schools_noncentered",
+                    data_path=str(ROOT / "examples" /
+                                  "eight_schools.data.json"),
+                    sampler="chees", num_walkers=w, num_warmup=n_warm8,
+                    init_step_size=0.22, checkpoint_every=128, sharded=True)
+        kernels.reset_launch_counts()
+        (_, e15_first), sec15_first = timed(lambda: cli_run(RunConfig(
+            num_samples=128, checkpoint_dir=str(tmp15 / "a"), **base)))
+        s15_resumed, _ = cli_run(RunConfig(
+            num_samples=n_samp8, checkpoint_dir=str(tmp15 / "a"), **base))
+        launched_15e_es = kernels.launch_counts()["fused_hmc_transition"]
+        s15_full, e15_full = cli_run(RunConfig(
+            num_samples=n_samp8, checkpoint_dir=str(tmp15 / "b"), **base))
+        files15 = sorted(p.name for p in (tmp15 / "b" / str(n_samp8)
+                                          ).iterdir())
+        ckpt_ok = (s15_resumed["resumed_from"] == 128
+                   and all(s15_resumed[k] == s15_full[k] == s_cb[k]
+                           for k in ("posterior_mean", "posterior_var",
+                                     "step_size"))
+                   and launched_15e_es == n_warm8 + n_samp8
+                   and files15 == ["rank0-of1.pt"])
+        out15 = tmp15 / "15e.pbbi"
+        kernels.reset_launch_counts()
+        s15_stream, _ = cli_run(RunConfig(
+            model="builtin:std_normal_32d", num_walkers=8192, num_warmup=100,
+            num_samples=64, num_steps=steps, thin=4, collect="stream",
+            output_path=str(out15), sharded=True))
+        launched_15e_stream = kernels.launch_counts()[
+            "fused_hmc_diag_quadratic"]
+        rows15 = np.asarray(native.read_samples(str(out15)))
+        stream_ok = (np.array_equal(rows15, rows12f)
+                     and launched_15e_stream == 100 + 64 * 4
+                     and sorted(p.name for p in tmp15.iterdir()
+                                if p.is_file()) == ["15e.pbbi"])
+    saves15 = checkpoints(e15_full)
+    # with two cards, 15a and 15e's SMC at K = 2 (chip_smoke.py
+    # --sharded-rank-15 is a rank): SMC's log Z bit for bit K = 1's, the
+    # adapted ChEES moments within 8a's gates of K = 1's
+    k2_15 = None
+    if torch.cuda.device_count() >= 2:
+        with tempfile.TemporaryDirectory(prefix="pbbi_k2_") as tmp_k2:
+            out_k2 = Path(tmp_k2) / "k2.pt"
+            torchrun(2, ["chip_smoke.py", "--sharded-rank-15", str(out_k2)])
+            k2 = torch.load(out_k2)
+        mean_err = ((k2["mean"].to(dev) - res15a.mean)
+                    / torch.sqrt(res15a.var)).abs().max().item()
+        var_err = (k2["var"].to(dev) / res15a.var - 1.0).abs().max().item()
+        k2_15 = {"smc_log_evidence_bitwise_K1":
+                 k2["log_evidence"] == s15_smc["log_evidence"],
+                 "chees_mean_err_sd_vs_K1": mean_err,
+                 "chees_var_err_vs_K1": var_err,
+                 "chees_sampling_ms": k2["sampling_ms"],
+                 "chees_launches_rank_0": k2["launches"]}
+        if not (k2_15["smc_log_evidence_bitwise_K1"] and mean_err < 0.044
+                and var_err < 0.0625
+                and k2["launches"] == n_warm8 + n_samp8):
+            fail(f"phase 15 K=2 off: {k2_15}")
+    print(json.dumps({
+        "phase": f"15e CLI sharded=true in the one-rank NCCL group: smc "
+                 f"std_normal_32d W={w} (12d), chees eight schools "
+                 f"checkpointed every 128 resumed (12c), stream W=8192 (12f)",
+        "smc_log_evidence_bitwise_12d": smc_ok,
+        "smc_num_stages": s15_smc["num_stages"],
+        "smc_launches": launched_15e_smc,
+        "smc_ms_per_stage": 1e3 * s15_smc["wall_seconds"]
+        / s15_smc["num_stages"],
+        "chees_resumed_bitwise_uninterrupted_and_12c": ckpt_ok,
+        "chees_launches_first_and_resumed": launched_15e_es,
+        "chees_checkpoint_files": files15,
+        "chees_first_chunk_seconds": sec15_first,
+        "chees_save_ms": [c["save_ms"] for c in saves15],
+        "chees_chunk_ms": [c["chunk_ms"] for c in saves15],
+        "stream_rows_bitwise_12f": stream_ok,
+        "stream_launches": launched_15e_stream,
+        "stream_wall_seconds": s15_stream["wall_seconds"],
+        "stream_wall_seconds_12f": s12f["wall_seconds"],
+        "K2": k2_15 or "ran K=1 only: one CUDA device", "card": card}))
+    if not (smc_ok and ckpt_ok and stream_ok):
+        fail(f"phase 15e off: smc {smc_ok} ({s15_smc['log_evidence']} "
+             f"against {s_d1['log_evidence']}, launches {launched_15e_smc}), "
+             f"checkpointed chees {ckpt_ok}, stream {stream_ok}")
+
+    # 15w: where a sharded warmup transition's host time goes: run_hmc and
+    # sharded_run_hmc at the bench configuration, warmup only, at two
+    # lengths (the difference is the transitions, the rest the set-up),
+    # and the profiler's host table of the longer runs, by operator
+    def warm_table(run):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU]) as prof:
+            run()
+            torch.cuda.synchronize()
+        return {e.key: (e.count, e.self_cpu_time_total)
+                for e in prof.key_averages()}
+
+    std32w = pot.make_standard_normal(d)
+    q15w = torch.randn(w, d, generator=seeded(0), device=dev)
+    warm15 = {}
+    for label, fn in (("run_hmc", lambda n: run_hmc(
+            SEED, std32w, q15w, num_warmup=n, num_samples=0,
+            num_steps=steps, collect="none")),
+            ("sharded_run_hmc", lambda n: par.sharded_run_hmc(
+                SEED, std32w, q15w, mesh=mesh, num_warmup=n, num_samples=0,
+                num_steps=steps, collect="none"))):
+        walls = {n: min(timed(lambda: fn(n))[1] for _ in range(3))
+                 for n in (40, 200)}
+        warm15[label] = {
+            "ms_per_warmup_transition": 1e3 * (walls[200] - walls[40]) / 160,
+            "setup_ms": 1e3 * (walls[40] - 40 * (walls[200] - walls[40])
+                               / 160),
+            "table": warm_table(lambda: fn(200))}
+    diff = {}
+    for key, (count, us) in warm15["sharded_run_hmc"]["table"].items():
+        base_count, base_us = warm15["run_hmc"]["table"].get(key, (0, 0.0))
+        diff[key] = (count - base_count, (us - base_us) / 200)
+    top = sorted(diff.items(), key=lambda kv: -kv[1][1])[:12]
+    print(json.dumps({
+        "phase": f"15w warmup host time, sharded_run_hmc against run_hmc, "
+                 f"bench configuration W={w}, 200 warmup transitions",
+        **{label: {k: v for k, v in got.items() if k != "table"}
+           for label, got in warm15.items()},
+        "extra_host_us_per_transition_by_op": {
+            k: {"calls": c, "self_cpu_us": round(us, 2)}
+            for k, (c, us) in top},
+        "card": card}))
+    dist.destroy_process_group()
+
     def entry(name, source, replaces, launches, errs, main):
         return {"name": name, "case": main["case"], "route": "cuda",
                 "source": source,
@@ -2948,6 +3294,21 @@ def main() -> None:
         *[entry("leapfrog_trajectory", f"{CSRC}/forms.cuh", 140,
                 launched14d[label], [d14[label]["max_abs_err"]], d14[label])
           for label in d14],
+        # every sampler over the walker group (phase 15): kernel B's
+        # logistic form under sharded ChEES (15a), its mixture form under
+        # sharded PT (15b), and the sharded CLI's kernel A in SMC at the
+        # stage beta and in stream mode, and B's eight-schools form in its
+        # checkpointed chees (15e)
+        entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576, launched_15a,
+              lr_errs, lr_main),
+        entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576, launched_15b,
+              [b_mixture["max_abs_err"]], b_mixture),
+        entry("fused_hmc_diag_quadratic", SOURCE, 893, launched_15e_smc,
+              [a_scaled["max_abs_err"]], a_scaled),
+        entry("fused_hmc_diag_quadratic", SOURCE, 893, launched_15e_stream,
+              [a_main["max_abs_err"]], a_main),
+        entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576,
+              launched_15e_es, es_errs, es_main),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -2982,9 +3343,49 @@ def sharded_rank(out_path: str, step_size: float) -> None:
     dist.destroy_process_group()
 
 
+def sharded_rank_15(out_path: str) -> None:
+    """One rank of phase 15's K = 2 runs, started by torchrun where the
+    machine has two cards: 15a's ChEES on logistic regression and 15e's
+    SMC through the command-line driver, rank 0 saving what phase 15
+    compares to ``out_path``."""
+    import torch.distributed as dist
+    from physicsbasedbayesianinference_tpu_torch import main as cli
+    from physicsbasedbayesianinference_tpu_torch import models
+    from physicsbasedbayesianinference_tpu_torch import parallel as par
+    from physicsbasedbayesianinference_tpu_torch.chees import run_chees_hmc
+    from physicsbasedbayesianinference_tpu_torch.config import RunConfig
+    from physicsbasedbayesianinference_tpu_torch.ops import kernels
+    par.initialize_distributed()
+    mesh = par.make_walker_mesh()
+    dev = mesh.device
+    x_lr, y_lr = models.logistic_regression_data(256, 31)
+    mp = models.make_model_potential(models.logistic_regression,
+                                     (x_lr, y_lr), {})
+    q0 = 0.3 * torch.randn(102400, 32, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    kernels.reset_launch_counts()
+    res = run_chees_hmc(SEED + 8, mp.potential, q0, kernel="auto",
+                        mesh=mesh, num_warmup=200, num_samples=256,
+                        max_steps=256, init_step_size=0.05,
+                        collect="moments")
+    launches = kernels.launch_counts()["fused_hmc_transition"]
+    with contextlib.redirect_stderr(io.StringIO()):
+        summary = cli.run(RunConfig(
+            model="builtin:std_normal_32d", sampler="smc",
+            num_walkers=102400, num_steps=10, smc_beta0=0.02, sharded=True))
+    if mesh.rank == 0:
+        torch.save({"mean": res.mean.cpu(), "var": res.var.cpu(),
+                    "sampling_ms": 1e3 * res.sampling_seconds / 256,
+                    "launches": launches,
+                    "log_evidence": summary["log_evidence"]}, out_path)
+    dist.destroy_process_group()
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-rank"]:
         sharded_rank(sys.argv[2], float(sys.argv[3]))
+    elif sys.argv[1:2] == ["--sharded-rank-15"]:
+        sharded_rank_15(sys.argv[2])
     else:
         main()
     sys.exit(0)

@@ -16,8 +16,10 @@ CUDA, and the runtime: :class:`RunConfig`, checkpoints
 (:class:`CheckpointManager`), the sample sink (:class:`SampleSink`,
 :func:`read_samples`) and the command-line driver
 ``python -m physicsbasedbayesianinference_tpu_torch.main``. Multi-process
-runs (one process per card under ``torch.distributed``: walker-sharded HMC
-and SMC, the ring N-body forces) are in :mod:`.parallel`.
+runs (one process per card under ``torch.distributed``: every sampler over
+a walker group, parallel tempering over a replica x walker group, the ring
+N-body forces) are in :mod:`.parallel`; tree and plot helpers in
+:mod:`.utils`, the compile-and-run entry points in :mod:`.graft_entry`.
 """
 
 from . import (adaptation, checkpoint, chees, config, constants, device,

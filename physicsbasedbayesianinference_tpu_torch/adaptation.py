@@ -160,22 +160,35 @@ def covariance_init(num_dims: int, dtype=torch.float32,
         count=torch.zeros((), dtype=dtype, device=device))
 
 
-def covariance_update(state: CovarianceState, q: Tensor, *,
-                      max_abs: float = 1e6) -> CovarianceState:
-    """Chan et al. batch merge with a [W, D] slab (dense form)."""
+def covariance_batch(q: Tensor, *, max_abs: float = 1e6):
+    """A [W, D] slab's terms for :func:`covariance_merge`: ``(w, batch
+    mean, batch m2 [D, D])`` over its valid rows (``w`` their count)."""
     valid = _valid_rows(q, max_abs)
     w = torch.sum(valid.to(q.dtype))
-    n_new = state.count + w
     vcol = valid[:, None].to(q.dtype)
     qf = torch.where(torch.isfinite(q), q, 0.0)
     batch_mean = torch.sum(qf * vcol, dim=0) / torch.clamp_min(w, 1.0)
+    qc = (qf - batch_mean) * vcol
+    return w, batch_mean, qc.T @ qc
+
+
+def covariance_merge(state: CovarianceState, w: Tensor, batch_mean: Tensor,
+                     batch_m2: Tensor) -> CovarianceState:
+    """Chan et al.'s merge of a batch's terms into the running estimate
+    (dense form; a sharded run merges each rank's batch in rank order)."""
+    n_new = state.count + w
     delta = batch_mean - state.mean
     mean = state.mean + delta * (w / torch.clamp_min(n_new, 1.0))
-    qc = (qf - batch_mean) * vcol
-    m2 = (state.m2 + qc.T @ qc
+    m2 = (state.m2 + batch_m2
           + torch.outer(delta, delta)
           * (state.count * w / torch.clamp_min(n_new, 1.0)))
     return CovarianceState(mean=mean, m2=m2, count=n_new)
+
+
+def covariance_update(state: CovarianceState, q: Tensor, *,
+                      max_abs: float = 1e6) -> CovarianceState:
+    """Chan et al. batch merge with a [W, D] slab (dense form)."""
+    return covariance_merge(state, *covariance_batch(q, max_abs=max_abs))
 
 
 def regularized_covariance(state: CovarianceState, *, shrink: float = 5.0,
@@ -186,6 +199,29 @@ def regularized_covariance(state: CovarianceState, *, shrink: float = 5.0,
     w = n / (n + shrink)
     eye = torch.eye(cov.shape[0], dtype=cov.dtype, device=cov.device)
     return w * cov + (1.0 - w) * floor * eye
+
+
+def batch_terms(q: Tensor, *, dense: bool = False) -> tuple:
+    """A slab's batch terms as the pieces ``(w [1], mean, m2)`` of one
+    vector (``m2`` of :func:`variance_batch`, or of :func:`covariance_batch`
+    flattened with ``dense``): the caller joins them into a rank's row of
+    the samplers' all-reduce with whatever else the row carries."""
+    w, mean, m2 = (covariance_batch if dense else variance_batch)(q)
+    return w.reshape(1), mean, m2.reshape(-1)
+
+
+def merge_batch_terms(state, rows: Tensor):
+    """``state`` (a :class:`VarianceState` or :class:`CovarianceState`)
+    merged with each row of joined :func:`batch_terms` in order: a sharded
+    run's ranks, rank by rank (an unsharded run's one row)."""
+    d = state.mean.shape[0]
+    for row in rows:
+        if isinstance(state, CovarianceState):
+            state = covariance_merge(state, row[0], row[1:1 + d],
+                                     row[1 + d:].reshape(d, d))
+        else:
+            state = variance_merge(state, row[0], row[1:1 + d], row[1 + d:])
+    return state
 
 
 # ---------------------------------------------------------------------------

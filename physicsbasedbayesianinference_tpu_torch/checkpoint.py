@@ -13,18 +13,28 @@ t)`` integers, so no key needs packing.
 Each step is one directory ``<directory>/<step>/state.pt``, written under a
 temporary name and renamed into place, so a half-written step is never the
 latest; the oldest steps beyond ``max_to_keep`` are deleted after a save.
+
+A sharded run (``mesh=``, a walker group) writes one file a rank,
+``<directory>/<step>/rank<r>-of<K>.pt``, each renamed into place: the
+rank's block of the walker-leading state beside the group's scalars, which
+every rank holds alike. The latest step is the newest that every rank of
+the group finished (the minimum over the ranks of each rank's newest), so
+a run cut inside a save resumes from the step before; a step written by a
+group of another size is refused, naming both sizes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import re
 import shutil
 from typing import Any, Optional
 
 import torch
 
 _FILE = "state.pt"
+_RANK_FILE = re.compile(r"rank(\d+)-of(\d+)\.pt")
 _SCALARS = (bool, int, float, str, type(None))
 
 
@@ -89,27 +99,53 @@ def _rebuild(template: Any, prefix: str, flat: dict) -> Any:
 class CheckpointManager:
     """Numbered checkpoints under ``directory`` with retention: any state
     of dataclasses, dicts, sequences, tensors and Python numbers
-    round-trips."""
+    round-trips. ``mesh``: a walker group whose ranks each save and
+    restore their own file of a step (module docstring); every rank of the
+    group calls :meth:`latest_step` together."""
 
     directory: str
     max_to_keep: int = 3
+    mesh: Optional[Any] = None
 
     def __post_init__(self):
         self.directory = os.path.abspath(self.directory)
         os.makedirs(self.directory, exist_ok=True)
+        self._file = (_FILE if self.mesh is None else
+                      f"rank{self.mesh.rank}-of{self.mesh.size}.pt")
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, str(int(step)))
 
+    def file(self, step: int) -> str:
+        """This process's file of step ``step``."""
+        return os.path.join(self._path(step), self._file)
+
     def steps(self) -> list:
-        """The complete steps, ascending."""
+        """The steps this process finished writing, ascending."""
         return sorted(int(name) for name in os.listdir(self.directory)
                       if name.isdigit() and os.path.exists(
-                          os.path.join(self.directory, name, _FILE)))
+                          os.path.join(self.directory, name, self._file)))
+
+    def _check_group_size(self) -> None:
+        """Raise where the directory's rank files are another group's."""
+        sizes = {int(m.group(2)) for name in os.listdir(self.directory)
+                 if name.isdigit()
+                 for f in os.listdir(os.path.join(self.directory, name))
+                 for m in [_RANK_FILE.fullmatch(f)] if m}
+        size = 1 if self.mesh is None else self.mesh.size
+        other = sizes - {size}
+        if other:
+            raise ValueError(
+                f"the checkpoints in {self.directory} were written by a "
+                f"group of {sorted(other)[0]} ranks; this group has "
+                f"{size}: restore them into a group of the same size")
 
     def save(self, step: int, state: Any, *, force: bool = False) -> None:
         """Write ``state`` as step ``step``; an existing step is replaced
         with ``force`` and refused without it."""
+        if self.mesh is not None:
+            self._save_rank(step, state, force)
+            return
         final = self._path(step)
         if os.path.exists(final) and not force:
             raise FileExistsError(f"checkpoint step {step} exists in "
@@ -130,9 +166,41 @@ class CheckpointManager:
         for old_step in self.steps()[:-self.max_to_keep]:
             shutil.rmtree(self._path(old_step))
 
+    def _save_rank(self, step: int, state: Any, force: bool) -> None:
+        """This rank's file of step ``step``, written under a temporary
+        name and renamed into place; its own files of the oldest steps
+        deleted after it, and a step's directory once it is empty."""
+        final = self.file(step)
+        if os.path.exists(final) and not force:
+            raise FileExistsError(f"checkpoint step {step} exists in "
+                                  f"{self.directory} (force=True replaces)")
+        flat: dict = {}
+        _flatten(state, "", flat)
+        os.makedirs(self._path(step), exist_ok=True)
+        tmp = os.path.join(self._path(step),
+                           f".tmp-{self._file}-{os.getpid()}")
+        torch.save(flat, tmp)
+        os.replace(tmp, final)
+        for old_step in self.steps()[:-self.max_to_keep]:
+            os.remove(self.file(old_step))
+            try:  # the last rank out removes the directory
+                os.rmdir(self._path(old_step))
+            except OSError:
+                pass
+
     def latest_step(self) -> Optional[int]:
         steps = self.steps()
-        return steps[-1] if steps else None
+        if self.mesh is None:
+            if not steps:  # a sharded run's files are no state of this one
+                self._check_group_size()
+            return steps[-1] if steps else None
+        import torch.distributed as dist
+        self._check_group_size()
+        newest = torch.tensor([steps[-1] if steps else -1],
+                              device=self.mesh.device)
+        dist.all_reduce(newest, op=dist.ReduceOp.MIN, group=self.mesh.group)
+        step = int(newest.item())
+        return None if step < 0 else step
 
     def restore(self, template: Any, step: Optional[int] = None) -> Any:
         """The state of ``step`` (the latest by default) in the structure of
@@ -142,8 +210,10 @@ class CheckpointManager:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
-        flat = torch.load(os.path.join(self._path(step), _FILE),
-                          map_location="cpu", weights_only=True)
+        path = self.file(step)
+        if not os.path.exists(path):
+            self._check_group_size()
+        flat = torch.load(path, map_location="cpu", weights_only=True)
         expected: dict = {}
         _flatten(template, "", expected, copy=False)
         extra = sorted(set(flat) - set(expected))

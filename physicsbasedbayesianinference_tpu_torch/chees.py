@@ -39,12 +39,13 @@ import numpy as np
 import torch
 
 from .adaptation import (
+    batch_terms,
     build_warmup_schedule,
     da_init,
     da_update,
+    merge_batch_terms,
     regularized_mass,
     variance_init,
-    variance_update,
 )
 from .constants import Constants, NATURAL
 from .device import resolve_device
@@ -53,6 +54,7 @@ from .hmc import (
     FusedTransition,
     HMCState,
     StepKey,
+    _combine_moments,
     _step_generator,
     _synchronize,
     init_state,
@@ -60,6 +62,7 @@ from .hmc import (
     resolve_engine,
 )
 from .ops.potentials import batched_value_and_grad
+from .parallel.mesh import check_divisible, gather_rows
 
 Tensor = torch.Tensor
 
@@ -211,8 +214,10 @@ def build_fused_jittered_step(
     emit_proposal: bool = False,
 ):
     """The fused jittered transition: ``step(key, state, step_size,
-    num_steps, mass=None) -> (state', info)`` or, with ``emit_proposal``,
-    ``-> (state', info, (q1, p1))`` as the composed step's.
+    num_steps, mass=None, walker_offset=0) -> (state', info)`` or, with
+    ``emit_proposal``, ``-> (state', info, (q1, p1))`` as the composed
+    step's; ``walker_offset`` is the global index of the state's first
+    walker (a walker shard's, ``parallel.shard_map_kernel``).
 
     One launch a transition: kernel A for a potential with
     ``diag_quadratic`` (kernel B's diagonal form where the proposal is
@@ -231,14 +236,15 @@ def build_fused_jittered_step(
             f"no diag_quadratic and no usable device_form")
 
     def step(key: StepKey, state: HMCState, step_size, num_steps,
-             mass: Optional[Tensor] = None):
+             mass: Optional[Tensor] = None, *, walker_offset: int = 0):
         if not isinstance(num_steps, Tensor):
             raise ValueError("the fused jittered step takes its leapfrog "
                              "count as an int32 tensor (steps_for)")
         new_state, info, proposal = fused(
             key, state, step_size, mass,
             num_steps=num_steps.reshape(1).to(torch.int32),
-            max_steps=max_steps, emit_proposal=emit_proposal)
+            max_steps=max_steps, emit_proposal=emit_proposal,
+            walker_offset=walker_offset)
         if emit_proposal:
             return new_state, info, proposal
         return new_state, info
@@ -256,18 +262,40 @@ def chees_gradient(q0: Tensor, q1: Tensor, p1: Tensor, accept_prob: Tensor,
 
     with v1 the end-point velocity and centred means taken over the
     ensemble."""
+    return _chees_gradient(q0, q1, p1, accept_prob, halton, inv_mass,
+                           None)[0]
+
+
+def _chees_gradient(q0, q1, p1, accept_prob, halton, inv_mass, mesh,
+                    extra=()):
+    """:func:`chees_gradient` over the ranks of ``mesh`` (None: this
+    process alone), and the ranks' rows of the vectors ``extra`` joined,
+    which ride in the first of the two gathers: ``(g, [K, sum of their
+    lengths])``. The sums are taken on each rank and summed over the ranks
+    in rank order, so one rank's are its own bit for bit. The second
+    gather waits on the first: the gradient's sums need the group's
+    centres of this transition's proposal."""
+    d = q0.shape[1]
+    # every rank holds as many walkers (parallel.mesh.check_divisible)
+    num = q0.shape[0] * (1 if mesh is None else mesh.size)
     w = accept_prob + 1e-8
-    wsum = torch.sum(w)
-    q0c = q0 - torch.mean(q0, dim=0)
-    q1bar = torch.sum(w[:, None] * q1, dim=0) / wsum
-    q1c = q1 - q1bar
+    got = gather_rows(torch.cat((
+        torch.sum(q0, dim=0), torch.sum(w[:, None] * q1, dim=0),
+        torch.sum(w).reshape(1), *extra)), mesh)
+    sums = torch.sum(got[:, :2 * d + 1], dim=0)
+    wsum = sums[2 * d]
+    q0c = q0 - sums[:d] / num
+    q1c = q1 - sums[d:2 * d] / wsum
     a = torch.sum(q1c * q1c, dim=-1) - torch.sum(q0c * q0c, dim=-1)
     # -p1 undoes the momentum flip: the velocity in the forward direction
     b = torch.sum(q1c * (-p1 * inv_mass), dim=-1)
-    g = torch.sum(w * a * b) / wsum
+    second = torch.sum(gather_rows(torch.stack((
+        torch.sum(w * a * b), torch.sum(a * a), torch.sum(b * b))), mesh),
+        dim=0)
+    g = second[0] / wsum
     # scale-free across targets (the sign is what matters)
-    scale = torch.sqrt(torch.mean(a * a) * torch.mean(b * b)) + 1e-10
-    return halton * g / scale
+    scale = torch.sqrt((second[1] / num) * (second[2] / num)) + 1e-10
+    return halton * g / scale, got[:, 2 * d + 1:]
 
 
 @dataclasses.dataclass
@@ -306,6 +334,7 @@ def run_chees_hmc(
     constants: Constants = NATURAL,
     collect: str = "samples",
     kernel: str = "auto",
+    mesh=None,
 ) -> ChEESRunResult:
     """Warmup (dual-averaging step size, ChEES trajectory time and the
     diagonal metric together) then sampling with Halton-jittered trajectory
@@ -321,10 +350,30 @@ def run_chees_hmc(
     parity. ``"fused"`` forces both phases fused, ``"composed"`` both
     composed. The target distribution is the same either way; the fused
     engine draws from the Philox stream, the composed one from a
-    ``torch.Generator``."""
+    ``torch.Generator``.
+
+    ``mesh``: a walker group (``parallel.make_walker_mesh``). ``init_q`` is
+    then the whole ensemble, the same on every rank, of which the rank
+    takes its block (W divisible by the group's size). A fused step draws
+    by global walker index, a composed one with the rank folded into its
+    seed (``parallel.shard_map_kernel``'s rule). The warmup's ensemble
+    statistics are the group's: the acceptance, the variance's batch terms
+    (merged rank by rank) and the gradient's centring sums ride in one
+    all-reduce a transition, the gradient's own sums in a second. Every
+    rank thus adapts the same step size, tau and metric, draws the same
+    Halton count, and a sampling transition makes no collective; the end
+    of sampling makes one (the rates and the streamed moments). Scalars
+    and moments are the group's; the state and samples are the rank's
+    block.
+    """
     if collect not in ("samples", "moments", "none"):
         raise ValueError(f"bad collect={collect!r}")
-    q = torch.as_tensor(init_q, device=resolve_device(None, init_q))
+    q = torch.as_tensor(init_q, device=resolve_device(
+        None if mesh is None else mesh.device, init_q))
+    if mesh is not None:
+        from .parallel.sharded import fold_rank
+        check_divisible(q.shape[0], mesh)
+        q = q[mesh.block(q.shape[0])].to(mesh.device).contiguous()
     engine = resolve_engine(kernel, potential_fn, q)
     init_fn, step_fn = build_jittered_hmc_kernel(
         potential_fn, max_steps=max_steps, temperature=temperature,
@@ -343,6 +392,15 @@ def run_chees_hmc(
         if num_warmup > 0 and warm_fused_wanted:
             fused_warm_step = build_fused_jittered_step(
                 potential_fn, emit_proposal=True, **build)
+    # a shard draws as the rank's part of the whole ensemble
+    offset = 0 if mesh is None else mesh.rank * num_walkers
+    composed_seed = seed if mesh is None else fold_rank(seed, mesh.rank)
+
+    def fused(step, t, *args):
+        return step((seed, t), *args, walker_offset=offset)
+
+    def composed(t, *args):
+        return step_fn((composed_seed, t), *args)
 
     halton_all = torch.as_tensor(
         halton_sequence(num_warmup + num_samples)).to(device=device,
@@ -361,23 +419,31 @@ def run_chees_hmc(
         da = da_init(step_size)
         ch = chees_init(tau, dtype)
         varst = variance_init(num_dims, dtype, device)
+        track = seg.update_mass and adapt_mass
         for _ in range(seg.length):
             h = halton_all[t]
             eps = torch.exp(da.log_step)
             n = steps_for(torch.exp(ch.log_tau), h, eps, max_steps)
             q0 = state.ensemble.q
-            warm = fused_warm_step if fused_warm_step is not None else step_fn
-            state, info, (q1, p1) = warm((seed, t), state, eps, n)
+            if fused_warm_step is not None:
+                state, info, (q1, p1) = fused(fused_warm_step, t, state,
+                                              eps, n)
+            else:
+                state, info, (q1, p1) = composed(t, state, eps, n)
             t += 1
-            da = da_update(da, torch.mean(info.accept_prob),
-                           target=target_accept)
-            g = chees_gradient(q0, q1, p1, info.accept_prob, h,
-                               1.0 / state.ensemble.mass)
+            # the acceptance and the variance's batch terms ride in the
+            # gradient's first gather, one row a rank
+            parts = (torch.mean(info.accept_prob).reshape(1),
+                     *(batch_terms(state.ensemble.q) if track else ()))
+            g, got = _chees_gradient(q0, q1, p1, info.accept_prob, h,
+                                     1.0 / state.ensemble.mass, mesh, parts)
+            da = da_update(da, torch.mean(got[:, 0]), target=target_accept)
             ch = chees_update(ch, g, lr=adapt_lr)
-            varst = variance_update(varst, state.ensemble.q)
+            if track:
+                varst = merge_batch_terms(varst, got[:, 1:])
         step_size = torch.exp(da.log_avg_step)
         tau = torch.exp(ch.log_tau)
-        if seg.update_mass and adapt_mass:
+        if track:
             state = state.replace(ensemble=state.ensemble.replace(
                 mass=1.0 / regularized_mass(varst)))
     _synchronize(device)
@@ -392,9 +458,9 @@ def run_chees_hmc(
     for _ in range(num_samples):
         n = steps_for(tau, halton_all[t], step_size, max_steps)
         if fused_step is not None:
-            state, info = fused_step((seed, t), state, step_size, n)
+            state, info = fused(fused_step, t, state, step_size, n)
         else:
-            state, info, _ = step_fn((seed, t), state, step_size, n)
+            state, info, _ = composed(t, state, step_size, n)
         t += 1
         accepts.append(torch.mean(info.accept_prob))
         divs.append(torch.mean(info.divergent.to(dtype)))
@@ -418,6 +484,13 @@ def run_chees_hmc(
         accept_rate = torch.full((), math.nan, dtype=dtype, device=device)
         divergence_rate = accept_rate.clone()
         mean_num_steps = accept_rate.clone()
+    # the group's rates and moments (this process's alone without a mesh)
+    got = gather_rows(torch.cat((accept_rate.reshape(1),
+                                 divergence_rate.reshape(1), mean, m2)), mesh)
+    accept_rate = torch.sum(got[:, 0]) / got.shape[0]
+    divergence_rate = torch.sum(got[:, 1]) / got.shape[0]
+    if n_cnt:
+        mean, m2, n_cnt = _combine_moments(got[:, 2:], n_cnt, num_dims)
     _synchronize(device)
     sampling_seconds = _time.perf_counter() - t0
 

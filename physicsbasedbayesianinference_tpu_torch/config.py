@@ -5,11 +5,10 @@ The fields and defaults are the JAX package's, so a JSON file written by
 either package loads in the other, plus ``device``: where the command-line
 driver (:mod:`.main`) puts every tensor. ``kernel`` takes ``auto | fused |
 composed`` (``hmc.resolve_engine``); the JAX name ``"xla"`` is refused.
-``sharded=True`` runs HMC with the diagonal metric over a walker group
-(``parallel.sharded_run_hmc``), uncheckpointed and not in stream mode;
-every other sharded run raises naming what is missing: the JAX package
-sends those through GSPMD with ``kernel="xla"``, which the port does not
-have.
+``sharded=True`` runs every sampler over a walker group, one process per
+device (:mod:`.main`), checkpointed and in stream mode too: where the JAX
+package sends its sharded runs other than hmc through GSPMD with
+``kernel="xla"``, each rank here runs the fused kernels on its block.
 """
 
 from __future__ import annotations
@@ -61,7 +60,7 @@ class RunConfig:
     pt_beta_min: float = 0.05
 
     # execution
-    sharded: bool = False            # hmc over a walker group (torchrun)
+    sharded: bool = False            # over a walker group (torchrun)
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 0        # 0 = only final
     output_path: Optional[str] = None  # .npz samples/summary dump
@@ -77,20 +76,6 @@ class RunConfig:
             raise ValueError(f"bad kernel={self.kernel!r} (want "
                              f"{'|'.join(KERNELS)}; 'xla' is the JAX "
                              f"package's name for 'composed')")
-        if not self.sharded:
-            return
-        missing = (
-            f"sampler={self.sampler!r} (sharded runs take sampler='hmc')"
-            if self.sampler != "hmc" else
-            "metric='dense'" if self.metric == "dense" else
-            "checkpoint_dir (per-rank checkpoint shards)"
-            if self.checkpoint_dir else
-            "collect='stream'" if self.collect == "stream" else None)
-        if missing:
-            raise ValueError(
-                f"sharded=True with {missing} is not ported yet (the JAX "
-                f"package runs it through GSPMD with kernel='xla'; "
-                f"ROADMAP.md queue 1 item 11)")
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2)

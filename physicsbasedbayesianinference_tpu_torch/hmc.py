@@ -48,17 +48,15 @@ from typing import Callable, Optional, Union
 import torch
 
 from .adaptation import (
+    batch_terms,
     build_warmup_schedule,
     covariance_init,
-    covariance_update,
     da_init,
     da_update,
+    merge_batch_terms,
     regularized_covariance,
     regularized_mass,
-    variance_batch,
     variance_init,
-    variance_merge,
-    variance_update,
 )
 from .constants import Constants, NATURAL
 from .device import resolve_device
@@ -651,7 +649,9 @@ def run_hmc(
     terms, merged rank by rank with Chan's formula), a sampling transition
     none, and the end of sampling one (the rates and the streamed
     moments). Scalars and moments are the same on every rank; the state
-    and samples are this rank's block. ``metric="dense"`` is not sharded.
+    and samples are this rank's block. With ``metric="dense"`` the batch
+    terms are the covariance's (``[D, D]`` a rank), and the dense step,
+    composed, has the rank folded into its seed.
     """
     if collect not in ("samples", "moments", "none"):
         raise ValueError(f"bad collect={collect!r}")
@@ -687,16 +687,12 @@ def run_hmc(
     if mesh is None:
         mesh = hk.mesh
     if mesh is not None:
-        if dense:
-            raise ValueError(
-                "metric='dense' on a walker mesh is not ported yet (the JAX "
-                "package runs it through GSPMD): run it unsharded")
         if hk.mesh is None:
             from .parallel.sharded import shard_map_kernel
             hk = shard_map_kernel(hk, mesh)
         elif hk.mesh is not mesh:
             raise ValueError("the kernel is bound to another walker mesh")
-        from .parallel.mesh import gather_rows
+    from .parallel.mesh import gather_rows
     state = hk.init(q, mass=mass)
     num_walkers, num_dims = state.ensemble.q.shape
     dtype, device = q.dtype, q.device
@@ -720,22 +716,13 @@ def run_hmc(
         for _ in range(seg.length):
             state, info = step((seed, t), state, torch.exp(da.log_step))
             t += 1
-            accept = torch.mean(info.accept_prob)
-            if mesh is not None:
-                # every rank's mean and batch terms, in rank order
-                parts = [accept.reshape(1)]
-                if track:
-                    w, b_mean, b_m2 = variance_batch(state.ensemble.q)
-                    parts += [w.reshape(1), b_mean, b_m2]
-                rows = gather_rows(torch.cat(parts), mesh)
-                accept = torch.sum(rows[:, 0]) / mesh.size
-                for row in rows if track else ():
-                    est = variance_merge(est, row[1], row[2:2 + num_dims],
-                                         row[2 + num_dims:])
-            elif track:
-                est = (covariance_update if dense else variance_update)(
-                    est, state.ensemble.q)
-            da = da_update(da, accept, target=target_accept,
+            # every rank's mean and batch terms, merged in rank order
+            accept = torch.mean(info.accept_prob).reshape(1)
+            rows = gather_rows(torch.cat((accept, *batch_terms(
+                state.ensemble.q, dense=dense))) if track else accept, mesh)
+            if track:
+                est = merge_batch_terms(est, rows[:, 1:])
+            da = da_update(da, torch.mean(rows[:, 0]), target=target_accept,
                            enabled=adapt_step_size)
         if adapt_step_size:
             step_size = torch.exp(da.log_avg_step)
@@ -777,14 +764,13 @@ def run_hmc(
     else:  # as the JAX package: the mean of no transitions is NaN
         accept_rate = torch.full((), math.nan, dtype=dtype, device=device)
         divergence_rate = accept_rate.clone()
-    if mesh is not None:  # the group's rates and moments
-        rows = gather_rows(torch.cat((accept_rate.reshape(1),
-                                      divergence_rate.reshape(1), mean, m2)),
-                           mesh)
-        accept_rate = torch.sum(rows[:, 0]) / mesh.size
-        divergence_rate = torch.sum(rows[:, 1]) / mesh.size
-        if n:  # streamed moments
-            mean, m2, n = _combine_moments(rows[:, 2:], n, num_dims)
+    # the group's rates and moments (this process's alone without a mesh)
+    rows = gather_rows(torch.cat((accept_rate.reshape(1),
+                                  divergence_rate.reshape(1), mean, m2)), mesh)
+    accept_rate = torch.sum(rows[:, 0]) / rows.shape[0]
+    divergence_rate = torch.sum(rows[:, 1]) / rows.shape[0]
+    if n:  # streamed moments
+        mean, m2, n = _combine_moments(rows[:, 2:], n, num_dims)
     _synchronize(device)
     sampling_seconds = _time.perf_counter() - t0
 

@@ -23,8 +23,11 @@ Model references:
 
 ``numpyro:`` references are the JAX package's only: NumPyro is JAX.
 
-``sharded=True`` (hmc with the diagonal metric) runs one process per
-device, each on its block of the walkers (``parallel.sharded_run_hmc``):
+``sharded=True`` runs one process per device, each on its block of the
+walkers, for every sampler (hmc with either metric, chees, nuts, smc, and
+pt with its walkers sharded and every rung on every rank), checkpointed
+(one file a rank and step) and in stream mode (rank 0 writes the sample
+file):
 
     python -m torch.distributed.run --nproc_per_node=K \
         -m physicsbasedbayesianinference_tpu_torch.main --config run.json
@@ -32,7 +35,9 @@ device, each on its block of the walkers (``parallel.sharded_run_hmc``):
 Every rank draws the same global initial positions and keeps its block;
 the summary, the ``#`` lines and the ``.npz`` come from rank 0 (its
 samples gathered from every rank). Started without a launcher it runs as
-a group of one process.
+a group of one process. Each rank runs the fused kernels on its block
+where the engine rule finds one (the JAX package's sharded runs other
+than hmc go through GSPMD with its composed engine).
 
 Randomness: the run draws its initial positions from a seed derived from
 ``seed`` and runs the sampler with key ``seed``; transition ``t`` (warmup
@@ -45,6 +50,7 @@ for bit.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import inspect
 import json
@@ -61,6 +67,7 @@ from .config import RunConfig
 from .constants import NATURAL, SI, Constants
 from .hmc import _splitmix64, _synchronize, resolve_engine
 from .ops import kernels
+from .parallel.mesh import gather_rows, gather_walkers
 
 # Version of the checkpoint payload's structure; restore rejects another.
 CHECKPOINT_SCHEMA = 1
@@ -213,18 +220,18 @@ def run(cfg: RunConfig) -> dict:
     t0 = time.perf_counter()
     summary: dict = {"config": dataclasses.asdict(cfg)}
     if cfg.collect == "stream":
-        summary.update(_stream_run(cfg, inputs))
+        summary.update(_stream_run(cfg, inputs, mesh))
     elif cfg.sampler == "smc" and cfg.checkpoint_dir:
-        summary.update(_checkpointed_smc_run(cfg, inputs))
+        summary.update(_checkpointed_smc_run(cfg, inputs, mesh))
     elif cfg.sampler in ("hmc", "nuts", "chees", "pt") and cfg.checkpoint_dir:
-        summary.update(_checkpointed_run(cfg, inputs))
+        summary.update(_checkpointed_run(cfg, inputs, mesh))
     else:
         samples = _sample(cfg, inputs, summary, mesh)
         summary["wall_seconds"] = round(time.perf_counter() - t0, 3)
         if samples is not None and mesh is not None:
-            from .parallel.mesh import gather_walkers
             whole = gather_walkers(samples.transpose(0, 1), mesh, dst=0)
-            samples = None if whole is None else whole.transpose(0, 1)
+            samples = (None if whole is None
+                       else whole.transpose(0, 1).contiguous())
         if samples is not None:
             _summarize(samples, inputs.constrain, summary)
         if cfg.output_path and lead:
@@ -258,7 +265,8 @@ def _sample(cfg: RunConfig, inputs: RunInputs, summary: dict, mesh=None):
                   **common)
         if mesh is not None:
             from .parallel.sharded import sharded_run_hmc
-            res = sharded_run_hmc(seed, pot, q0, mesh=mesh, **kw)
+            res = sharded_run_hmc(seed, pot, q0, mesh=mesh,
+                                  metric=cfg.metric, **kw)
         else:
             from .hmc import run_hmc
             res = run_hmc(seed, pot, q0, metric=cfg.metric, **kw)
@@ -279,7 +287,7 @@ def _sample(cfg: RunConfig, inputs: RunInputs, summary: dict, mesh=None):
             target_accept=cfg.target_accept, adapt_mass=cfg.adapt_mass,
             # NUTS streams no moments: the JAX run_nuts keeps no samples
             collect="samples" if cfg.collect == "samples" else "none",
-            **common)
+            mesh=mesh, **common)
         summary.update(
             accept_rate=float(res.accept_rate),
             divergence_rate=float(res.divergence_rate),
@@ -291,7 +299,7 @@ def _sample(cfg: RunConfig, inputs: RunInputs, summary: dict, mesh=None):
             seed, pot, q0, num_warmup=cfg.num_warmup,
             num_samples=cfg.num_samples, init_step_size=cfg.init_step_size,
             target_accept=cfg.target_accept, kernel=cfg.kernel,
-            collect=cfg.collect, **common)
+            collect=cfg.collect, mesh=mesh, **common)
         summary.update(
             accept_rate=float(res.accept_rate),
             divergence_rate=float(res.divergence_rate),
@@ -308,7 +316,7 @@ def _sample(cfg: RunConfig, inputs: RunInputs, summary: dict, mesh=None):
             num_samples=cfg.num_samples, num_steps=cfg.num_steps,
             init_step_size=cfg.init_step_size,
             target_accept=cfg.target_accept, kernel=cfg.kernel,
-            collect=cfg.collect, **common)
+            collect=cfg.collect, mesh=mesh, **common)
         summary.update(
             accept_rates=_list(res.accept_rate),
             swap_rates=_list(res.swap_rate),
@@ -321,7 +329,8 @@ def _sample(cfg: RunConfig, inputs: RunInputs, summary: dict, mesh=None):
             seed, pot, q0, num_mutation_steps=3,
             num_leapfrog_steps=cfg.num_steps,
             init_step_size=cfg.init_step_size, beta0=cfg.smc_beta0,
-            max_stages=cfg.smc_max_stages, kernel=cfg.kernel, **common)
+            max_stages=cfg.smc_max_stages, kernel=cfg.kernel, mesh=mesh,
+            **common)
         summary.update(
             log_evidence=float(res.log_evidence),
             num_stages=int(res.num_stages),
@@ -379,32 +388,40 @@ def _restore(cfg: RunConfig, mgr, template: dict, latest: int) -> dict:
             f"checkpoint schema v{payload['schema']} in {cfg.checkpoint_dir}"
             f" != current v{CHECKPOINT_SCHEMA}; delete the directory to "
             f"start fresh")
-    print(f"# resumed from checkpoint step {latest} in "
-          f"{cfg.checkpoint_dir}", file=sys.stderr)
+    if _leads(mgr.mesh):
+        print(f"# resumed from checkpoint step {latest} in "
+              f"{cfg.checkpoint_dir}", file=sys.stderr)
     return payload
 
 
+def _leads(mesh) -> bool:
+    """Whether this process prints and writes: rank 0 of a sharded run."""
+    return mesh is None or mesh.rank == 0
+
+
 def _save(mgr, step: int, payload: dict, chunk_ms: float) -> None:
-    """Save ``payload`` as ``step`` and print its size and times."""
+    """Save ``payload`` as ``step`` and print its size and times (a
+    sharded run: rank 0's file)."""
     t0 = time.perf_counter()
     with diagnostics.trace_annotation("checkpoint_save"):
         mgr.save(step, payload, force=True)
     save_ms = 1e3 * (time.perf_counter() - t0)
-    nbytes = os.path.getsize(os.path.join(mgr.directory, str(step),
-                                          "state.pt"))
-    print("# checkpoint " + json.dumps({
-        "step": step, "bytes": nbytes, "save_ms": save_ms,
-        "chunk_ms": chunk_ms}), file=sys.stderr)
+    if _leads(mgr.mesh):
+        print("# checkpoint " + json.dumps({
+            "step": step, "bytes": os.path.getsize(mgr.file(step)),
+            "save_ms": save_ms, "chunk_ms": chunk_ms}), file=sys.stderr)
 
 
-def _sampler_pieces(cfg: RunConfig, inputs: RunInputs):
+def _sampler_pieces(cfg: RunConfig, inputs: RunInputs, mesh=None):
     """For hmc, nuts, chees and pt: ``(warm, tstep, template, get_q)``.
     ``warm()`` runs the warmup of the sampler's ``run_*`` (``num_samples=
     0``) and returns ``(state, step size, tau)``; ``tstep(i, state,
     step_size, tau)`` is sampling transition ``i`` as that ``run_*`` takes
     it (key ``(seed, num_warmup + i)``) and returns ``(state, mean accept
     probability)``; ``template`` is a state of the right shapes;
-    ``get_q(state)`` the positions whose moments are streamed."""
+    ``get_q(state)`` the positions whose moments are streamed. With
+    ``mesh`` the states are this rank's block, and the steps draw as the
+    rank's part of the whole ensemble, as the sharded ``run_*`` does."""
     pot, q0, seed = inputs.potential, inputs.init_q, inputs.seed
     num_dims, dtype, device = q0.shape[-1], q0.dtype, q0.device
     common = dict(temperature=cfg.temperature, constants=inputs.constants)
@@ -413,6 +430,7 @@ def _sampler_pieces(cfg: RunConfig, inputs: RunInputs):
                    target_accept=cfg.target_accept, collect="none", **common)
     zero = torch.zeros((), dtype=dtype, device=device)
     t0 = cfg.num_warmup
+    block = q0 if mesh is None else q0[mesh.block(q0.shape[0])].contiguous()
 
     def get_q(st):
         return st.ensemble.q
@@ -426,30 +444,33 @@ def _sampler_pieces(cfg: RunConfig, inputs: RunInputs):
                  if resolve_engine(cfg.kernel, pot, q0) == "fused"
                  else build_hmc_kernel)
         kern = build(pot, num_steps=cfg.num_steps, **common)
+        if mesh is not None:
+            from .parallel.sharded import shard_map_kernel
+            kern = shard_map_kernel(kern, mesh)
 
         def warm():
-            w = run_hmc(seed, pot, q0, num_steps=cfg.num_steps,
-                        adapt_mass=cfg.adapt_mass, kernel=cfg.kernel,
-                        **warm_kw)
+            w = run_hmc(seed, pot, block, num_steps=cfg.num_steps,
+                        adapt_mass=cfg.adapt_mass, kernel=kern, **warm_kw)
             return w.state, w.step_size, zero
 
         def tstep(i, st, eps, tau):
             st, info = kern.step((seed, t0 + i), st, eps)
             return st, torch.mean(info.accept_prob)
-        return warm, tstep, kern.init(q0), get_q
+        return warm, tstep, kern.init(block), get_q
     if cfg.sampler == "nuts":
         from .nuts import build_nuts_kernel, run_nuts
-        kern = build_nuts_kernel(pot, max_depth=cfg.max_depth, **common)
+        kern = build_nuts_kernel(pot, max_depth=cfg.max_depth, mesh=mesh,
+                                 **common)
 
         def warm():
             w = run_nuts(seed, pot, q0, max_depth=cfg.max_depth,
-                         adapt_mass=cfg.adapt_mass, **warm_kw)
+                         adapt_mass=cfg.adapt_mass, mesh=mesh, **warm_kw)
             return w.state, w.step_size, zero
 
         def tstep(i, st, eps, tau):
             st, info = kern.step((seed, t0 + i), st, eps)
             return st, torch.mean(info.accept_prob)
-        return warm, tstep, kern.init(q0), get_q
+        return warm, tstep, kern.init(block), get_q
     if cfg.sampler == "chees":
         from .chees import (DEFAULT_MAX_STEPS, build_fused_jittered_step,
                             build_jittered_hmc_kernel, halton_sequence,
@@ -463,32 +484,39 @@ def _sampler_pieces(cfg: RunConfig, inputs: RunInputs):
         # the Halton draws run_chees_hmc would take for the whole run
         halton = torch.as_tensor(halton_sequence(
             cfg.num_warmup + cfg.num_samples)).to(device=device, dtype=dtype)
+        offset, composed_seed = 0, seed
+        if mesh is not None:
+            from .parallel.sharded import fold_rank
+            offset = mesh.rank * block.shape[0]
+            composed_seed = fold_rank(seed, mesh.rank)
 
         def warm():
             w = run_chees_hmc(seed, pot, q0, max_steps=max_steps,
-                              kernel=cfg.kernel, **warm_kw)
+                              kernel=cfg.kernel, mesh=mesh, **warm_kw)
             return w.state, w.step_size, w.trajectory_time
 
         def tstep(i, st, eps, tau):
             n = steps_for(tau, halton[t0 + i], eps, max_steps)
             if fused is not None:
-                st, info = fused((seed, t0 + i), st, eps, n)
+                st, info = fused((seed, t0 + i), st, eps, n,
+                                 walker_offset=offset)
             else:
-                st, info, _ = step_fn((seed, t0 + i), st, eps, n)
+                st, info, _ = step_fn((composed_seed, t0 + i), st, eps, n)
             return st, torch.mean(info.accept_prob)
-        return warm, tstep, init_fn(q0), get_q
-    # pt: the replicas' (q, u, g); per-replica step sizes
+        return warm, tstep, init_fn(block), get_q
+    # pt: the replicas' (q, u, g); per-replica step sizes; with a mesh its
+    # walkers are sharded and every rung is on every rank
     from .tempering import (build_pt_transition, geometric_ladder,
                             run_parallel_tempering)
     betas = geometric_ladder(cfg.pt_replicas, cfg.pt_beta_min, dtype, device)
     transition, _, _ = build_pt_transition(
         pot, betas=betas, num_dims=num_dims, num_steps=cfg.num_steps,
-        kernel=cfg.kernel, dtype=dtype, device=device, **common)
+        kernel=cfg.kernel, dtype=dtype, device=device, mesh=mesh, **common)
 
     def warm():
         w = run_parallel_tempering(
             seed, pot, q0, betas=betas, num_steps=cfg.num_steps,
-            kernel=cfg.kernel, **warm_kw)
+            kernel=cfg.kernel, mesh=mesh, **warm_kw)
         return {"q": w.q, "u": w.u, "g": w.g}, w.step_sizes, zero
 
     def tstep(i, st, eps, tau):
@@ -496,17 +524,16 @@ def _sampler_pieces(cfg: RunConfig, inputs: RunInputs):
                                      st["g"], eps, i)
         return {"q": q, "u": u, "g": g}, torch.mean(acc)
 
-    r = betas.shape[0]
-    template = {"q": torch.zeros((r,) + tuple(q0.shape), dtype=dtype,
+    r, w_b = betas.shape[0], block.shape[0]
+    template = {"q": torch.zeros((r, w_b, num_dims), dtype=dtype,
                                  device=device),
-                "u": torch.zeros((r, q0.shape[0]), dtype=dtype,
-                                 device=device),
-                "g": torch.zeros((r,) + tuple(q0.shape), dtype=dtype,
+                "u": torch.zeros((r, w_b), dtype=dtype, device=device),
+                "g": torch.zeros((r, w_b, num_dims), dtype=dtype,
                                  device=device)}
     return warm, tstep, template, lambda st: st["q"][0]
 
 
-def _checkpointed_run(cfg: RunConfig, inputs: RunInputs) -> dict:
+def _checkpointed_run(cfg: RunConfig, inputs: RunInputs, mesh=None) -> dict:
     """Fault-tolerant sampling for hmc, nuts, chees and pt: warmup once,
     then sample in chunks of ``checkpoint_every`` transitions (the last
     chunk shorter where the count does not divide), saving {schema, state,
@@ -515,14 +542,20 @@ def _checkpointed_run(cfg: RunConfig, inputs: RunInputs) -> dict:
     latest checkpoint; ``num_samples`` may grow between runs. Collection
     is streaming moments. Nothing inside a chunk reads the device: the
     device is waited for after the chunk, and the save copies the state
-    to the host."""
+    to the host.
+
+    With ``mesh`` each rank saves its block (``CheckpointManager(mesh=)``)
+    and the streamed moments are the group's: a transition all-reduces the
+    ranks' batch means and variances (and acceptances), which every rank
+    merges in rank order, so the saved moments are alike on every rank and
+    a fresh group of the same size resumes them bit for bit."""
     from .checkpoint import CheckpointManager
 
     q0 = inputs.init_q
     num_dims, dtype, device = q0.shape[-1], q0.dtype, q0.device
     every = (cfg.checkpoint_every if cfg.checkpoint_every > 0
              else cfg.num_samples)
-    warm, tstep, template, get_q = _sampler_pieces(cfg, inputs)
+    warm, tstep, template, get_q = _sampler_pieces(cfg, inputs, mesh)
 
     def canonical(state):
         # restore templates need one mass shape: always per-dim [D]
@@ -532,8 +565,15 @@ def _checkpointed_run(cfg: RunConfig, inputs: RunInputs) -> dict:
         return state.replace(ensemble=state.ensemble.replace(
             mass=mass.contiguous()))
 
+    def merge(mean, m2, n, batch_var, batch_mean, w):
+        n_new = n + w
+        delta = batch_mean - mean
+        mean = mean + delta * (w / n_new)
+        m2 = m2 + batch_var * w + delta**2 * (n * w / n_new)
+        return mean, m2, n_new
+
     zeros = torch.zeros((num_dims,), dtype=dtype, device=device)
-    mgr = CheckpointManager(cfg.checkpoint_dir)
+    mgr = CheckpointManager(cfg.checkpoint_dir, mesh=mesh)
     latest = mgr.latest_step()
     if latest is None:
         state, step_size, tau = warm()
@@ -562,16 +602,15 @@ def _checkpointed_run(cfg: RunConfig, inputs: RunInputs) -> dict:
         with diagnostics.trace_annotation("checkpoint_chunk"):
             for i in range(done, done + count):
                 state, acc = tstep(i, state, step_size, tau)
-                accs.append(acc)
                 q = get_q(state)
-                w = q.shape[0]
-                n_new = n + w
                 batch_var, batch_mean = torch.var_mean(q, dim=0,
                                                        correction=0)
-                delta = batch_mean - mean
-                mean = mean + delta * (w / n_new)
-                m2 = m2 + batch_var * w + delta**2 * (n * w / n_new)
-                n = n_new
+                rows = gather_rows(torch.cat((acc.reshape(1), batch_var,
+                                              batch_mean)), mesh)
+                accs.append(torch.sum(rows[:, 0]) / rows.shape[0])
+                for row in rows:  # rank by rank
+                    mean, m2, n = merge(mean, m2, n, row[1:1 + num_dims],
+                                        row[1 + num_dims:], q.shape[0])
         _synchronize(device)
         chunk_ms = 1e3 * (time.perf_counter() - t0)
         done += count
@@ -596,12 +635,16 @@ def _checkpointed_run(cfg: RunConfig, inputs: RunInputs) -> dict:
     }
 
 
-def _checkpointed_smc_run(cfg: RunConfig, inputs: RunInputs) -> dict:
+def _checkpointed_smc_run(cfg: RunConfig, inputs: RunInputs,
+                          mesh=None) -> dict:
     """Fault-tolerant SMC: the stage is the recovery grain (the tempering
     ladder is adaptive). ``smc.build_smc_machinery``'s carry is saved
     after every stage; its randomness is keyed by ``(seed, stage)``, so a
     run resumed from any stage reproduces the uninterrupted run's
-    remaining stages bit for bit."""
+    remaining stages bit for bit. With ``mesh`` the carry's walker-leading
+    fields are the rank's block, one file a rank, and the posterior
+    summary is taken on rank 0 of the ranks' final blocks gathered
+    there."""
     from .checkpoint import CheckpointManager
     from .smc import build_smc_machinery
 
@@ -611,8 +654,9 @@ def _checkpointed_smc_run(cfg: RunConfig, inputs: RunInputs) -> dict:
         num_mutation_steps=3, num_leapfrog_steps=cfg.num_steps,
         init_step_size=cfg.init_step_size, beta0=cfg.smc_beta0,
         max_stages=cfg.smc_max_stages, temperature=cfg.temperature,
-        constants=inputs.constants, kernel=cfg.kernel, device=q0.device)
-    mgr = CheckpointManager(cfg.checkpoint_dir)
+        constants=inputs.constants, kernel=cfg.kernel, device=q0.device,
+        mesh=mesh)
+    mgr = CheckpointManager(cfg.checkpoint_dir, mesh=mesh)
     carry = m["init_carry"](inputs.seed, q0)
     latest = mgr.latest_step()
     resumed_from = None
@@ -631,22 +675,28 @@ def _checkpointed_smc_run(cfg: RunConfig, inputs: RunInputs) -> dict:
         saves += 1
     res = m["finalize"](carry)
     mgr.close()
+    q = res.q
+    if mesh is not None:
+        q = gather_walkers(q, mesh, dst=0)
     return {
         "log_evidence": float(res.log_evidence),
         "num_stages": int(res.num_stages),
         "final_step_size": float(res.final_step_size),
-        "posterior_mean": _list(res.q.mean(0)),
-        "posterior_var": _list(res.q.var(0, correction=1)),
+        "posterior_mean": None if q is None else _list(q.mean(0)),
+        "posterior_var": None if q is None else _list(q.var(0, correction=1)),
         "resumed_from": resumed_from,
         "checkpoints_written": saves,
     }
 
 
-def _stream_run(cfg: RunConfig, inputs: RunInputs) -> dict:
+def _stream_run(cfg: RunConfig, inputs: RunInputs, mesh=None) -> dict:
     """HMC warmup, then every ``thin``-th sampling transition's positions
     appended to a :class:`~.native.SampleSink` at ``output_path``: one
     device-to-host copy per recorded draw. The engine is ``cfg.kernel``'s
-    (``hmc.resolve_engine``), in warmup and sampling alike."""
+    (``hmc.resolve_engine``), in warmup and sampling alike. With ``mesh``
+    each recorded draw goes to rank 0 in one gather, and rank 0 alone
+    opens and writes the file: its rows are the whole ensemble's in
+    walker order, as one process writes them."""
     from .hmc import build_fused_hmc_kernel, build_hmc_kernel, run_hmc
     from .native import SampleSink, read_samples
 
@@ -658,34 +708,49 @@ def _stream_run(cfg: RunConfig, inputs: RunInputs) -> dict:
             f"sampler={cfg.sampler!r}, metric={cfg.metric!r}")
     pot, q0, seed = inputs.potential, inputs.init_q, inputs.seed
     common = dict(temperature=cfg.temperature, constants=inputs.constants)
-    warm = run_hmc(
-        seed, pot, q0, num_warmup=cfg.num_warmup, num_samples=0,
-        num_steps=cfg.num_steps, init_step_size=cfg.init_step_size,
-        target_accept=cfg.target_accept, adapt_mass=cfg.adapt_mass,
-        collect="none", kernel=cfg.kernel, **common)
     build = (build_fused_hmc_kernel
              if resolve_engine(cfg.kernel, pot, q0) == "fused"
              else build_hmc_kernel)
     kern = build(pot, num_steps=cfg.num_steps, **common)
+    block = q0
+    if mesh is not None:
+        from .parallel.sharded import shard_map_kernel
+        kern = shard_map_kernel(kern, mesh)
+        block = q0[mesh.block(q0.shape[0])].contiguous()
+    warm = run_hmc(
+        seed, pot, block, num_warmup=cfg.num_warmup, num_samples=0,
+        num_steps=cfg.num_steps, init_step_size=cfg.init_step_size,
+        target_accept=cfg.target_accept, adapt_mass=cfg.adapt_mass,
+        collect="none", kernel=kern, **common)
     state, step_size = warm.state, warm.step_size
     thin = max(cfg.thin, 1)
     t = cfg.num_warmup
     accs = []
     w, d = q0.shape
-    with SampleSink(cfg.output_path, w, d) as sink:
+    lead = _leads(mesh)
+    with (SampleSink(cfg.output_path, w, d) if lead
+          else contextlib.nullcontext()) as sink:
         for _ in range(cfg.num_samples):
             for _ in range(thin):
                 state, info = kern.step((seed, t), state, step_size)
                 t += 1
                 accs.append(torch.mean(info.accept_prob))
-            sink.append(state.ensemble.q)
-    data = read_samples(cfg.output_path)
+            q = state.ensemble.q
+            if mesh is not None:
+                q = gather_walkers(q, mesh, dst=0)
+            if lead:
+                sink.append(q)
+    accept = None
+    if accs:  # the group's (this process's alone without a mesh)
+        rows = gather_rows(torch.mean(torch.stack(accs)).reshape(1), mesh)
+        accept = torch.sum(rows) / rows.shape[0]
+    data = np.asarray(read_samples(cfg.output_path)) if lead else None
     return {
-        "accept_rate": float(torch.mean(torch.stack(accs))) if accs else None,
+        "accept_rate": None if accept is None else float(accept),
         "step_size": float(step_size),
-        "streamed_rows": int(data.shape[0]),
-        "posterior_mean": np.asarray(data).mean(0).tolist(),
-        "posterior_sd": np.asarray(data).std(0).tolist(),
+        "streamed_rows": None if data is None else int(data.shape[0]),
+        "posterior_mean": None if data is None else data.mean(0).tolist(),
+        "posterior_sd": None if data is None else data.std(0).tolist(),
     }
 
 

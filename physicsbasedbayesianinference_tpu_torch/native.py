@@ -87,6 +87,12 @@ def get_lib() -> Optional[ctypes.CDLL]:
     return lib
 
 
+def native_available() -> bool:
+    """Whether the compiled tokenizer and sink library loads (else the
+    numpy versions run)."""
+    return get_lib() is not None
+
+
 def parse_nbody_text(text: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
                                          float, float]:
     """Parse the reference IC format -> (mass[N], x[N,3], v[N,3], tmax, dt),

@@ -28,7 +28,11 @@ the JAX package is not ported.
 
 Randomness: transition ``key = (seed, t)`` draws its momenta from the
 generator of that key, and doubling ``j`` its directions, merge uniforms
-and leaf uniforms, in that order, from a generator of its own.
+and leaf uniforms, in that order, from a generator of its own. On a walker
+group (``mesh=``) every rank keys these generators alike and takes its
+walkers' rows of each whole-ensemble draw, so a rank's trees are the
+one-process trees of its walkers: a doubling or leaf that a rank skips
+(its walkers have all stopped) changes none of its outputs, as above.
 """
 
 from __future__ import annotations
@@ -40,14 +44,16 @@ from typing import Callable, Optional, Union
 
 import torch
 
-from .adaptation import (build_warmup_schedule, da_init, da_update,
-                         regularized_mass, variance_init, variance_update)
+from .adaptation import (batch_terms, build_warmup_schedule, da_init,
+                         da_update, merge_batch_terms, regularized_mass,
+                         variance_init)
 from .constants import Constants, NATURAL
 from .device import resolve_device
 from .ensemble import thermal_momentum_std
 from .hmc import HMCState, _splitmix64, _step_generator, _synchronize, \
     init_state
 from .ops.potentials import batched_value_and_grad
+from .parallel.mesh import check_divisible, gather_rows
 
 Tensor = torch.Tensor
 
@@ -111,6 +117,7 @@ def _build_lockstep_nuts_kernel(
     constants: Constants,
     divergence_threshold: float,
     read_every_leaf: bool = False,
+    mesh=None,
 ) -> NUTSKernel:
     """Walker-lockstep iterative NUTS (see :func:`build_nuts_kernel`);
     ``read_every_leaf`` reads the subtree's condition after every leaf (for
@@ -134,9 +141,18 @@ def _build_lockstep_nuts_kernel(
         neg_inf = torch.full((w,), -math.inf, dtype=dtype, device=device)
         tiny = torch.finfo(dtype).tiny
 
+        # a shard draws the rows of its walkers from the whole ensemble's
+        # draw, so its trees are the one-process trees of those walkers
+        rows = slice(None) if mesh is None else slice(
+            mesh.rank * w, (mesh.rank + 1) * w)
+        total = w if mesh is None else w * mesh.size
+
+        def draw(fn, gen, *rest):
+            return fn((total, *rest), generator=gen, dtype=dtype,
+                      device=device)[rows]
+
         p_std = thermal_momentum_std(mass, temperature, constants)
-        p0 = p_std * torch.randn(ens.q.shape, generator=_step_generator(
-            key, device), dtype=dtype, device=device)
+        p0 = p_std * draw(torch.randn, _step_generator(key, device), d)
         q0, u0, g0 = ens.q, state.potential_energy, state.grad
 
         def ke(p):
@@ -175,8 +191,7 @@ def _build_lockstep_nuts_kernel(
                     alive, torch.exp(torch.clamp_max(-derr, 0.0)), 0.0)
                 logw_leaf = torch.where(alive & ~div_leaf, -derr, neg_inf)
                 logw_new = torch.logaddexp(logw, logw_leaf)
-                uni = torch.rand((w,), generator=gen, dtype=dtype,
-                                 device=device)
+                uni = draw(torch.rand, gen)
                 take = alive & (torch.log(torch.clamp_min(uni, tiny))
                                 < logw_leaf - logw_new)
                 prop_q = torch.where(take[:, None], q_new, prop_q)
@@ -225,10 +240,8 @@ def _build_lockstep_nuts_kernel(
         while depth < max_depth and _host_read(torch.any(~turned & ~div)):
             gen = _doubling_generator(key, depth, device)
             act = ~turned & ~div
-            go_right = torch.rand((w,), generator=gen, dtype=dtype,
-                                  device=device) < 0.5
-            merge_u = torch.rand((w,), generator=gen, dtype=dtype,
-                                 device=device)
+            go_right = draw(torch.rand, gen) < 0.5
+            merge_u = draw(torch.rand, gen)
             dirn = torch.where(go_right, 1.0, -1.0).to(dtype)[:, None]
             gr = go_right[:, None]
             sub = subtree(gen, depth, torch.where(gr, qR, qL),
@@ -280,6 +293,7 @@ def build_nuts_kernel(
     constants: Constants = NATURAL,
     divergence_threshold: float = 1000.0,
     engine: str = "lockstep",
+    mesh=None,
 ) -> NUTSKernel:
     """A NUTS transition kernel with the interface of
     :func:`~.hmc.build_hmc_kernel`: ``init(q, mass=) -> HMCState``,
@@ -288,7 +302,8 @@ def build_nuts_kernel(
 
     Only ``engine="lockstep"`` is ported: every walker advances one
     leapfrog per iteration as one ``[W, D]`` update, and the tree's control
-    flow is shared (module docstring)."""
+    flow is shared (module docstring). ``mesh``: a walker group; a step
+    then takes the rank's block of the ensemble (module docstring)."""
     if engine == "vmap":
         raise ValueError(
             "engine='vmap' (one tree per walker) is not ported; use "
@@ -297,7 +312,8 @@ def build_nuts_kernel(
         raise ValueError(f"bad engine={engine!r} (want lockstep)")
     return _build_lockstep_nuts_kernel(
         potential_fn, max_depth=max_depth, temperature=temperature,
-        constants=constants, divergence_threshold=divergence_threshold)
+        constants=constants, divergence_threshold=divergence_threshold,
+        mesh=mesh)
 
 
 @dataclasses.dataclass
@@ -329,16 +345,31 @@ def run_nuts(
     temperature: float = 1.0,
     constants: Constants = NATURAL,
     collect: str = "samples",
+    mesh=None,
 ) -> NUTSRunResult:
     """Dual-averaging warmup with the cross-walker diagonal metric (the
     windows of :func:`~.adaptation.build_warmup_schedule`), then sampling
     with the lockstep NUTS kernel. Transition ``t`` (warmup first) uses key
-    ``(seed, t)``. ``collect``: "samples" | "none"."""
+    ``(seed, t)``. ``collect``: "samples" | "none".
+
+    ``mesh``: a walker group. ``init_q`` is then the whole ensemble, the
+    same on every rank, of which the rank takes its block; each rank
+    builds the trees of its own walkers (the module docstring's draws), so
+    no rank waits on another inside a transition. A warmup transition
+    makes one all-reduce (the acceptance and, in a metric window, the
+    variance's batch terms, merged rank by rank), a sampling transition
+    none, the end of sampling one. Scalars are the group's; the state and
+    samples are the rank's block."""
     if collect not in ("samples", "none"):
         raise ValueError(f"bad collect={collect!r} (want samples|none)")
     kernel = build_nuts_kernel(potential_fn, max_depth=max_depth,
-                               temperature=temperature, constants=constants)
-    q = torch.as_tensor(init_q, device=resolve_device(None, init_q))
+                               temperature=temperature, constants=constants,
+                               mesh=mesh)
+    q = torch.as_tensor(init_q, device=resolve_device(
+        None if mesh is None else mesh.device, init_q))
+    if mesh is not None:
+        check_divisible(q.shape[0], mesh)
+        q = q[mesh.block(q.shape[0])].to(mesh.device).contiguous()
     state = kernel.init(q, mass=mass)
     num_dims = state.ensemble.num_dims
     dtype, device = q.dtype, q.device
@@ -355,10 +386,13 @@ def run_nuts(
             state, info = kernel.step((seed, t), state,
                                       torch.exp(da.log_step))
             t += 1
-            da = da_update(da, torch.mean(info.accept_prob),
-                           target=target_accept)
+            # every rank's mean and batch terms, merged in rank order
+            accept = torch.mean(info.accept_prob).reshape(1)
+            rows = gather_rows(torch.cat((accept, *batch_terms(
+                state.ensemble.q))) if track_var else accept, mesh)
             if track_var:
-                varst = variance_update(varst, state.ensemble.q)
+                varst = merge_batch_terms(varst, rows[:, 1:])
+            da = da_update(da, torch.mean(rows[:, 0]), target=target_accept)
         step_size = torch.exp(da.log_avg_step)
         if track_var:
             mass_arr = 1.0 / regularized_mass(varst)
@@ -382,8 +416,11 @@ def run_nuts(
             return torch.full((), math.nan, dtype=dtype, device=device)
         return torch.mean(torch.stack(xs))
 
-    accept_rate, divergence_rate, mean_depth = (
-        mean_of(accs), mean_of(divs), mean_of(depths))
+    # the group's rates (this process's alone without a mesh)
+    rows = gather_rows(torch.stack((mean_of(accs), mean_of(divs),
+                                    mean_of(depths))), mesh)
+    accept_rate, divergence_rate, mean_depth = (torch.sum(rows, dim=0)
+                                                / rows.shape[0])
     _synchronize(device)
     sampling_seconds = _time.perf_counter() - t0
     out_samples = None

@@ -17,6 +17,8 @@ from .potentials import (
     nbody_accelerations,
     nbody_potential_energy,
     no_potential,
+    numerical_force,
+    numerical_grad,
 )
 
 __all__ = [
@@ -39,4 +41,6 @@ __all__ = [
     "nbody_accelerations",
     "nbody_potential_energy",
     "no_potential",
+    "numerical_force",
+    "numerical_grad",
 ]

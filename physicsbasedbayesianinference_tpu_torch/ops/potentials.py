@@ -298,6 +298,37 @@ def make_nbody_potential(mass, num_bodies: int, num_space_dims: int = 3, *,
 
 
 # ---------------------------------------------------------------------------
+# Numerical differentiation (the reference's numerical force path)
+# ---------------------------------------------------------------------------
+
+
+def numerical_grad(potential_fn: PotentialFn,
+                   eps: float = 1e-4) -> Callable[[Tensor], Tensor]:
+    """Central-difference gradient ``q:[D] -> dU/dq:[D]``, an oracle for
+    testing closed-form and autograd gradients (the JAX package's; the
+    reference differentiates forward with ``scipy.optimize.approx_fprime``,
+    potential.py:104-138). All 2D perturbed positions are evaluated in one
+    batched call."""
+    batched = torch.func.vmap(potential_fn)
+
+    def grad(q: Tensor) -> Tensor:
+        d = q.shape[-1]
+        basis = eps * torch.eye(d, dtype=q.dtype, device=q.device)
+        u = batched(torch.cat((q[None, :] + basis, q[None, :] - basis)))
+        return (u[:d] - u[d:]) / (2.0 * eps)
+
+    return grad
+
+
+def numerical_force(potential_fn: PotentialFn,
+                    eps: float = 1e-4) -> Callable[[Tensor], Tensor]:
+    """``F = -grad U`` by central differences (the reference's
+    ``nBodyForce``, potential.py:104-119)."""
+    g = numerical_grad(potential_fn, eps)
+    return lambda q: -g(q)
+
+
+# ---------------------------------------------------------------------------
 # Batched value-and-grad
 # ---------------------------------------------------------------------------
 

@@ -10,19 +10,25 @@ statistics over the group themselves. Launch K processes with
 ``python -m torch.distributed.run --nproc_per_node=K ...`` and call
 :func:`initialize_distributed` in each.
 
-Not ported yet: the replica mesh of sharded parallel tempering
-(``make_replica_mesh``, ``replica_sharding``), sharded ChEES, NUTS and
-dense-metric runs, sharded checkpoints; JAX's ``walker_sharding`` and
+Every sampler takes a group: ``run_hmc`` (both metrics), ``run_chees_hmc``,
+``run_nuts`` and ``run_smc`` a walker group (``mesh=``), and
+``run_parallel_tempering`` a walker group or a replica x walker group
+(:func:`make_replica_mesh`); ``checkpoint.CheckpointManager(mesh=)``
+writes a file a rank. JAX's ``walker_sharding`` and
 ``replicated_sharding`` have no counterpart (:mod:`.mesh`).
 """
 
 from .distributed import initialize_distributed
 from .mesh import (
+    REPLICA_AXIS,
     WALKER_AXIS,
+    ReplicaMesh,
     WalkerMesh,
     gather_walkers,
+    make_replica_mesh,
     make_walker_mesh,
     shard_ensemble,
+    shard_replicas,
 )
 from .resample import ring_systematic_resample
 from .ring import (
@@ -33,11 +39,15 @@ from .ring import (
     ring_nbody_potential_energy,
     ring_simulate,
 )
-from .sharded import build_sharded_hmc_step, shard_map_kernel, sharded_run_hmc
+from .sharded import (build_sharded_hmc_step, fold_rank, shard_map_kernel,
+                      sharded_run_hmc)
 
 __all__ = [
     "make_walker_mesh",
+    "make_replica_mesh",
     "shard_ensemble",
+    "shard_replicas",
+    "fold_rank",
     "build_sharded_hmc_step",
     "shard_map_kernel",
     "sharded_run_hmc",
@@ -50,6 +60,8 @@ __all__ = [
     "ring_simulate",
     "ring_systematic_resample",
     "WALKER_AXIS",
+    "REPLICA_AXIS",
     "WalkerMesh",
+    "ReplicaMesh",
     "gather_walkers",
 ]

@@ -12,8 +12,13 @@ JAX's ``walker_sharding`` and ``replicated_sharding`` are sharding objects
 that place one global array across devices. A process here holds its own
 block and nothing else, so they have no counterpart: :func:`shard_ensemble`
 takes this rank's block of a global tree, and :func:`gather_walkers` joins
-the blocks again. The replica mesh of JAX's sharded parallel tempering
-(``make_replica_mesh``, ``replica_sharding``) is not ported yet.
+the blocks again.
+
+Sharded parallel tempering lays its ``[R, W, D]`` replicas over a
+:class:`ReplicaMesh` (:func:`make_replica_mesh`, JAX's
+``make_replica_mesh``): K = K_r x K_w ranks, rank ``i K_w + j`` holding
+rungs ``i R / K_r ..`` and walkers ``j W / K_w ..``
+(:func:`shard_replicas`, the counterpart of JAX's ``replica_sharding``).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from .distributed import rank_device
 Tensor = torch.Tensor
 
 WALKER_AXIS = "walkers"
+REPLICA_AXIS = "replicas"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +83,81 @@ def check_divisible(num: int, mesh: WalkerMesh,
     if num % mesh.size != 0:
         raise ValueError(f"{what}={num} must be divisible by the mesh size "
                          f"{mesh.size}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplicaMesh:
+    """One process's view of a replica x walker group of K = K_r x K_w
+    ranks: group rank ``rank = i K_w + j`` holds rung block ``i`` and
+    walker block ``j`` of a ``[R, W, ...]`` ensemble of replicas.
+    ``walkers`` is the walker sub-group of its replica shard (the K_w ranks
+    ``i K_w ..``, in which it is rank ``j``), ``replicas`` the replica
+    sub-group of its walker shard (the K_r ranks ``j, K_w + j, ..``, in
+    which it is rank ``i``)."""
+
+    group: Any
+    rank: int
+    size: int
+    device: torch.device
+    walkers: WalkerMesh
+    replicas: WalkerMesh
+
+    def blocks(self, num_replicas: int, num_walkers: int):
+        """This rank's rungs and walkers: ``(slice, slice)``."""
+        check_divisible(num_replicas, self.replicas, "num_replicas")
+        check_divisible(num_walkers, self.walkers)
+        return (self.replicas.block(num_replicas),
+                self.walkers.block(num_walkers))
+
+
+def make_replica_mesh(num_replica_shards: int, group=None, *,
+                      device=None) -> ReplicaMesh:
+    """The replica x walker group of ``group`` (the default group unless
+    given): ``num_replica_shards`` (K_r) replica shards of K / K_r walker
+    shards each. Makes the sub-groups with ``torch.distributed.new_group``,
+    so every process of the default group calls it, in the same order.
+    Raises where K_r does not divide the group's size K."""
+    parent = make_walker_mesh(group, device=device)
+    k, k_r = parent.size, num_replica_shards
+    if k_r < 1 or k % k_r:
+        raise ValueError(f"a group of {k} ranks is not divisible into "
+                         f"{k_r} replica shards")
+    k_w = k // k_r
+    i, j = divmod(parent.rank, k_w)
+    ranks = [parent.peer(r) for r in range(k)]
+    walker_groups = [dist.new_group([ranks[a * k_w + b] for b in range(k_w)])
+                     for a in range(k_r)]
+    replica_groups = [dist.new_group([ranks[a * k_w + b]
+                                      for a in range(k_r)])
+                      for b in range(k_w)]
+    return ReplicaMesh(
+        group=group, rank=parent.rank, size=k, device=parent.device,
+        walkers=WalkerMesh(group=walker_groups[i], rank=j, size=k_w,
+                           device=parent.device),
+        replicas=WalkerMesh(group=replica_groups[j], rank=i, size=k_r,
+                            device=parent.device, axis_name=REPLICA_AXIS))
+
+
+def as_replica_mesh(mesh) -> ReplicaMesh:
+    """A :class:`ReplicaMesh` as it is; a :class:`WalkerMesh` as one
+    replica shard (K_r = 1) over its walkers."""
+    if isinstance(mesh, ReplicaMesh):
+        return mesh
+    return ReplicaMesh(
+        group=mesh.group, rank=mesh.rank, size=mesh.size, device=mesh.device,
+        walkers=mesh,
+        replicas=WalkerMesh(group=None, rank=0, size=1, device=mesh.device,
+                            axis_name=REPLICA_AXIS))
+
+
+def shard_replicas(x: Tensor, mesh) -> Tensor:
+    """This rank's block of an ``[R, W, ...]`` tensor of replicas on the
+    rank's device (the counterpart of JAX's ``replica_sharding``): rungs
+    ``i R / K_r ..`` and walkers ``j W / K_w ..`` of a
+    :class:`ReplicaMesh` (a :class:`WalkerMesh`: every rung, its
+    walkers)."""
+    rungs, walkers = as_replica_mesh(mesh).blocks(x.shape[0], x.shape[1])
+    return x[rungs, walkers].to(mesh.device).contiguous()
 
 
 def _leading_count(tree) -> int:
@@ -151,11 +232,14 @@ def _block(x: Tensor, num: int, mesh: WalkerMesh) -> Tensor:
     return x[mesh.block(num)].to(mesh.device).contiguous()
 
 
-def gather_rows(x: Tensor, mesh: WalkerMesh) -> Tensor:
+def gather_rows(x: Tensor, mesh: Optional[WalkerMesh]) -> Tensor:
     """``[K, *x.shape]``: every rank's ``x`` in rank order, on every rank.
     One all-reduce of a zero-padded buffer, each rank filling its own row:
     adding zeros is exact, so the rows are the ranks' values bit for bit
-    and every rank can merge them in the same order."""
+    and every rank can merge them in the same order. Without a mesh,
+    ``x[None]``: an unsharded run merges its one row by the same code."""
+    if mesh is None:
+        return x[None]
     buf = x.new_zeros((mesh.size, *x.shape))
     buf[mesh.rank] = x
     dist.all_reduce(buf, group=mesh.group)
@@ -177,6 +261,21 @@ def gather_walkers(x: Tensor, mesh: WalkerMesh,
     parts = [torch.empty_like(x) for _ in range(mesh.size)] if here else None
     dist.gather(x, parts, dst=mesh.peer(dst), group=mesh.group)
     return torch.cat(parts) if here else None
+
+
+def exchange(blocks: dict, mesh: WalkerMesh) -> dict:
+    """Point to point, in one batch: ``blocks[r]`` sent to group rank
+    ``r``, and a tensor of its shape received from it, for every ``r``."""
+    outs = {r: torch.empty_like(t) for r, t in blocks.items()}
+    ops = []
+    for r, t in blocks.items():
+        ops.append(dist.P2POp(dist.isend, t.contiguous(), mesh.peer(r),
+                              mesh.group))
+        ops.append(dist.P2POp(dist.irecv, outs[r], mesh.peer(r), mesh.group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return outs
 
 
 def ring_shift(tensors, mesh: WalkerMesh) -> list:

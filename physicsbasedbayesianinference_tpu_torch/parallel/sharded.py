@@ -17,7 +17,9 @@ Randomness is the port's counterpart of JAX's per-shard key
 :func:`sharded_run_hmc` drives the ordinary ``hmc.run_hmc`` loop with the
 group (``run_hmc(mesh=...)``), which makes the loop's means and moments the
 group's. The JAX package's GSPMD path (``kernel="xla"``) has no
-counterpart; the dense metric is not sharded yet.
+counterpart: the port's samplers take a walker group themselves
+(``run_chees_hmc``, ``run_nuts``, ``run_smc``, ``run_parallel_tempering``
+``mesh=``).
 """
 
 from __future__ import annotations
@@ -91,19 +93,19 @@ def sharded_run_hmc(seed: int, potential_fn, init_q, *,
 
     ``kernel``: ``"auto"`` (the fused kernel where ``hmc.resolve_engine``
     finds one for the rank's block, so on the card by default),
-    ``"fused"`` (raises where it cannot run) or ``"composed"``.
-    ``metric="dense"`` raises: the sharded dense metric is not ported yet.
+    ``"fused"`` (raises where it cannot run) or ``"composed"``. With
+    ``metric="dense"`` the dense step runs (composed: no fused kernel has a
+    dense metric, so ``"fused"`` raises naming it).
     The result's scalars and moments are the group's, the same on every
     rank; its state and samples are this rank's block."""
     if kernel not in ("auto", "fused", "composed"):
         raise ValueError(f"bad kernel={kernel!r} (want auto|fused|composed; "
                          f"the JAX package's 'xla' GSPMD path has no "
                          f"counterpart)")
-    if run_kwargs.get("metric", "diag") == "dense":
-        raise ValueError(
-            "metric='dense' is not sharded yet (the JAX package runs it "
-            "through GSPMD; ROADMAP.md queue 1 item 11): run it unsharded "
-            "with hmc.run_hmc(metric='dense')")
+    dense = run_kwargs.get("metric", "diag") == "dense"
+    if dense and kernel == "fused":
+        raise ValueError("kernel='fused' cannot run metric='dense': no fused "
+                         "kernel has a dense metric (want auto|composed)")
     if "num_steps" not in run_kwargs:
         raise TypeError("sharded_run_hmc requires num_steps=")
     if mesh is None:
@@ -114,6 +116,9 @@ def sharded_run_hmc(seed: int, potential_fn, init_q, *,
                          f"shape {tuple(q.shape)}")
     check_divisible(q.shape[0], mesh)
     q = q[mesh.block(q.shape[0])].to(mesh.device).contiguous()
+    if dense:  # run_hmc builds the dense step and binds it to the group
+        return run_hmc(seed, potential_fn, q, kernel=kernel, mesh=mesh,
+                       **run_kwargs)
     common = dict(num_steps=run_kwargs["num_steps"],
                   temperature=run_kwargs.get("temperature", 1.0),
                   **({"constants": run_kwargs["constants"]}

@@ -86,15 +86,13 @@ def test_config_refusals():
         tconfig.RunConfig.from_json('{"num_walkers": 4, "bogus": 1}')
     with pytest.raises(ValueError, match="composed"):
         tconfig.RunConfig(kernel="xla")
-    # sharded=True runs hmc with the diagonal metric; the rest is refused,
-    # naming what is missing
-    assert tconfig.RunConfig(sharded=True).sharded
-    for bad, named in ((dict(sampler="chees"), "sampler='chees'"),
-                       (dict(metric="dense"), "metric='dense'"),
-                       (dict(checkpoint_dir="ck"), "checkpoint_dir"),
-                       (dict(collect="stream"), "collect='stream'")):
-        with pytest.raises(ValueError, match=f"{named}.*not ported yet"):
-            tconfig.RunConfig(sharded=True, **bad)
+    # sharded=True takes every sampler, the dense metric, checkpoints and
+    # stream mode (their runs: tests/test_torch_sharded_samplers.py)
+    for ok in (dict(), *(dict(sampler=s) for s in
+                         ("hmc", "chees", "nuts", "pt", "smc")),
+               dict(metric="dense"), dict(checkpoint_dir="ck"),
+               dict(collect="stream", output_path="s.pbbi")):
+        assert tconfig.RunConfig(sharded=True, **ok).sharded
     with pytest.raises(ValueError, match="numpyro"):
         tmain.build_potential(_cfg(model="numpyro:mod:fn"))
     with pytest.raises(ValueError, match="bad model reference"):

@@ -43,8 +43,10 @@ W, D = 64, 3          # the exact cases
 W_MC = 1024           # the Monte-Carlo cases (divisible by 8 for JAX)
 
 
-def spawn_ranks(script: str, k: int, tmp_path: Path, timeout: float = 240):
-    """Run ``script`` as ``k`` rank processes (argv: rank, k, directory),
+def spawn_ranks(script: str, k: int, tmp_path: Path, timeout: float = 240,
+                argv=()):
+    """Run ``script`` as ``k`` rank processes (argv: rank, k, directory,
+    then ``argv``),
     joined by a gloo group through a file in ``tmp_path`` (no port), and
     return rank 0's results (``torch.load`` of ``rank0.pt``) and every
     rank's standard output.
@@ -67,7 +69,7 @@ def spawn_ranks(script: str, k: int, tmp_path: Path, timeout: float = 240):
             with open(out, "w") as fo, open(err, "w") as fe:
                 procs.append(subprocess.Popen(
                     [sys.executable, script, str(rank), str(k),
-                     str(tmp_path)], cwd=ROOT, env=env, stdout=fo,
+                     str(tmp_path), *argv], cwd=ROOT, env=env, stdout=fo,
                     stderr=fe, stdin=subprocess.DEVNULL))
         deadline = time.monotonic() + timeout
         while any(p.poll() is None for p in procs):
@@ -452,9 +454,11 @@ def test_shard_ensemble_specs_and_divisibility():
         pt.run_smc(0, fn, _q(5, 4), mesh=mesh)
     with pytest.raises(ValueError, match="systematic"):
         pt.run_smc(0, fn, _q(4, 4), mesh=mesh, resampler="multinomial")
+    # the dense metric runs sharded, composed; "fused" raises naming it
     with pytest.raises(ValueError, match="dense"):
         par.sharded_run_hmc(0, fn, _q(4, 4), mesh=mesh, num_warmup=1,
-                            num_samples=1, num_steps=2, metric="dense")
+                            num_samples=1, num_steps=2, metric="dense",
+                            kernel="fused")
     with pytest.raises(ValueError, match="auto|fused|composed"):
         par.sharded_run_hmc(0, fn, _q(4, 4), mesh=mesh, kernel="xla",
                             num_warmup=1, num_samples=1, num_steps=2)

@@ -19,12 +19,29 @@ same Philox draws:
   two calls differ by more than most changes.
 
 Prints the card, then one JSON line per row.
+
+    python3 tools/compare_builds.py PATH_TO_OTHER_CHECKOUT --samplers
+
+times the samplers' unsharded warmup instead, end to end, in the same
+order: ``run_chees_hmc`` on phase 8a's logistic regression and 8b's
+non-centred eight schools (W = 102400, 200 warmup transitions,
+``kernel="auto"``), ``run_hmc`` at the bench configuration (the standard
+normal, W = 102400, D = 32, L = 16, 200 warmup transitions) and
+``run_parallel_tempering`` at phase 10's (the mixture at (+-6, 0), R = 6,
+W = 16384, 200 warmup transitions), each with no sampling transition, in
+three rounds of other, this, this, other. Prints one JSON line per
+sampler: each run's host-clock ms a warmup transition (the whole call over
+its transitions, set-up included; ChEES also its own ``warmup_seconds``),
+their medians, whether both checkouts adapt the same bits, and the
+kernel launches a warmup transition makes in each (``cudaLaunchKernel``
+under ``torch.profiler``: a run less a run of no transitions).
 """
 
 from __future__ import annotations
 
 import importlib.util
 import json
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -54,8 +71,112 @@ def load_other(root: Path):
     return module
 
 
+def compare_samplers(other_pkg, dev) -> None:
+    """The unsharded warmup of ChEES (8a, 8b), HMC (bench configuration)
+    and PT (phase 10) in both checkouts (module docstring)."""
+    import time
+
+    import physicsbasedbayesianinference_tpu_torch as this_pkg
+
+    n_warm, rounds = 200, 3
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(SEED + seed)
+
+    def cases(pkg):
+        lr = pkg.models.make_model_potential(
+            pkg.models.logistic_regression,
+            pkg.models.logistic_regression_data(256, 31), {})
+        es = pkg.models.make_model_potential(
+            pkg.models.eight_schools_noncentered, (),
+            pkg.models.EIGHT_SCHOOLS_DATA)
+        mix = pkg.ops.potentials.make_gaussian_mixture(
+            torch.tensor([[-6.0, 0.0], [6.0, 0.0]]), device=dev)
+
+        def chees(mp, init_step):
+            def run(num_warmup):
+                q0 = 0.3 * torch.randn(102400, mp.num_dims, generator=gen(0),
+                                       device=dev)
+                res = pkg.run_chees_hmc(
+                    SEED + 8, mp.potential, q0, num_warmup=num_warmup,
+                    num_samples=0, max_steps=256, init_step_size=init_step,
+                    collect="moments", kernel="auto")
+                return (res.step_size, res.trajectory_time,
+                        res.state.ensemble.mass), res.warmup_seconds
+            return run
+
+        def hmc(num_warmup):
+            q0 = torch.randn(102400, 32, generator=gen(0), device=dev)
+            res = pkg.run_hmc(SEED, pkg.ops.potentials.make_standard_normal(
+                32), q0, num_warmup=num_warmup, num_samples=0, num_steps=16,
+                collect="moments", kernel="auto")
+            return (res.step_size, res.state.ensemble.mass), None
+
+        def pt(num_warmup):
+            q0 = torch.tensor([-6.0, 0.0], device=dev) + 0.3 * torch.randn(
+                16384, 2, generator=gen(11), device=dev)
+            res = pkg.run_parallel_tempering(
+                SEED + 14, mix, q0, num_replicas=6, beta_min=0.02,
+                num_warmup=num_warmup, num_samples=0, num_steps=10,
+                collect="none")
+            return (res.step_sizes, res.q), None
+
+        return {"8a run_chees_hmc logistic regression W=102400": chees(lr,
+                                                                        0.05),
+                "8b run_chees_hmc eight schools nc W=102400": chees(es, 0.22),
+                "run_hmc standard normal W=102400 D=32 L=16": hmc,
+                "run_parallel_tempering mixture R=6 W=16384": pt}
+
+    def launches(run):
+        """``cudaLaunchKernel`` calls a warmup transition: a run of
+        ``n_warm`` transitions less one of none, under the profiler."""
+        from torch.profiler import ProfilerActivity, profile
+        counts = []
+        for num_warmup in (n_warm, 0):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                run(num_warmup)
+            counts.append(sum(e.count for e in prof.key_averages()
+                              if e.key == "cudaLaunchKernel"))
+        return (counts[0] - counts[1]) / n_warm
+
+    mine, theirs = cases(this_pkg), cases(other_pkg)
+    for name in mine:
+        for run in (mine[name], theirs[name]):  # builds, first calls
+            run(4)
+
+        def timed(run):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, warm_s = run(n_warm)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / n_warm
+            return out, ms, None if warm_s is None else 1e3 * warm_s / n_warm
+
+        runs = {"other": [], "this": []}
+        for _ in range(rounds):
+            for who, run in (("other", theirs[name]), ("this", mine[name]),
+                             ("this", mine[name]), ("other", theirs[name])):
+                runs[who].append(timed(run))
+        same = all(torch.equal(a, b) for a, b in zip(runs["this"][0][0],
+                                                    runs["other"][0][0]))
+        line = {"sampler": name, "warmup_transitions": n_warm,
+                "same_bits": same,
+                "launches_per_warmup_transition": {
+                    "other": launches(theirs[name]),
+                    "this": launches(mine[name])}}
+        for who, got in runs.items():
+            ms = [r[1] for r in got]
+            line[f"{who}_ms_per_warmup_transition"] = ms
+            line[f"{who}_median_ms"] = statistics.median(ms)
+            if got[0][2] is not None:
+                line[f"{who}_warmup_loop_ms"] = [r[2] for r in got]
+        print(json.dumps(line))
+
+
 def main() -> None:
-    if len(sys.argv) != 2:
+    if len(sys.argv) not in (2, 3) or sys.argv[2:] not in ([],
+                                                           ["--samplers"]):
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("tools/compare_builds.py needs a CUDA device")
@@ -63,9 +184,12 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
-    load_other(Path(sys.argv[1]).resolve())
-    import other_pbbi.ops.kernels as other
+    other_pkg = load_other(Path(sys.argv[1]).resolve())
     dev = torch.device("cuda", 0)
+    if sys.argv[2:] == ["--samplers"]:
+        compare_samplers(other_pkg, dev)
+        return
+    import other_pbbi.ops.kernels as other
     gen = torch.Generator().manual_seed(SEED)
 
     def randn(*shape):
