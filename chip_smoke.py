@@ -57,7 +57,12 @@
    read on the device; 8e the model of 8a through
    ``run_hmc(integrator="pallas_leapfrog")`` from 8a's posterior state:
    kernel D with the logistic form, one launch a transition, moments held
-   to 8a's.
+   to 8a's; 8f the model of 8b the same way (20 + 20 transitions from
+   8b's posterior, 40 launches of kernel D's eight-schools form, finite
+   moments; run after the checks of 2 below). Every launch of kernels B
+   and D in phases 8 and 14 must be in the walker layout that
+   ``kernels.walker_layout`` names (one walker a thread for the
+   eight-schools forms at D = 10, the lane groups for the others).
 2, once more. Holds kernel B with the device step count (1, 7, max_steps
    and a count above it, which must clip) and with the proposal outputs,
    kernel A with the device step count, and the two model forms (the
@@ -65,7 +70,10 @@
    each at the walker tile ``kernels.logistic_tile`` picks, the
    eight-schools form at W = 102400) against their plain versions, on
    the posterior states phase 8 left, each with a second launch that must
-   give the same bits; kernel D with the logistic form at W = 102400 too.
+   give the same bits; kernel D with the logistic and the eight-schools
+   forms at W = 102400 too. The eight-schools form runs one walker a
+   thread in both kernels, and the lane-group layout forced on the same
+   input must give its bits (timed beside it).
    The logistic form's q', u', g' (and proposal, and kernel D's q', p',
    u', g') must be the plain version's bits, as both sum in the same order
    and round each multiply-add once. Times them, and for the logistic form
@@ -149,7 +157,9 @@
    divergence share. 14d kernel D on each new form through
    ``run_hmc(integrator="pallas_leapfrog")`` from 14c's posterior. 14b
    each new form in kernels B and D against its plain version on those
-   states, timed (the linear form bitwise).
+   states, timed (the linear form bitwise; the centred eight schools, and
+   the non-centred form it takes under ``auto``, also against the
+   lane-group layout forced, bitwise).
 15. Drives every sampler over the one-rank NCCL group of phase 13: 15a
    ``run_chees_hmc(mesh=)`` on 8a's logistic regression (456 launches of
    kernel B, 8a's bits), 15b ``run_parallel_tempering`` on a 1 x 1
@@ -253,14 +263,21 @@ def gradient_ops(form, d: int) -> float:
         n = params[1].shape[0]
         return 2 * n * d + 8 * n
     if name == "eight_schools_nc":
-        return 12 * params[0].shape[0] + 4 * d
+        # a school: mu + tau theta, y minus it, the two products by
+        # 1 / sigma, the two sums and theta - tau e (7); the walker's
+        # exp, the mu term and the log-tau term's 7 (9)
+        return 7 * params[0].shape[0] + 9
     if name == "linear":
         # z = x w + b and x^T r: N D multiply-adds each; the residual, its
         # square and its scaled copy about 4 a row
         n = params[1].shape[0]
         return 2 * n * d + 4 * n
     if name == "eight_schools":
-        return 10 * params[0].shape[0] + 4 * d
+        # a school: theta - mu and y - theta, their products by e^-q1 and
+        # 1 / sigma, the two sums and z e^-q1 - o / sigma (8); the walker's
+        # two exps and a negation, the mu term's 2 and the log-tau term's 8
+        # (13)
+        return 8 * params[0].shape[0] + 13
     if name == "coin":
         return 12 * d              # two sigmoids a dim
     if name == "funnel_model":
@@ -689,13 +706,14 @@ def main() -> None:
 
     def check_d(case, form, w, d, steps, step, inv_mass, time_it=True, *,
                 q=None, p=None, library=None, bits=False, plain_timing=None,
-                check_steps=None):
+                check_steps=None, layouts=False):
         """Kernel D against its plain version on ``q``, ``p`` (random
-        unless given); ``bits``: every output must be the plain version's
-        bits, and a second launch's; ``plain_timing``: median_ms's
+        unless given), and a second launch's bits; ``bits``: every output
+        must be the plain version's bits; ``plain_timing``: median_ms's
         arguments for the plain version (for the slow ones);
         ``check_steps``: the comparison runs this many steps, the timing
-        ``steps``."""
+        ``steps``; ``layouts``: the lane-group layout forced must give the
+        chosen thread layout's bits, and is timed beside it."""
         if q is None:
             q, p = randn2(w, d), randn2(w, d)
         kw = dict(step_size=torch.tensor([step], device=dev),
@@ -704,26 +722,39 @@ def main() -> None:
                                                   "num_steps": check_steps}
         out_k = kernels.leapfrog_trajectory(form, q, p, **checked)
         out_p = kernels.leapfrog_trajectory_plain(form, q, p, **checked)
-        again = (kernels.leapfrog_trajectory(form, q, p, **checked) if bits
-                 else out_k)
+        again = kernels.leapfrog_trajectory(form, q, p, **checked)
+        forced = (kernels.leapfrog_trajectory(form, q, p, _layout="group",
+                                              **checked) if layouts
+                  else again)
         torch.cuda.synchronize()
+        if layouts and kernels.walker_layout(form[0], d, "D") != "thread":
+            fail(f"{case}: not a thread-layout shape")
         worst = 0.0
-        for key, k, pl, k2 in zip(("q", "p", "u", "g"), out_k, out_p, again):
+        for key, k, pl, k2, k3 in zip(("q", "p", "u", "g"), out_k, out_p,
+                                      again, forced):
             if not close_where_finite(k, pl):
                 fail(f"{case}: {key}' differs by up to "
                      f"{(k - pl).abs().max().item()}")
-            if bits and not (torch.equal(k, pl) and same_bits(k, k2)):
-                fail(f"{case}: {key}' is not the plain version's bits, or "
-                     f"a second launch's ({(k != pl).sum().item()} "
-                     f"differ)")
+            if not (same_bits(k, k2) and same_bits(k, k3)):
+                fail(f"{case}: {key}' of a second launch, or of the "
+                     f"lane-group layout, is not the first's bits")
+            if bits and not torch.equal(k, pl):
+                fail(f"{case}: {key}' is not the plain version's bits "
+                     f"({(k != pl).sum().item()} differ)")
             worst = max(worst, finite_err(k, pl))
         # q, p in; q', p', g' and u' out
         line = {"case": case, "max_abs_err": worst,
+                "layout": kernels.walker_layout(form[0], d, "D"),
+                **({"same_bits_as_group_layout": True} if layouts else {}),
                 **bound(4 * w * (5 * d + 1),
                         w * (steps + 1) * (gradient_ops(form, d) + 3 * d))}
         if time_it:
             line["ms"] = median_ms(lambda: kernels.leapfrog_trajectory(
                 form, q, p, **kw))
+            if layouts:
+                line["group_layout_ms"] = median_ms(
+                    lambda: kernels.leapfrog_trajectory(form, q, p,
+                                                        _layout="group", **kw))
             if plain_timing is None:
                 plain_timing = {} if library is None else dict(reps=2,
                                                                rounds=3)
@@ -1023,6 +1054,11 @@ def main() -> None:
         res = run_chees_hmc(SEED + 8, mp.potential, q0, kernel="auto", **kw)
         counts = kernels.launch_counts()
         by = dict(kernels.fused_hmc_transition.launches_by)
+        by_layout = dict(kernels.fused_hmc_transition.launches_by_layout)
+        layout = kernels.walker_layout(mp.potential.device_form[0], d8, "B")
+        if by_layout[layout] != n_warm8 + n_samp8:
+            fail(f"phase {sub} launched kernel B in the layouts {by_layout}, "
+                 f"want {layout} only")
         if (res.kernel_used, res.warmup_kernel_used) != ("fused", "fused"):
             fail(f"phase {sub} ran warmup {res.warmup_kernel_used}, "
                  f"sampling {res.kernel_used}, want fused, fused")
@@ -1075,6 +1111,7 @@ def main() -> None:
             "kernel_used": res.kernel_used,
             "warmup_kernel_used": res.warmup_kernel_used,
             "launches": counts["fused_hmc_transition"], "launches_by": by,
+            "launches_by_layout": by_layout,
             "max_mean_err_sd_vs_composed": mean_err,
             "max_rel_var_err_vs_composed": var_err,
             "accept_rate": accept, "divergence_rate": div,
@@ -1214,7 +1251,8 @@ def main() -> None:
 
     def check_b8(case, form, q, steps, step, time_it, *, counted=None,
                  proposal=False, plain_reps=20, library=None, mass=None,
-                 bits=False, plain_timing=None, check_steps=None):
+                 bits=False, plain_timing=None, check_steps=None,
+                 layouts=False):
         """Kernel B against its plain version; ``counted``: the count goes
         as a device tensor with this max_steps (and the fixed-count
         kernel's first six outputs must be the same bits); ``mass``: the
@@ -1223,7 +1261,8 @@ def main() -> None:
         plain version's bits; ``plain_timing``: median_ms's arguments for
         the plain version (``plain_reps`` replays of 3 rounds unless
         given); ``check_steps``: the comparison runs this many steps, the
-        timing ``steps``."""
+        timing ``steps``; ``layouts``: the lane-group layout forced must
+        give the chosen thread layout's bits, and is timed beside it."""
         w_, d_ = q.shape
         u, g = kernels.device_value_and_grad(form)(q)
         im = ((0.5 + 1.5 * torch.rand(d_, generator=gen8)).to(dev)
@@ -1251,6 +1290,13 @@ def main() -> None:
         torch.cuda.synchronize()
         if not all(same_bits(a, b) for a, b in zip(out, again)):
             fail(f"{case}: two launches on the same input differ")
+        if layouts:
+            forced = run(**{**checked, "_layout": "group"})
+            torch.cuda.synchronize()
+            if kernels.walker_layout(form[0], d_, "B") != "thread" or not all(
+                    same_bits(a, b) for a, b in zip(out, forced)):
+                fail(f"{case}: the lane-group layout does not give the "
+                     f"thread layout's bits")
         if counted is not None:
             fixed = kernels.fused_hmc_transition(
                 form, SEED, counter, q, u, g, **{
@@ -1278,12 +1324,17 @@ def main() -> None:
                 err = max(err, finite_err(k, pl))
         line = {"case": case, "max_abs_err": err,
                 "accepted": out[4].float().mean().item(),
+                "layout": kernels.walker_layout(form[0], d_, "B"),
                 **({"same_bits_as_plain": True} if bits else {}),
+                **({"same_bits_as_group_layout": True} if layouts else {}),
                 **bound(transition_bytes(w_, d_, True)
                         + (8 * w_ * d_ if proposal else 0),
                         w_ * (ran + 1) * (gradient_ops(form, d_) + 3 * d_))}
         if time_it:
             line["ms"] = median_ms(run)
+            if layouts:
+                line["group_layout_ms"] = median_ms(
+                    lambda: run(_layout="group"))
             # the plain version reads a tensor count on the host, which a
             # graph capture cannot hold: it is timed at the int it holds
             plain_kw = {**kw, "num_steps": ran, "max_steps": None}
@@ -1407,13 +1458,48 @@ def main() -> None:
     form_es = mp_es.potential.device_form
     mass_es = res8b.state.ensemble.mass
     step_es = 0.5 * res8b.step_size.item()
+    # Both run one walker a thread (kernels.walker_layout), whose bits the
+    # lane-group layout forced must give.
+    q_es = res8b.state.ensemble.q
     es_main = check_b8("B eight_schools_nc W=102400 D=10 L=16", form_es,
-                       res8b.state.ensemble.q, 16, step_es, True,
-                       mass=mass_es)
+                       q_es, 16, step_es, True, mass=mass_es, layouts=True)
     es_errs = [es_main["max_abs_err"], check_b8(
         "B eight_schools_nc counted+proposal W=8192 D=10 n=40 max=16",
-        form_es, res8b.state.ensemble.q[:8192].contiguous(), 40, step_es,
-        False, counted=16, proposal=True, mass=mass_es)["max_abs_err"]]
+        form_es, q_es[:8192].contiguous(), 40, step_es, False, counted=16,
+        proposal=True, mass=mass_es, layouts=True)["max_abs_err"]]
+    # kernel D with the same form, state and step, the momenta drawn under
+    # the metric (its launches: 8f)
+    d_es = check_d("D eight_schools_nc W=102400 D=10 L=16", form_es,
+                   q_es.shape[0], 10, 16, step_es,
+                   (1.0 / mass_es).contiguous(), q=q_es,
+                   p=torch.randn(q_es.shape, generator=seeded(80),
+                                 device=dev) * mass_es.sqrt(),
+                   layouts=True)
+
+    # 8f: kernel D with the eight-schools form, as a user reaches it:
+    # run_hmc with integrator="pallas_leapfrog" on the model of 8b from 8b's
+    # posterior state, 20 + 20 transitions at half 8b's step; every launch
+    # one walker a thread, finite moments
+    kernels.reset_launch_counts()
+    res8f = run_hmc(SEED + 13, mp_es.potential, q_es.clone(), num_warmup=20,
+                    num_samples=20, num_steps=steps, init_step_size=step_es,
+                    collect="moments", integrator="pallas_leapfrog")
+    counts8f = kernels.launch_counts()
+    launched_d_es = counts8f["leapfrog_trajectory"]
+    layout8f = dict(kernels.leapfrog_trajectory.launches_by_layout)
+    if not (res8f.kernel_used == "composed" and launched_d_es == 40
+            and sum(counts8f.values()) == 40 and layout8f["thread"] == 40
+            and bool(torch.isfinite(res8f.mean).all())):
+        fail(f"phase 8f off: ran {res8f.kernel_used} with {counts8f} "
+             f"({layout8f}), mean {res8f.mean}")
+    print(json.dumps({
+        "phase": f"8f run_hmc eight schools non-centred W={w} D=10 "
+                 f"L={steps} integrator=pallas_leapfrog 20 + 20 from 8b's "
+                 f"posterior",
+        "kernel_used": res8f.kernel_used, "launches": launched_d_es,
+        "launches_by_layout": layout8f,
+        "accept_rate": res8f.accept_rate.item(),
+        "ms_per_transition": 1e3 * res8f.sampling_seconds / 20}))
 
     # ---- 2, at the tempered shapes: a potential scale and a beta ----------
     # the shapes phases 9 and 10 give kernels A and B, with SMC's stage beta
@@ -2695,6 +2781,7 @@ def main() -> None:
             s14, _ = cli_run(cfg)
             counts = kernels.launch_counts()
             by = dict(kernels.fused_hmc_transition.launches_by)
+            by_layout = dict(kernels.fused_hmc_transition.launches_by_layout)
             launched14[label] = counts["fused_hmc_transition"]
             mean = torch.tensor(s14["posterior_mean"], device=dev,
                                 dtype=torch.float64)
@@ -2724,6 +2811,9 @@ def main() -> None:
                   and launched14[label] == n_warm8 + n_samp8
                   and by["counted"] == n_samp8
                   and by["counted+proposal"] == n_warm8
+                  and by_layout[kernels.walker_layout(
+                      mp14.potential.device_form[0], mp14.num_dims, "B")]
+                  == launched14[label]
                   and sum(counts.values()) == launched14[label]
                   and bool(torch.isfinite(mean).all())
                   and bool(torch.isfinite(var).all()))
@@ -2739,7 +2829,8 @@ def main() -> None:
                 ok = ok and div <= 0.3 and 0.5 <= accept <= 0.99
             if not ok:
                 fail(f"phase 14c {label} off: {s14['warmup_kernel_used']}/"
-                     f"{s14['kernel_used']}, launches {counts} ({by}), "
+                     f"{s14['kernel_used']}, launches {counts} ({by}, "
+                     f"{by_layout}), "
                      f"accept {accept}, divergence rate {div}, {gates}, "
                      f"mean {s14['posterior_mean']}")
             summaries14[label] = s14
@@ -2751,6 +2842,7 @@ def main() -> None:
                 "kernel_used": s14["kernel_used"],
                 "warmup_kernel_used": s14["warmup_kernel_used"],
                 "launches": launched14[label], "launches_by": by,
+                "launches_by_layout": by_layout,
                 "against": ("closed form" if isinstance(ref, str)
                             and ref == "closed" else "none (pathological)"
                             if isinstance(ref, str) else "composed W=8192"),
@@ -2809,17 +2901,20 @@ def main() -> None:
                         integrator="pallas_leapfrog")
         counts = kernels.launch_counts()
         launched14d[label] = counts["leapfrog_trajectory"]
+        by_layout = dict(kernels.leapfrog_trajectory.launches_by_layout)
         if not (res14.kernel_used == "composed"
                 and launched14d[label] == 40
+                and by_layout[kernels.walker_layout(
+                    mp14.potential.device_form[0], mp14.num_dims, "D")] == 40
                 and sum(counts.values()) == 40
                 and bool(torch.isfinite(res14.mean).all())):
             fail(f"phase 14d {label} off: {res14.kernel_used}, launches "
-                 f"{counts}, mean {res14.mean}")
+                 f"{counts} ({by_layout}), mean {res14.mean}")
         print(json.dumps({
             "phase": f"14d run_hmc integrator=pallas_leapfrog {label} "
                      f"W={w} L={steps} 20 + 20 from 14c's posterior",
             "form": mp14.potential.device_form[0],
-            "launches": launched14d[label],
+            "launches": launched14d[label], "launches_by_layout": by_layout,
             "accept_rate": res14.accept_rate.item(),
             "ms_per_transition": 1e3 * res14.sampling_seconds / 20}))
 
@@ -2864,6 +2959,8 @@ def main() -> None:
             q14, var14 = near_posterior(label, nd)
             step14 = 0.5 * summaries14[label]["step_size"]
         lin = form14[0] == "linear"
+        threads = {k: kernels.walker_layout(form14[0], nd, k) == "thread"
+                   for k in ("B", "D")}
         short = label in ("eight_schools", "funnel")
         tag = f"(tile {kernels.logistic_tile(w, 256, nd)})" if lin else ""
         tag += " (compared over 2 steps)" if short else ""
@@ -2871,21 +2968,21 @@ def main() -> None:
             f"B {form14[0]} ({label}) W={w} D={nd} L=16 {tag}".strip(),
             form14, q14, 16, step14, True, mass=1.0 / var14, bits=lin,
             library=linear_library if lin else None,
-            check_steps=2 if short else None,
+            check_steps=2 if short else None, layouts=threads["B"],
             **(dict(plain_timing=slow) if lin else dict(plain_reps=2)))
         n_max = (5, 2) if short else (40, 16)
         errs14b[label] = [b14[label]["max_abs_err"], check_b8(
             f"B {form14[0]} ({label}) counted+proposal W=8192 D={nd} "
             f"n={n_max[0]} max={n_max[1]}", form14, q14[:8192].contiguous(),
             n_max[0], step14, False, counted=n_max[1], proposal=True,
-            mass=1.0 / var14, bits=lin)["max_abs_err"]]
+            mass=1.0 / var14, bits=lin, layouts=threads["B"])["max_abs_err"]]
         if label in new_forms14:
             d14[label] = check_d(
                 f"D {form14[0]} ({label}) W={w} D={nd} L=16 {tag}".strip(),
                 form14, w, nd, 16, step14, var14.contiguous(),
                 q=q14, p=randn14(w, nd) / var14.sqrt(),
                 library=linear_library if lin else None, bits=lin,
-                check_steps=2 if short else None,
+                check_steps=2 if short else None, layouts=threads["D"],
                 plain_timing=slow if lin else dict(reps=2, rounds=3))
 
     # ---- 15. every sampler over the walker group of phase 13 -----------------
@@ -3211,6 +3308,9 @@ def main() -> None:
     dist.destroy_process_group()
 
     def entry(name, source, replaces, launches, errs, main):
+        # a form run one walker a thread is that file's kernel
+        if main.get("layout") == "thread":
+            source = f"{CSRC}/thread_layout.cu"
         return {"name": name, "case": main["case"], "route": "cuda",
                 "source": source,
                 "replaces": f"{TPU_KERNELS}:{replaces}",
@@ -3248,9 +3348,12 @@ def main() -> None:
               lr_errs, lr_main),
         entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576, launched_es,
               es_errs, es_main),
-        # the logistic form in kernel D (phase 8e)
+        # the logistic form in kernel D (phase 8e), and the eight-schools
+        # form, one walker a thread (8f)
         entry("leapfrog_trajectory", f"{CSRC}/forms.cuh", 140,
               launched_d_lr, [d_lr["max_abs_err"]], d_lr),
+        entry("leapfrog_trajectory", f"{CSRC}/forms.cuh", 140,
+              launched_d_es, [d_es["max_abs_err"]], d_es),
         # the tempered samplers: kernel A at SMC's stage beta (9a), kernel
         # B's N-body form at it (9b), and its mixture form at a tempering
         # rung's beta (10; the TPU ran the 2-D replicas walker-packed)

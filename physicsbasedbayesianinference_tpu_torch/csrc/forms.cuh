@@ -1,5 +1,7 @@
 // Device forms of the potentials, shared by kernel B (fused_hmc.cu) and
-// kernel D (leapfrog.cu), and the warp layout they run in.
+// kernel D (leapfrog.cu), and the warp layout they run in (the lane-group
+// layout; the eight-schools forms also run one walker a thread,
+// thread_layout.cu).
 //
 // Layout: a walker's dims are split into dim-groups of four. T =
 // min(32, next_pow2(ceil(D / 4))) consecutive lanes of a warp form a lane
@@ -930,6 +932,36 @@ struct LinearForm : LogisticForm {
   }
 };
 
+// The two eight-schools forms stage, once a block, each school's pair (y_i,
+// r_i = 1 / sigma_i), the reciprocal taken as it is staged, and the
+// normalising constant after the pairs (consts[0], summed on the host in
+// float64). A school's data is then one 8-byte shared load, the same
+// address for every thread (a broadcast), and its terms are products where
+// they were divisions. Each form runs in two layouts with the same
+// arithmetic, so that the layouts and the plain versions (ops/kernels.py
+// _eight_schools_vg, _eight_schools_centred_vg) round alike:
+//
+// * one walker a thread (thread_layout.cu, up to D = 16, the centred form
+//   in kernel D up to 12: ops/kernels.py walker_layout). The thread holds the walker's N = 4 ceil(D / 4) dims in
+//   registers, zeros past D, and runs the J terms once a gradient
+//   (grad_thread, value_thread): no shared buffer, no warp barrier, no
+//   shuffle.
+// * T lanes a walker above that, this file's layout: every lane shares the
+//   walker through its buffer row, runs the J terms, and takes its own four
+//   dims (grad, value).
+//
+// Sums over the schools run in index order in both; 1 / 25, 1 / 50 and
+// 1 / 5 are the products by 0.04, 0.02 and 0.2 (rounded to float32).
+__device__ __forceinline__ void stage_schools(float* sh, const float* y,
+                                              const float* sigma,
+                                              const float* consts, int j) {
+  for (int i = threadIdx.x; i < j; i += blockDim.x) {
+    sh[2 * i] = y[i];
+    sh[2 * i + 1] = 1.0f / sigma[i];
+  }
+  if (threadIdx.x == 0) sh[2 * j] = consts[0];
+}
+
 // Non-centred eight schools over J groups, q = (mu, log tau, theta [J]),
 // D = J + 2, data y [J], sigma [J]: the potential of models/examples.py
 // eight_schools_noncentered in unconstrained coordinates,
@@ -937,8 +969,10 @@ struct LinearForm : LogisticForm {
 //       + sum_j ((y_j - mu - tau theta_j) / sigma_j)^2 / 2 + c,  tau = e^q1,
 // from mu ~ N(0, 5), tau ~ HalfCauchy(5) with the Jacobian of tau = e^q1,
 // theta ~ N(0, 1) and y_j ~ N(mu + tau theta_j, sigma_j); c collects the
-// normalising constants (consts[0], summed on the host in float64). Every
-// lane of the walker runs the J terms in index order.
+// normalising constants. With z_j = (y_j - (mu + tau theta_j)) r_j and
+// e_j = z_j r_j: dU/dmu = mu / 25 - sum_j e_j, dU/dq1 = 2 t^2 / (1 + t^2)
+// - 1 - tau sum_j e_j theta_j (t = tau / 5), dU/dtheta_j = theta_j - tau
+// e_j.
 struct EightSchoolsForm {
   const float* y;       // [J]
   const float* sigma;   // [J]
@@ -951,28 +985,81 @@ struct EightSchoolsForm {
   __host__ __device__ int shared_floats(int, int) const { return 2 * j + 1; }
 
   __device__ void stage(float* sh, int, int) const {
-    for (int i = threadIdx.x; i < j; i += blockDim.x) {
-      sh[i] = y[i];
-      sh[j + i] = sigma[i];
+    stage_schools(sh, y, sigma, consts, j);
+  }
+
+  // (z_i, e_i) of the school whose pair is yr
+  __device__ __forceinline__ static float2 terms(float2 yr, float mu,
+                                                 float tau, float th) {
+    const float z = (yr.x - (mu + tau * th)) * yr.y;
+    return make_float2(z, z * yr.y);
+  }
+
+  __device__ __forceinline__ static float grad_log_tau(float tau, float s2) {
+    const float t = tau * 0.2f;
+    return ((2.0f * (t * t)) / (1.0f + t * t) - 1.0f) - tau * s2;
+  }
+
+  __device__ __forceinline__ float total(float mu, float lt, float tau,
+                                         float st, float sz,
+                                         const float* sh) const {
+    const float t = tau * 0.2f;
+    return ((((mu * mu) * 0.02f + log1pf(t * t)) - lt) + 0.5f * st) +
+           0.5f * sz + sh[2 * j];
+  }
+
+  // One walker a thread: its N >= D dims in registers.
+  template <int N>
+  __device__ __forceinline__ void grad_thread(const float q[N], float g[N],
+                                              const float* sh) const {
+    const float2* yr = reinterpret_cast<const float2*>(sh);
+    const float mu = q[0], tau = expf(q[1]);
+    float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < N - 2; ++i) {
+      g[2 + i] = 0.0f;
+      if (i < j) {
+        const float th = q[2 + i];
+        const float e = terms(yr[i], mu, tau, th).y;
+        s1 += e;
+        s2 += e * th;
+        g[2 + i] = th - tau * e;
+      }
     }
-    if (threadIdx.x == 0) sh[2 * j] = consts[0];
+    g[0] = mu * 0.04f - s1;
+    g[1] = grad_log_tau(tau, s2);
   }
 
-  // ((y_i - (mu + tau theta_i)) / sigma_i
-  __device__ __forceinline__ float resid(const float* sh, const float* buf,
-                                         int i, float mu, float tau) const {
-    return (sh[i] - (mu + tau * buf[2 + i])) / sh[j + i];
+  template <int N>
+  __device__ __forceinline__ float value_thread(const float q[N],
+                                                const float* sh) const {
+    const float2* yr = reinterpret_cast<const float2*>(sh);
+    const float mu = q[0], lt = q[1], tau = expf(lt);
+    float st = 0.0f, sz = 0.0f;
+#pragma unroll
+    for (int i = 0; i < N - 2; ++i) {
+      if (i < j) {
+        const float th = q[2 + i];
+        const float z = terms(yr[i], mu, tau, th).x;
+        st += th * th;
+        sz += z * z;
+      }
+    }
+    return total(mu, lt, tau, st, sz, sh);
   }
 
+  // T lanes a walker: the lane's four dims.
   __device__ void grad(const float qv[4], float gv[4], int lane, int, int d,
                        const float* sh, float* buf) const {
     share_walker(qv, lane, d, buf);
+    const float2* yr = reinterpret_cast<const float2*>(sh);
     const float mu = buf[0], tau = expf(buf[1]);
     float s1 = 0.0f, s2 = 0.0f;
     for (int i = 0; i < j; ++i) {
-      const float e = resid(sh, buf, i, mu, tau) / sh[j + i];
+      const float th = buf[2 + i];
+      const float e = terms(yr[i], mu, tau, th).y;
       s1 += e;
-      s2 += e * buf[2 + i];
+      s2 += e * th;
     }
     const int base = 4 * lane;
 #pragma unroll
@@ -980,13 +1067,11 @@ struct EightSchoolsForm {
       const int dim = base + e;
       float v = 0.0f;
       if (dim == 0) {
-        v = mu / 25.0f - s1;
+        v = mu * 0.04f - s1;
       } else if (dim == 1) {
-        const float t = tau / 5.0f;
-        v = ((2.0f * (t * t)) / (1.0f + t * t) - 1.0f) - tau * s2;
+        v = grad_log_tau(tau, s2);
       } else if (dim < d) {
-        const int i = dim - 2;
-        v = qv[e] - tau * (resid(sh, buf, i, mu, tau) / sh[j + i]);
+        v = qv[e] - tau * terms(yr[dim - 2], mu, tau, qv[e]).y;
       }
       gv[e] = v;
     }
@@ -996,17 +1081,17 @@ struct EightSchoolsForm {
   __device__ float value(const float qv[4], const float[4], int lane, int,
                          int d, const float* sh, float* buf) const {
     share_walker(qv, lane, d, buf);
+    const float2* yr = reinterpret_cast<const float2*>(sh);
     const float mu = buf[0], lt = buf[1], tau = expf(buf[1]);
     float st = 0.0f, sz = 0.0f;
     for (int i = 0; i < j; ++i) {
-      const float z = resid(sh, buf, i, mu, tau);
-      st += buf[2 + i] * buf[2 + i];
+      const float th = buf[2 + i];
+      const float z = terms(yr[i], mu, tau, th).x;
+      st += th * th;
       sz += z * z;
     }
     __syncwarp();
-    const float t = tau / 5.0f;
-    return ((((mu * mu) / 50.0f + log1pf(t * t)) - lt) + 0.5f * st) +
-           0.5f * sz + sh[2 * j];
+    return total(mu, lt, tau, st, sz, sh);
   }
 };
 
@@ -1018,8 +1103,10 @@ struct EightSchoolsForm {
 //       sigma_j)^2 / 2 + c,  tau = e^q1,
 // from mu ~ N(0, 5), tau ~ HalfCauchy(5) with the Jacobian of tau = e^q1,
 // theta_j ~ N(mu, tau) and y_j ~ N(theta_j, sigma_j); c (consts[0]) the
-// normalising constants, which are the non-centred model's. Every lane of
-// the walker runs the J terms in index order.
+// normalising constants, which are the non-centred model's. With 1 / tau
+// taken as e^-q1: z_j = (theta_j - mu) e^-q1 and o_j = (y_j - theta_j) r_j;
+// dU/dmu = mu / 25 - e^-q1 sum_j z_j, dU/dq1 = 2 t^2 / (1 + t^2) - 1 + J -
+// sum_j z_j^2, dU/dtheta_j = z_j e^-q1 - o_j r_j.
 struct EightSchoolsCentredForm {
   const float* y;       // [J]
   const float* sigma;   // [J]
@@ -1032,20 +1119,82 @@ struct EightSchoolsCentredForm {
   __host__ __device__ int shared_floats(int, int) const { return 2 * j + 1; }
 
   __device__ void stage(float* sh, int, int) const {
-    for (int i = threadIdx.x; i < j; i += blockDim.x) {
-      sh[i] = y[i];
-      sh[j + i] = sigma[i];
-    }
-    if (threadIdx.x == 0) sh[2 * j] = consts[0];
+    stage_schools(sh, y, sigma, consts, j);
   }
 
+  // (z_i, o_i) of the school whose pair is yr
+  __device__ __forceinline__ static float2 terms(float2 yr, float mu,
+                                                 float itau, float th) {
+    return make_float2((th - mu) * itau, (yr.x - th) * yr.y);
+  }
+
+  __device__ __forceinline__ static float grad_theta(float2 zo, float itau,
+                                                     float r) {
+    return zo.x * itau - zo.y * r;
+  }
+
+  __device__ __forceinline__ float grad_log_tau(float tau, float s2) const {
+    const float t = tau * 0.2f;
+    return (((2.0f * (t * t)) / (1.0f + t * t) - 1.0f) + (float)j) - s2;
+  }
+
+  __device__ __forceinline__ float total(float mu, float lt, float tau,
+                                         float s2, float sz,
+                                         const float* sh) const {
+    const float t = tau * 0.2f;
+    return (((((mu * mu) * 0.02f + log1pf(t * t)) - lt) + (float)j * lt) +
+            0.5f * s2) +
+           0.5f * sz + sh[2 * j];
+  }
+
+  // One walker a thread: its N >= D dims in registers.
+  template <int N>
+  __device__ __forceinline__ void grad_thread(const float q[N], float g[N],
+                                              const float* sh) const {
+    const float2* yr = reinterpret_cast<const float2*>(sh);
+    const float mu = q[0], tau = expf(q[1]), itau = expf(-q[1]);
+    float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < N - 2; ++i) {
+      g[2 + i] = 0.0f;
+      if (i < j) {
+        const float2 pair = yr[i];
+        const float2 zo = terms(pair, mu, itau, q[2 + i]);
+        s1 += zo.x;
+        s2 += zo.x * zo.x;
+        g[2 + i] = grad_theta(zo, itau, pair.y);
+      }
+    }
+    g[0] = mu * 0.04f - s1 * itau;
+    g[1] = grad_log_tau(tau, s2);
+  }
+
+  template <int N>
+  __device__ __forceinline__ float value_thread(const float q[N],
+                                                const float* sh) const {
+    const float2* yr = reinterpret_cast<const float2*>(sh);
+    const float mu = q[0], lt = q[1], tau = expf(lt), itau = expf(-lt);
+    float s2 = 0.0f, sz = 0.0f;
+#pragma unroll
+    for (int i = 0; i < N - 2; ++i) {
+      if (i < j) {
+        const float2 zo = terms(yr[i], mu, itau, q[2 + i]);
+        s2 += zo.x * zo.x;
+        sz += zo.y * zo.y;
+      }
+    }
+    return total(mu, lt, tau, s2, sz, sh);
+  }
+
+  // T lanes a walker: the lane's four dims.
   __device__ void grad(const float qv[4], float gv[4], int lane, int, int d,
                        const float* sh, float* buf) const {
     share_walker(qv, lane, d, buf);
-    const float mu = buf[0], tau = expf(buf[1]);
+    const float2* yr = reinterpret_cast<const float2*>(sh);
+    const float mu = buf[0], tau = expf(buf[1]), itau = expf(-buf[1]);
     float s1 = 0.0f, s2 = 0.0f;
     for (int i = 0; i < j; ++i) {
-      const float z = (buf[2 + i] - mu) / tau;
+      const float z = terms(yr[i], mu, itau, buf[2 + i]).x;
       s1 += z;
       s2 += z * z;
     }
@@ -1055,15 +1204,12 @@ struct EightSchoolsCentredForm {
       const int dim = base + e;
       float v = 0.0f;
       if (dim == 0) {
-        v = mu / 25.0f - s1 / tau;
+        v = mu * 0.04f - s1 * itau;
       } else if (dim == 1) {
-        const float t = tau / 5.0f;
-        v = (((2.0f * (t * t)) / (1.0f + t * t) - 1.0f) + (float)j) - s2;
+        v = grad_log_tau(tau, s2);
       } else if (dim < d) {
-        const int i = dim - 2;
-        const float z = (qv[e] - mu) / tau;
-        const float o = (sh[i] - qv[e]) / sh[j + i];
-        v = z / tau - o / sh[j + i];
+        const float2 pair = yr[dim - 2];
+        v = grad_theta(terms(pair, mu, itau, qv[e]), itau, pair.y);
       }
       gv[e] = v;
     }
@@ -1073,19 +1219,17 @@ struct EightSchoolsCentredForm {
   __device__ float value(const float qv[4], const float[4], int lane, int,
                          int d, const float* sh, float* buf) const {
     share_walker(qv, lane, d, buf);
-    const float mu = buf[0], lt = buf[1], tau = expf(buf[1]);
+    const float2* yr = reinterpret_cast<const float2*>(sh);
+    const float mu = buf[0], lt = buf[1], tau = expf(buf[1]),
+                itau = expf(-buf[1]);
     float s2 = 0.0f, sz = 0.0f;
     for (int i = 0; i < j; ++i) {
-      const float z = (buf[2 + i] - mu) / tau;
-      const float o = (sh[i] - buf[2 + i]) / sh[j + i];
-      s2 += z * z;
-      sz += o * o;
+      const float2 zo = terms(yr[i], mu, itau, buf[2 + i]);
+      s2 += zo.x * zo.x;
+      sz += zo.y * zo.y;
     }
     __syncwarp();
-    const float t = tau / 5.0f;
-    return (((((mu * mu) / 50.0f + log1pf(t * t)) - lt) + (float)j * lt) +
-            0.5f * s2) +
-           0.5f * sz + sh[2 * j];
+    return total(mu, lt, tau, s2, sz, sh);
   }
 };
 

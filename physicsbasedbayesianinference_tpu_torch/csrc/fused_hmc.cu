@@ -59,7 +59,10 @@
 // kernel C was also its route for the models' data-matmul potentials; here
 // those are device forms of kernel B (forms.cuh: LogisticForm, LinearForm,
 // and the other example models' EightSchoolsForm, EightSchoolsCentredForm,
-// CoinForm and the funnel and diagonal forms with a constant).
+// CoinForm and the funnel and diagonal forms with a constant). The two
+// eight-schools forms run one walker a thread up to D = 16, in
+// thread_layout.cu's kernel B (ops/kernels.py walker_layout); this file's
+// layout takes them above that.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,35 +71,9 @@
 
 #include "forms.cuh"
 #include "philox.cuh"
+#include "transition.cuh"
 
 namespace {
-
-struct Decision {
-  float energy_error;
-  float accept_prob;
-  bool accepted;
-};
-
-// The leapfrog count of a launch that takes it from device memory: the
-// value the caller's adaptation left there, clipped to [1, max_steps]; the
-// same for every thread of the grid, so the trajectory loops stay uniform.
-__device__ __forceinline__ int device_steps(const int* __restrict__ steps_dev,
-                                            int max_steps) {
-  return min(max(steps_dev[0], 1), max_steps);
-}
-
-// log_u: the log of the walker's Metropolis uniform.
-__device__ __forceinline__ Decision metropolis(float h0, float h1, float beta,
-                                               float threshold, float log_u) {
-  float derr = beta * (h1 - h0);
-  if (!isfinite(derr)) derr = INFINITY;  // -inf and NaN included
-  const bool divergent = derr > threshold;
-  Decision d;
-  d.energy_error = derr;
-  d.accepted = (log_u < -derr) && !divergent;
-  d.accept_prob = divergent ? 0.0f : expf(fminf(0.0f, -derr));
-  return d;
-}
 
 // ---------------------------------------------------------------------------
 // Kernel A: U = 0.5 sum_d k_d (q_d - mu_d)^2, separable by dimension.

@@ -19,7 +19,8 @@
 // layout: T lanes per walker, one dim-group of four per lane, so D <= 128;
 // with the Gaussian, logistic and linear forms a lane group owns R walkers
 // (1, 2 or 4), whose 4 x R tile of the gradient a lane keeps in registers
-// (forms.cuh).
+// (forms.cuh). The two eight-schools forms run one walker a thread up to
+// D = 16, in thread_layout.cu's kernel D (ops/kernels.py walker_layout).
 //
 // The gradient on entry: the TPU kernel recomputes (u, g) at q
 // (pallas_kernels.py:186). This one takes the caller's cached (u, g) when

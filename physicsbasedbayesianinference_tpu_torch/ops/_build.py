@@ -23,9 +23,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # compiled (one object each) ...
-CU_SOURCES = ("fused_hmc.cu", "leapfrog.cu", "nbody.cu")
+CU_SOURCES = ("fused_hmc.cu", "leapfrog.cu", "nbody.cu", "thread_layout.cu")
 # ... and every file the library depends on, for its hash
-SOURCES = CU_SOURCES + ("forms.cuh", "philox.cuh")
+SOURCES = CU_SOURCES + ("forms.cuh", "philox.cuh", "transition.cuh")
 # --fmad=false: no multiply-add contraction, so the kernels round op by op
 # as their plain torch versions do and agree with them to 1e-5 even on
 # sensitive trajectories (the banana's valley, the funnel's neck). It costs
@@ -68,6 +68,12 @@ _SIGNATURES = {
     # out, lanes per target, softening, G, stream
     "pbbi_nbody_accelerations": [_I, _P, _I, _P, _P, _I, _P, _I, _D, _D, _P],
 }
+# kernels B and D in the thread layout (thread_layout.cu) take the same
+# arguments
+_SIGNATURES["pbbi_fused_hmc_transition_threads"] = _SIGNATURES[
+    "pbbi_fused_hmc_transition"]
+_SIGNATURES["pbbi_leapfrog_trajectory_threads"] = _SIGNATURES[
+    "pbbi_leapfrog_trajectory"]
 
 
 def nvcc_path() -> str:

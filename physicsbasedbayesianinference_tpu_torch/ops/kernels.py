@@ -6,6 +6,10 @@
     D  leapfrog_trajectory        csrc/leapfrog.cu   leapfrog trajectory
     E  nbody_accelerations_tiled  csrc/nbody.cu      N-body accelerations
 
+B and D run the two eight-schools forms one walker a thread up to D = 16
+(the centred form in D up to 12), in csrc/thread_layout.cu
+(:func:`walker_layout`).
+
 Each wrapper takes the plain version for tensors on the CPU and launches
 the kernel for CUDA tensors; any other device, a bad dtype, shape or
 layout, a failed build or a failed launch raises. ``wrapper.launches``
@@ -62,6 +66,17 @@ _BLOCK_THREADS = 256
 _FILL_BLOCKS = 128
 # rows of x a lane of the logistic form takes together (kLogisticRows)
 LOGISTIC_ROWS = 4
+# Kernels B ("B") and D ("D") run these forms one walker a thread
+# (csrc/thread_layout.cu) up to THREAD_LAYOUT_DIMS[form, kernel] dims, T
+# lanes a walker (csrc/forms.cuh) above: walker_layout. The centred form's
+# kernel D stops at 12: at D = 16 it took 0.0710 ms against the lane groups'
+# 0.0655 (H100 80GB HBM3 at 700 W, tools/kernel_sweeps.py, PERF.md). "thread"
+# and "group" name the two layouts.
+THREAD_FORMS = ("eight_schools_nc", "eight_schools")
+THREAD_LAYOUT_DIMS = {("eight_schools_nc", "B"): 16,
+                      ("eight_schools_nc", "D"): 16,
+                      ("eight_schools", "B"): 16, ("eight_schools", "D"): 12}
+LAYOUTS = ("thread", "group")
 # All the shared memory a block may have on an H100 (227 KiB).
 MAX_SHARED_BYTES = 232448
 # device form -> (its id at the C entries, its parameter tensors' names)
@@ -459,6 +474,35 @@ def logistic_tile(num_walkers: int, num_rows: int, num_dims: int) -> int:
     return tile
 
 
+def walker_layout(form_name: str, num_dims: int, kernel: str) -> str:
+    """The layout kernel ``kernel`` ("B" or "D") runs the form
+    ``form_name`` in at ``num_dims``, decided from the three alone before
+    any launch: "thread" (one walker a thread, csrc/thread_layout.cu) for
+    the eight-schools forms up to ``THREAD_LAYOUT_DIMS[form_name, kernel]``
+    dims, "group" (T lanes a walker, :func:`threads_per_walker`) for every
+    other form and shape."""
+    limit = THREAD_LAYOUT_DIMS.get((form_name, kernel), 0)
+    return "thread" if 1 <= num_dims <= limit else "group"
+
+
+def _layout_for(device_form, num_dims: int, kernel: str,
+                layout: Optional[str]) -> str:
+    """The layout a launch of kernel ``kernel`` takes: :func:`walker_layout`'s
+    unless the tests' hook forces one; "group" can be forced everywhere,
+    "thread" only where the chooser takes it."""
+    chosen = walker_layout(device_form[0], num_dims, kernel)
+    if layout is None:
+        return chosen
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    if layout == "thread" and chosen != "thread":
+        raise ValueError(
+            f"the {device_form[0]!r} form at D={num_dims} has no thread "
+            f"layout in kernel {kernel} (THREAD_LAYOUT_DIMS: "
+            f"{THREAD_LAYOUT_DIMS})")
+    return layout
+
+
 def _tile_for(device_form, num_walkers: int, num_dims: int,
               tile: Optional[int]) -> int:
     """The walker tile a launch takes: the chooser's unless one is forced;
@@ -661,9 +705,13 @@ def _logistic_vg(x, y):
 
 
 def _eight_schools_vg(y, sigma, consts):
-    """Non-centred eight schools, q = (mu, log tau, theta [J]), its J terms
-    in index order (csrc/forms.cuh EightSchoolsForm)."""
+    """Non-centred eight schools, q = (mu, log tau, theta [J]), as kernels B
+    and D evaluate it in both layouts (csrc/forms.cuh EightSchoolsForm):
+    the reciprocals ``r = 1 / sigma`` taken once, each school's terms as
+    products with them, the J terms in index order, and 1 / 25, 1 / 50
+    and 1 / 5 as products by their float32 roundings."""
     j = y.shape[0]
+    r = 1.0 / sigma
 
     def vg(q):
         mu, lt, th = q[:, 0], q[:, 1], q[:, 2:]
@@ -671,19 +719,19 @@ def _eight_schools_vg(y, sigma, consts):
         s1, s2, st, sz = (torch.zeros_like(mu) for _ in range(4))
         es = []
         for i in range(j):
-            z = (y[i] - (mu + tau * th[:, i])) / sigma[i]
-            e = z / sigma[i]
+            z = (y[i] - (mu + tau * th[:, i])) * r[i]
+            e = z * r[i]
             s1 = s1 + e
             s2 = s2 + e * th[:, i]
             st = st + th[:, i] * th[:, i]
             sz = sz + z * z
             es.append(e)
-        t = tau / 5.0
+        t = tau * 0.2
         g = torch.cat([
-            (mu / 25.0 - s1)[:, None],
+            (mu * 0.04 - s1)[:, None],
             (((2.0 * (t * t)) / (1.0 + t * t) - 1.0) - tau * s2)[:, None],
             th - tau[:, None] * torch.stack(es, dim=1)], dim=1)
-        u = (((((mu * mu) / 50.0 + torch.log1p(t * t)) - lt) + 0.5 * st)
+        u = (((((mu * mu) * 0.02 + torch.log1p(t * t)) - lt) + 0.5 * st)
              + 0.5 * sz + consts[0])
         return u, g
     return vg
@@ -740,29 +788,33 @@ def _linear_vg(x, y, consts):
 
 
 def _eight_schools_centred_vg(y, sigma, consts):
-    """Centred eight schools, q = (mu, log tau, theta [J]), its J terms in
-    index order (csrc/forms.cuh EightSchoolsCentredForm)."""
+    """Centred eight schools, q = (mu, log tau, theta [J]), as kernels B and
+    D evaluate it in both layouts (csrc/forms.cuh
+    EightSchoolsCentredForm): ``r = 1 / sigma`` taken once, 1 / tau as
+    ``exp(-log tau)``, each school's terms as products with them, the J
+    terms in index order, 1 / 25, 1 / 50 and 1 / 5 as products."""
     j = y.shape[0]
+    r = 1.0 / sigma
 
     def vg(q):
         mu, lt, th = q[:, 0], q[:, 1], q[:, 2:]
-        tau = torch.exp(lt)
+        tau, itau = torch.exp(lt), torch.exp(-lt)
         s1, s2, sz = (torch.zeros_like(mu) for _ in range(3))
         gt = []
         for i in range(j):
-            z = (th[:, i] - mu) / tau
-            o = (y[i] - th[:, i]) / sigma[i]
+            z = (th[:, i] - mu) * itau
+            o = (y[i] - th[:, i]) * r[i]
             s1 = s1 + z
             s2 = s2 + z * z
             sz = sz + o * o
-            gt.append(z / tau - o / sigma[i])
-        t = tau / 5.0
+            gt.append(z * itau - o * r[i])
+        t = tau * 0.2
         g = torch.cat([
-            (mu / 25.0 - s1 / tau)[:, None],
+            (mu * 0.04 - s1 * itau)[:, None],
             ((((2.0 * (t * t)) / (1.0 + t * t) - 1.0) + float(j))
              - s2)[:, None],
             torch.stack(gt, dim=1)], dim=1)
-        u = ((((((mu * mu) / 50.0 + torch.log1p(t * t)) - lt)
+        u = ((((((mu * mu) * 0.02 + torch.log1p(t * t)) - lt)
                + float(j) * lt) + 0.5 * s2) + 0.5 * sz) + consts[0]
         return u, g
     return vg
@@ -868,7 +920,7 @@ def fused_hmc_transition(
     *, scalars: Tensor, p_std: Tensor, inv_mass: Tensor, num_steps,
     divergence_threshold: float = 1000.0, tile: Optional[int] = None,
     max_steps: Optional[int] = None, emit_proposal: bool = False,
-    walker_offset: int = 0,
+    walker_offset: int = 0, _layout: Optional[str] = None,
 ):
     """Kernel B. Replaces ``make_fused_hmc_transition``
     (physicsbasedbayesianinference_tpu/ops/pallas_kernels.py:373) and, as
@@ -878,10 +930,16 @@ def fused_hmc_transition(
     :func:`fused_hmc_transition_plain` and :func:`generic_unsupported` for
     what it takes. ``tile`` forces a tiled form's walker tile
     (:func:`walker_tile` or :func:`logistic_tile` of the shape unless
-    given); the result does not depend on it."""
+    given); the result does not depend on it. The walker layout is
+    :func:`walker_layout`'s; ``_layout``, a hook for the tests and the
+    tools, forces one, and the two layouts give the same bits.
+    ``launches_by`` counts the launches by variant, ``launches_by_layout``
+    by layout."""
     if q.device.type == "cpu":
         if tile is not None:
             _tile_for(device_form, *q.shape, tile)
+        if _layout is not None:
+            _layout_for(device_form, q.shape[-1], "B", _layout)
         return fused_hmc_transition_plain(
             device_form, seed, counter, q, u, g, scalars=scalars,
             p_std=p_std, inv_mass=inv_mass, num_steps=num_steps,
@@ -900,6 +958,7 @@ def fused_hmc_transition(
            {"q": (w, d), "u": (w,), "g": (w, d), **shapes, "scalars": (3,),
             "p_std": (d,), "inv_mass": (d,)})
     tile = _tile_for(device_form, w, d, tile)
+    layout = _layout_for(device_form, d, "B", _layout)
     steps_ptr, steps = _device_steps(num_steps, max_steps, q)
     walker_offset = _check_offset(walker_offset, w)
     param_ptrs = [t.data_ptr() for t in params]
@@ -910,7 +969,10 @@ def fused_hmc_transition(
     prop_ptrs = [t.data_ptr() for t in proposal] or [None, None]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = load_library().pbbi_fused_hmc_transition(
+        lib = load_library()
+        entry = (lib.pbbi_fused_hmc_transition_threads if layout == "thread"
+                 else lib.pbbi_fused_hmc_transition)
+        rc = entry(
             form_id, *param_ptrs, count,
             *map(Tensor.data_ptr,
                  (q, u, g, inv_mass, p_std, scalars,
@@ -922,6 +984,7 @@ def fused_hmc_transition(
     fused_hmc_transition.launches += 1
     fused_hmc_transition.launches_by[
         _variant_name(steps_ptr is not None, emit_proposal)] += 1
+    fused_hmc_transition.launches_by_layout[layout] += 1
     return (q_out, u_out, g_out, acc, taken.view(torch.bool), derr,
             *proposal)
 
@@ -938,6 +1001,9 @@ fused_hmc_transition.launches = 0  # type: ignore[attr-defined]
 # device memory, with or without the proposal outputs
 fused_hmc_transition.launches_by = dict.fromkeys(  # type: ignore
     B_VARIANTS, 0)
+# the same launches by walker layout
+fused_hmc_transition.launches_by_layout = dict.fromkeys(  # type: ignore
+    LAYOUTS, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -974,6 +1040,7 @@ def leapfrog_trajectory(
     device_form, q: Tensor, p: Tensor, *, step_size: Tensor, num_steps: int,
     inv_mass: Tensor, grad: Optional[Tensor] = None,
     potential_energy: Optional[Tensor] = None, tile: Optional[int] = None,
+    _layout: Optional[str] = None,
 ):
     """Kernel D. Replaces ``make_pallas_leapfrog``
     (physicsbasedbayesianinference_tpu/ops/pallas_kernels.py:140); see
@@ -985,10 +1052,14 @@ def leapfrog_trajectory(
     ``inv_mass`` ``[D]``. Uses the cached ``(potential_energy, grad)``
     when given (both or neither), where the TPU kernel recomputed them at
     q; u' is the form's value at the final q. ``tile`` forces a tiled
-    form's walker tile, as in :func:`fused_hmc_transition`."""
+    form's walker tile and ``_layout`` the walker layout, as in
+    :func:`fused_hmc_transition`; ``launches_by_layout`` counts the
+    launches by layout."""
     if q.device.type == "cpu":
         if tile is not None:
             _tile_for(device_form, *q.shape, tile)
+        if _layout is not None:
+            _layout_for(device_form, q.shape[-1], "D", _layout)
         return leapfrog_trajectory_plain(
             device_form, q, p, step_size=step_size, num_steps=num_steps,
             inv_mass=inv_mass, grad=grad, potential_energy=potential_energy)
@@ -1015,6 +1086,7 @@ def leapfrog_trajectory(
         shapes.update(u=(w,), g=(w, d))
     _check(q, named, shapes)
     tile = _tile_for(device_form, w, d, tile)
+    layout = _layout_for(device_form, d, "D", _layout)
     param_ptrs = [t.data_ptr() for t in params]
     param_ptrs += [None] * (3 - len(param_ptrs))
     q_out, p_out, g_out = (torch.empty_like(q) for _ in range(3))
@@ -1023,7 +1095,10 @@ def leapfrog_trajectory(
                   else (None, None))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = load_library().pbbi_leapfrog_trajectory(
+        lib = load_library()
+        entry = (lib.pbbi_leapfrog_trajectory_threads if layout == "thread"
+                 else lib.pbbi_leapfrog_trajectory)
+        rc = entry(
             form_id, *param_ptrs, count, q.data_ptr(), p.data_ptr(),
             *cache_ptrs,
             *map(Tensor.data_ptr, (inv_mass, step, q_out, p_out, u_out,
@@ -1031,10 +1106,13 @@ def leapfrog_trajectory(
             w, d, num_steps, tile, stream)
     _raise_on(rc, f"leapfrog_trajectory[{name}]")
     leapfrog_trajectory.launches += 1
+    leapfrog_trajectory.launches_by_layout[layout] += 1
     return q_out, p_out, u_out, g_out
 
 
 leapfrog_trajectory.launches = 0  # type: ignore[attr-defined]
+leapfrog_trajectory.launches_by_layout = dict.fromkeys(  # type: ignore
+    LAYOUTS, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -1287,6 +1365,8 @@ def reset_launch_counts() -> None:
         k.launches = 0
     fused_hmc_diag_quadratic.launches_by = dict.fromkeys(A_TRAJECTORIES, 0)
     fused_hmc_transition.launches_by = dict.fromkeys(B_VARIANTS, 0)
+    fused_hmc_transition.launches_by_layout = dict.fromkeys(LAYOUTS, 0)
+    leapfrog_trajectory.launches_by_layout = dict.fromkeys(LAYOUTS, 0)
     nbody_accelerations_tiled.launches_by = dict.fromkeys(E_FORMS, 0)
 
 

@@ -643,9 +643,9 @@ def _logistic_form(n, d, dev):
     return ("logistic", (_t(x, dev), _t(y, dev)))
 
 
-def _schools_form(j, dev):
+def _schools_form(j, dev, name="eight_schools_nc"):
     rng = np.random.default_rng(j)
-    return ("eight_schools_nc", (_t(10.0 * rng.normal(size=j), dev),
+    return (name, (_t(10.0 * rng.normal(size=j), dev),
                                  _t(rng.uniform(5.0, 20.0, j), dev),
                                  _t([3.0 * j], dev)))
 
@@ -824,22 +824,121 @@ def test_logistic_tile_chooser_on_cuda(dev):
     assert kernels.fused_hmc_transition.launches == before
 
 
-@pytest.mark.parametrize("w,j", [(1, 1), (37, 3), (1001, 8), (64, 30)])
-def test_eight_schools_form_matches_plain(dev, w, j):
-    form = _schools_form(j, dev)
+@pytest.mark.parametrize("w,j", [(1, 1), (37, 3), (1001, 8), (64, 30),
+                                 (129, 14), (75, 15), (257, 6), (97, 10),
+                                 (65, 11)])
+@pytest.mark.parametrize("name", ["eight_schools_nc", "eight_schools"])
+def test_eight_schools_form_matches_plain(dev, w, j, name):
+    """Both eight-schools forms in kernels B and D at J on both sides of
+    the thread layout's limits (D = 16; D = 12 for the centred form in
+    kernel D) and W no multiple of its block:
+    kernel B in its four variants (the count fixed or on the device, with
+    or without the proposal) against the plain version (``_assert_match``;
+    the proposal to 1e-5), kernel D with and without the cached pair to
+    1e-5; a second launch gives the same bits, and so does the lane-group
+    layout forced where the thread layout runs (the forms' arithmetic is
+    the same in both)."""
+    form = _schools_form(j, dev, name)
     d = j + 2
+    assert kernels.walker_layout(name, d, "B") == ("thread" if d <= 16
+                                                   else "group")
+    d_limit = 16 if name == "eight_schools_nc" else 12
+    assert kernels.walker_layout(name, d, "D") == ("thread" if d <= d_limit
+                                                   else "group")
+    layouts = (None, "group") if d <= 16 else (None,)
+    d_layouts = (None, "group") if d <= d_limit else (None,)
     q, u, g, kw = _b_case(form, w, d, dev)
-    out_k = dict(zip(B_ORDER, kernels.fused_hmc_transition(
-        form, 7, 3, q, u, g, num_steps=8, **kw)))
-    out_p = dict(zip(B_ORDER, kernels.fused_hmc_transition_plain(
-        form, 7, 3, q, u, g, num_steps=8, **kw)))
-    torch.cuda.synchronize()
-    _assert_match(out_k, out_p, 7, 3)
+    for counted in (False, True):
+        for prop in (False, True):
+            extra = dict(emit_proposal=prop)
+            extra.update(dict(num_steps=_count(8, dev), max_steps=8)
+                         if counted else dict(num_steps=8))
+            want = kernels.fused_hmc_transition_plain(form, 7, 3, q, u, g,
+                                                      **kw, **extra)
+            first = None
+            for layout in layouts:
+                before = dict(kernels.fused_hmc_transition.launches_by_layout)
+                out = kernels.fused_hmc_transition(
+                    form, 7, 3, q, u, g, _layout=layout, **kw, **extra)
+                again = kernels.fused_hmc_transition(
+                    form, 7, 3, q, u, g, _layout=layout, **kw, **extra)
+                torch.cuda.synchronize()
+                ran = layout or kernels.walker_layout(name, d, "B")
+                assert kernels.fused_hmc_transition.launches_by_layout[
+                    ran] == before[ran] + 2
+                for a, b in zip(out, again):
+                    _same_bits(a, b)
+                if first is None:
+                    first = out
+                    _assert_match(dict(zip(B_ORDER, out)),
+                                  dict(zip(B_ORDER, want)), 7, 3)
+                    for a, b in zip(out[6:], want[6:]):
+                        torch.testing.assert_close(a, b, rtol=1e-5,
+                                                   atol=1e-5)
+                else:
+                    for a, b in zip(out, first):
+                        _same_bits(a, b)
+    p = _t(np.random.default_rng(d).normal(size=(w, d)), dev)
+    for cached in (False, True):
+        lk = dict(step_size=_t([0.1], dev), num_steps=8,
+                  inv_mass=kw["inv_mass"])
+        if cached:
+            lk.update(grad=g, potential_energy=u)
+        want = kernels.leapfrog_trajectory_plain(form, q, p, **lk)
+        first = None
+        for layout in d_layouts:
+            before = dict(kernels.leapfrog_trajectory.launches_by_layout)
+            out = kernels.leapfrog_trajectory(form, q, p, _layout=layout,
+                                              **lk)
+            again = kernels.leapfrog_trajectory(form, q, p, _layout=layout,
+                                                **lk)
+            torch.cuda.synchronize()
+            ran = layout or kernels.walker_layout(name, d, "D")
+            assert kernels.leapfrog_trajectory.launches_by_layout[
+                ran] == before[ran] + 2
+            for a, b in zip(out, again):
+                _same_bits(a, b)
+            if first is None:
+                first = out
+                for a, b in zip(out, want):
+                    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+            else:
+                for a, b in zip(out, first):
+                    _same_bits(a, b)
     with pytest.raises(ValueError, match="takes D="):
         kernels.fused_hmc_transition(form, 7, 3, torch.zeros(4, d + 1,
                                                              device=dev),
                                      u[:4], torch.zeros(4, d + 1, device=dev),
                                      num_steps=2, **kw)
+    if d > 16:
+        with pytest.raises(ValueError, match="no thread layout"):
+            kernels.fused_hmc_transition(form, 7, 3, q, u, g, num_steps=2,
+                                         _layout="thread", **kw)
+    if d > d_limit:
+        with pytest.raises(ValueError, match="no thread layout"):
+            kernels.leapfrog_trajectory(form, q, p, _layout="thread", **lk)
+
+
+@pytest.mark.parametrize("name", ["eight_schools_nc", "eight_schools"])
+def test_thread_layout_offset_halves_join_to_the_whole_launch(dev, name):
+    """Kernel B in the thread layout on two blocks of walkers at their
+    global offsets gives the whole launch's bits, in each variant."""
+    form = _schools_form(8, dev, name)
+    w = 1001
+    q, u, g, kw = _b_case(form, w, 10, dev)
+    rows = (slice(0, w // 3), slice(w // 3, w))
+    for extra in (dict(num_steps=8),
+                  dict(num_steps=_count(8, dev), max_steps=8,
+                       emit_proposal=True)):
+        whole = kernels.fused_hmc_transition(form, 5, 2, q, u, g, **kw,
+                                             **extra)
+        parts = [kernels.fused_hmc_transition(
+            form, 5, 2, q[r].contiguous(), u[r].contiguous(),
+            g[r].contiguous(), walker_offset=r.start, **kw, **extra)
+            for r in rows]
+        torch.cuda.synchronize()
+        for a, b0, b1 in zip(whole, *parts):
+            _same_bits(a, torch.cat([b0, b1]))
 
 
 def _models_on(dev):

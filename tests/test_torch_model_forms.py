@@ -308,3 +308,110 @@ def test_fused_engine_on_cpu_runs_the_model_forms():
     assert torch.equal(prop[0][acc], a.ensemble.q[acc])
     assert not torch.equal(prop[0][~acc], a.ensemble.q[~acc]) or \
         not bool((~acc).any())
+
+
+def _schools_data(j):
+    """J schools' data from numpy seed J (the Rubin data at J = 8)."""
+    if j == 8:
+        return tm.EIGHT_SCHOOLS_DATA
+    rng = np.random.default_rng(j)
+    return {"J": j, "y": (10.0 * rng.normal(size=j)).astype(np.float32),
+            "sigma": rng.uniform(5.0, 20.0, j).astype(np.float32)}
+
+
+SCHOOLS_MODELS = {"eight_schools_nc": "eight_schools_noncentered",
+                  "eight_schools": "eight_schools"}
+
+
+@pytest.mark.parametrize("j", [1, 3, 8, 14, 30])
+@pytest.mark.parametrize("name", sorted(SCHOOLS_MODELS))
+def test_schools_plain_forms_match_both_dsl_potentials_at_any_j(name, j):
+    """Both eight-schools plain versions (the reciprocals 1 / sigma and, in
+    the centred form, exp(-log tau), the kernels' arithmetic in both walker
+    layouts) against the DSL potentials of the JAX package and of the
+    port, at J on both sides of the thread layout's limit (J = 14, D =
+    16); tolerance as the module's, rtol=1e-4, atol=1e-5."""
+    data = _schools_data(j)
+    model = SCHOOLS_MODELS[name]
+    jmp = jm.make_model_potential(
+        getattr(jm.examples, model), (),
+        {"J": j, "sigma": jnp.asarray(data["sigma"]),
+         "y": jnp.asarray(data["y"])})
+    tmp = tm.make_model_potential(getattr(tm, model), (), data,
+                                  device="cpu")
+    form = tmp.potential.device_form
+    assert form[0] == name and tmp.num_dims == j + 2
+    assert tk.walker_layout(name, j + 2, "B") == ("thread" if j <= 14
+                                                  else "group")
+    assert tk.walker_layout(name, j + 2, "D") == (
+        "thread" if j <= (14 if name == "eight_schools_nc" else 10)
+        else "group")
+    q = np.random.default_rng(100 + j).normal(
+        size=(33, j + 2)).astype(np.float32)
+    fu, fg = tk.device_value_and_grad(form)(torch.as_tensor(q))
+    tu, tg = tp.batched_value_and_grad(tmp.potential)(torch.as_tensor(q))
+    ju, jg = jp.batched_value_and_grad(jmp.potential)(jnp.asarray(q))
+    for u, g in ((tu.numpy(), tg.numpy()), (np.asarray(ju), np.asarray(jg))):
+        np.testing.assert_allclose(fu.numpy(), u, **TOL)
+        np.testing.assert_allclose(fg.numpy(), g, **TOL)
+
+
+@pytest.mark.parametrize("name", sorted(tk.FORM_IDS))
+def test_walker_layout_is_chosen_from_the_form_and_d_alone(name):
+    """The thread layout for the two eight-schools forms up to D = 16 in
+    kernel B and in the non-centred form's kernel D, up to D = 12 in the
+    centred form's kernel D, the lane-group layout above it and for every
+    other form: a choice from the form, D and the kernel alone. A forced
+    layout is checked before any launch (CPU tensors: the plain version
+    runs, and no kernel is counted)."""
+    thread = name in tk.THREAD_FORMS
+    form = (name, ())
+    for kernel in ("B", "D"):
+        limit = (0 if not thread else
+                 12 if (name, kernel) == ("eight_schools", "D") else 16)
+        for d in range(1, tk.MAX_GENERIC_DIMS + 1):
+            want = "thread" if d <= limit else "group"
+            assert tk.walker_layout(name, d, kernel) == want, (kernel, d)
+        assert tk._layout_for(form, 10, kernel, None) == (
+            "thread" if thread else "group")
+        assert tk._layout_for(form, 10, kernel, "group") == "group"
+        with pytest.raises(ValueError, match="no thread layout"):
+            tk._layout_for(form, limit + 1, kernel, "thread")
+        with pytest.raises(ValueError, match="layout must be one of"):
+            tk._layout_for(form, 10, kernel, "lanes")
+        if not thread:
+            with pytest.raises(ValueError, match="no thread layout"):
+                tk._layout_for(form, 10, kernel, "thread")
+
+
+@pytest.mark.parametrize("name", sorted(SCHOOLS_MODELS))
+def test_forced_layouts_on_cpu_run_the_plain_version(name):
+    data = _schools_data(8)
+    form = tm.make_model_potential(getattr(tm, SCHOOLS_MODELS[name]), (),
+                                   data, device="cpu").potential.device_form
+    q = torch.as_tensor(np.random.default_rng(5).normal(
+        size=(40, 10)).astype(np.float32))
+    u, g = tk.device_value_and_grad(form)(q)
+    im = torch.linspace(0.5, 2.0, 10)
+    kw = dict(scalars=torch.tensor([0.05, 1.0, 1.0]),
+              p_std=torch.sqrt(1.0 / im), inv_mass=im, num_steps=4)
+    before = dict(tk.fused_hmc_transition.launches_by_layout)
+    want = tk.fused_hmc_transition_plain(form, 3, 1, q, u, g, **kw)
+    for layout in (None, "thread", "group"):
+        got = tk.fused_hmc_transition(form, 3, 1, q, u, g, _layout=layout,
+                                      **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    lk = dict(step_size=torch.tensor([0.05]), num_steps=3, inv_mass=im)
+    want = tk.leapfrog_trajectory_plain(form, q, q, **lk)
+    for layout in ("thread", "group"):
+        for a, b in zip(tk.leapfrog_trajectory(form, q, q, _layout=layout,
+                                               **lk), want):
+            assert torch.equal(a, b)
+    for d in (17, 16):  # past both limits; past the centred form's in D
+        wide = torch.zeros(4, d)
+        with pytest.raises(ValueError, match="no thread layout"):
+            tk.leapfrog_trajectory(
+                ("eight_schools", (torch.zeros(d - 2),) * 3), wide, wide,
+                _layout="thread", **{**lk, "inv_mass": torch.ones(d)})
+    assert tk.fused_hmc_transition.launches_by_layout == before

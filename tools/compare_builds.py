@@ -13,7 +13,10 @@ same Philox draws:
   difference otherwise (every row runs the fixed leapfrog count without
   the proposal outputs, which both checkouts have); the logistic rows
   (``models.logistic_regression_data(256, 31)``, the data of phase 8a)
-  differ wherever the two checkouts' logistic forms round differently;
+  differ wherever the two checkouts' logistic forms round differently, and
+  the eight-schools rows (both forms on ``models.EIGHT_SCHOOLS_DATA`` at
+  W = 102400, D = 10, about the posterior) wherever their eight-schools
+  forms do;
 * times both in the order other, this, this, other (CUDA-graph replays
   timed with CUDA events, ``chip_smoke.median_ms``), since two cards or
   two calls differ by more than most changes.
@@ -225,8 +228,9 @@ def main() -> None:
                lambda: other.fused_hmc_transition(form, SEED, 11, q, u, g,
                                                   **kw))
 
-    def row_d(row, form, w, d, step):
-        q, p = randn(w, d), randn(w, d)
+    def row_d(row, form, w, d, step, q=None):
+        q = randn(w, d) if q is None else q
+        p = randn(w, d)
         kw = dict(step_size=torch.tensor([step], device=dev), num_steps=16,
                   inv_mass=(0.5 + 1.5 * torch.rand(d, generator=gen)).to(dev))
         report(row,
@@ -279,6 +283,17 @@ def main() -> None:
         row_b(f"B logistic W={w_} D=32 N=256 L=16", logistic,
               0.3 * randn(w_, 32), 0.05)
     row_d("D logistic W=102400 D=32 N=256 L=16", logistic, 102400, 32, 0.05)
+    for model in (models.eight_schools_noncentered, models.eight_schools):
+        form = models.make_model_potential(
+            model, (), models.EIGHT_SCHOOLS_DATA,
+            device=dev).potential.device_form
+        # mu, log tau and theta about the posterior
+        z = randn(102400, 10)
+        theta = z[:, 2:] if form[0] == "eight_schools_nc" else 4.0 + 3.0 * z[
+            :, 2:]
+        q = torch.cat([4.0 + 3.0 * z[:, :1], 1.0 + 0.5 * z[:, 1:2], theta], 1)
+        row_b(f"B {form[0]} W=102400 D=10 L=16", form, q, 0.05)
+        row_d(f"D {form[0]} W=102400 D=10 L=16", form, 102400, 10, 0.05, q=q)
 
 
 if __name__ == "__main__":

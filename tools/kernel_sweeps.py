@@ -2,7 +2,7 @@
 """The measured sweeps behind the design constants of kernels E and A and
 of the Gaussian and logistic forms' register tiles in kernels B and D.
 
-    python3 tools/kernel_sweeps.py [--only e|a|gaussian|logistic|registers]
+    python3 tools/kernel_sweeps.py [--only e|a|gaussian|logistic|threads|registers]
 
 from the repository root, on a GPU (every sweep unless ``--only`` names one).
 
@@ -46,6 +46,16 @@ build is hashed by its flags, ``ops/_build.py``) and times, as
   share of the sigmoid's instructions); and, as context, the two
   ``torch.matmul`` calls and the sigmoid of each of the 17 gradients of a
   transition (the port never calls them);
+* kernels B and D in the thread layout (``csrc/thread_layout.cu``, the two
+  eight-schools forms) on ``models.EIGHT_SCHOOLS_DATA`` at W = 102400, D =
+  10, L = 16, and on 14 schools from numpy seed 14 (D = 16, the layout's
+  limit) (B with the count fixed, and with the count on the device and
+  the proposal outputs; D with the cached pair), in the default build and
+  with ``PBBI_THREAD_MIN_BLOCKS`` (the register cap: 1 block of 128
+  threads, none; 6, 80 registers; 10, 48; the default 8, 64, up to N =
+  12) and ``PBBI_THREAD_BLOCK`` (threads a block: 64, 256) varied,
+  beside the lane-group layout forced on the same build where the chooser
+  takes the thread layout;
 * the registers, stack and spills of every instantiation of kernels B and D
   (``nvcc -Xptxas -v``, the library's flags without ``-split-compile``,
   whose parallel ptxas runs interleave their reports), one line each with
@@ -66,6 +76,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
@@ -92,6 +103,11 @@ G_VARIANTS = ((), ("-DPBBI_BD_MIN_BLOCKS=1",), ("-DPBBI_G_UNROLL=1",),
 # extra nvcc flags of the logistic sweep's builds, the default first
 L_VARIANTS = ((), ("-DPBBI_L_ROWS=2",), ("-DPBBI_L_ROWS=8",),
               ("-DPBBI_BD_MIN_BLOCKS=1",), ("-DPBBI_L_FAST_SIGMOID",))
+# extra nvcc flags of the thread layout's sweep, the default first
+T_VARIANTS = ((), ("-DPBBI_THREAD_MIN_BLOCKS=1",),
+              ("-DPBBI_THREAD_MIN_BLOCKS=6",),
+              ("-DPBBI_THREAD_MIN_BLOCKS=10",), ("-DPBBI_THREAD_BLOCK=64",),
+              ("-DPBBI_THREAD_BLOCK=256",))
 
 
 def use(flags=()):
@@ -109,7 +125,7 @@ def bodies(n, dtype, gen, dev):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=("e", "a", "gaussian", "logistic",
-                                           "registers"))
+                                           "threads", "registers"))
     only = parser.parse_args().only
     if not torch.cuda.is_available():
         raise SystemExit("tools/kernel_sweeps.py needs a CUDA device")
@@ -122,6 +138,7 @@ def main() -> None:
     for name, sweep in (("e", sweep_e), ("a", sweep_a),
                         ("gaussian", sweep_gaussian),
                         ("logistic", sweep_logistic),
+                        ("threads", sweep_threads),
                         ("registers", sweep_registers)):
         if only in (None, name):
             sweep(gen, dev)
@@ -332,6 +349,68 @@ def sweep_logistic(gen, dev) -> None:
             "ms": median_ms(library)}))
 
 
+def sweep_threads(gen, dev) -> None:
+    steps = 16
+
+    def case(name, j):
+        data = models.EIGHT_SCHOOLS_DATA
+        if j != 8:
+            rng = np.random.default_rng(j)
+            data = {"J": j, "y": (10.0 * rng.normal(size=j)).astype(
+                np.float32), "sigma": rng.uniform(5.0, 20.0, j).astype(
+                    np.float32)}
+        model = {"eight_schools_nc": models.eight_schools_noncentered,
+                 "eight_schools": models.eight_schools}[name]
+        form = models.make_model_potential(model, (), data,
+                                           device=dev).potential.device_form
+        d = j + 2
+        z = torch.randn(102400, d, generator=gen)
+        # mu, log tau and theta about the posterior of the Rubin data
+        theta = z[:, 2:] if name == "eight_schools_nc" else 4.0 + 3.0 * z[
+            :, 2:]
+        q = torch.cat([4.0 + 3.0 * z[:, :1], 1.0 + 0.5 * z[:, 1:2], theta],
+                      1).to(dev)
+        u, g = kernels.device_value_and_grad(form)(q)
+        return form, q, torch.randn(102400, d, generator=gen).to(dev), u, g
+
+    cases = {(name, j): case(name, j) for name in kernels.THREAD_FORMS
+             for j in (8, 14)}
+    sizes = (8, 14)  # D = 10 and 16, the layout's limit
+    scalars = torch.tensor([0.05, 1.0, 1.0], device=dev)
+    step = torch.tensor([0.05], device=dev)
+
+    def times(key, forced=None):
+        form, q, p, u, g = cases[key]
+        one = torch.ones(q.shape[1], device=dev)
+        count = torch.tensor([steps], dtype=torch.int32, device=dev)
+        b = dict(scalars=scalars, p_std=one, inv_mass=one, _layout=forced)
+        return {
+            "B_fixed_ms": median_ms(lambda: kernels.fused_hmc_transition(
+                form, SEED, 7, q, u, g, num_steps=steps, **b)),
+            "B_counted_proposal_ms": median_ms(
+                lambda: kernels.fused_hmc_transition(
+                    form, SEED, 7, q, u, g, num_steps=count,
+                    max_steps=steps, emit_proposal=True, **b)),
+            "D_ms": median_ms(lambda: kernels.leapfrog_trajectory(
+                form, q, p, step_size=step, num_steps=steps, inv_mass=one,
+                grad=g, potential_energy=u, _layout=forced))}
+
+    for flags in T_VARIANTS:
+        use(flags)
+        for name in kernels.THREAD_FORMS:
+            for j in sizes:
+                line = {"kernel": "B and D, thread layout",
+                        "flags": list(flags), "form": name, "W": 102400,
+                        "D": j + 2, "L": steps,
+                        "layouts": {k: kernels.walker_layout(name, j + 2, k)
+                                    for k in ("B", "D")},
+                        "chosen": times((name, j))}
+                if not flags:
+                    line["group"] = times((name, j), "group")
+                print(json.dumps(line))
+    use()
+
+
 def _ptxas_report(text: str):
     """(mangled entry, registers, stack, spill stores, spill loads) of each
     kernel in nvcc -Xptxas -v output."""
@@ -361,7 +440,7 @@ def sweep_registers(gen, dev) -> None:
         Path(nvcc).parent / "cu++filt")
     out_dir = _build.BUILD_DIR / "ptxas"
     out_dir.mkdir(parents=True, exist_ok=True)
-    for src in ("fused_hmc.cu", "leapfrog.cu"):
+    for src in ("fused_hmc.cu", "leapfrog.cu", "thread_layout.cu"):
         t0 = time.perf_counter()
         done = subprocess.run(
             [nvcc, *flags, "-Xptxas", "-v", "-c", "-o",
