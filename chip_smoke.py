@@ -11,7 +11,10 @@
    the same inputs and the same Philox draws, at the main path's shapes,
    and times both (CUDA-graph replays timed with CUDA events). Kernel A
    also at a D off its 16-byte path (33), at D = 200 (its loop over
-   dim-groups) and with a threshold that rejects every walker.
+   dim-groups) and with a threshold that rejects every walker. Kernel B's
+   funnel (D = 10) and N-body (8 bodies, D = 24) forms run one walker a
+   thread, and the lane-group layout forced on the same input must give
+   their bits (timed beside them).
 3. Runs the main path, ``run_hmc(kernel="auto")`` on the bench
    configuration (32-dim standard normal, 102400 walkers, 16 leapfrog
    steps), and checks its moments, acceptance and kernel launch count.
@@ -60,9 +63,10 @@
    to 8a's; 8f the model of 8b the same way (20 + 20 transitions from
    8b's posterior, 40 launches of kernel D's eight-schools form, finite
    moments; run after the checks of 2 below). Every launch of kernels B
-   and D in phases 8 and 14 must be in the walker layout that
+   and D in phases 8, 9 and 14 must be in the walker layout that
    ``kernels.walker_layout`` names (one walker a thread for the
-   eight-schools forms at D = 10, the lane groups for the others).
+   eight-schools forms at D = 10, the funnel model at D = 16 and the
+   N-body form at D = 24, the lane groups for the others).
 2, once more. Holds kernel B with the device step count (1, 7, max_steps
    and a count above it, which must clip) and with the proposal outputs,
    kernel A with the device step count, and the two model forms (the
@@ -80,18 +84,24 @@
    the two ``torch.matmul`` calls and the sigmoid that its gradients
    amount to.
 2, at the tempered shapes. Holds kernel A (W = 102400, D = 32) and kernel
-   B's N-body form (W = 102400, D = 24) with a potential scale of 0.37 in
+   B's N-body form (W = 102400, D = 24, one walker a thread, the lane
+   groups forced giving its bits) with a potential scale of 0.37 in
    their device scalars, and B's mixture form (W = 16384, D = 2) at beta =
    0.21 with momenta thermal at it, against their plain versions; times
-   them.
+   them; and kernel B at phase 4's 10-dim Gaussian drive.
 9. Runs tempered SMC, ``run_smc(kernel="auto")``, at 102400 walkers, each
    mutation one launch with the stage beta as the kernel's potential scale
    and the stage loop's condition the one host read a stage: 9a the 32-dim
    standard normal from N(0, I / 0.1) in kernel A, held to the closed-form
    log-evidence (16 ln 0.1) and moments; 9b BASELINE config 4 (8 unit-mass
-   bodies, softening 0.3, D = 24) in kernel B's N-body form. A second run
-   of each with the same seed must give the same bits, and two more
-   stages under the profiler must make no blocking call.
+   bodies, softening 0.3, D = 24) in kernel B's N-body form, every launch
+   one walker a thread. A second run of each with the same seed must give
+   the same bits, and two more stages under the profiler must make no
+   blocking call. 9c runs ``run_hmc(integrator="pallas_leapfrog")`` on
+   9b's target from 9b's particles (40 launches of kernel D's N-body
+   form, one walker a thread), then holds that form in kernel D at W =
+   102400 against its plain version (every output its bits) and the lane
+   groups forced, timed.
 10. Runs parallel tempering, ``run_parallel_tempering``, on the bimodal
    mixture with modes at (+-6, 0), 6 replicas down to beta = 0.02, 16384
    walkers a replica all started in the left mode: one launch of kernel
@@ -157,9 +167,10 @@
    divergence share. 14d kernel D on each new form through
    ``run_hmc(integrator="pallas_leapfrog")`` from 14c's posterior. 14b
    each new form in kernels B and D against its plain version on those
-   states, timed (the linear form bitwise; the centred eight schools, and
-   the non-centred form it takes under ``auto``, also against the
-   lane-group layout forced, bitwise).
+   states, timed (the linear form bitwise; the centred eight schools, the
+   non-centred form it takes under ``auto`` and the funnel model, which
+   run one walker a thread, also against the lane-group layout forced,
+   bitwise).
 15. Drives every sampler over the one-rank NCCL group of phase 13: 15a
    ``run_chees_hmc(mesh=)`` on 8a's logistic regression (456 launches of
    kernel B, 8a's bits), 15b ``run_parallel_tempering`` on a 1 x 1
@@ -251,8 +262,10 @@ def gradient_ops(form, d: int) -> float:
         return d * d + d           # the D x D matvec and q - mu
     if name == "diag":
         return 2 * d
-    if name == "funnel":
-        return 4 * d + 8
+    if name in ("funnel", "funnel_model"):
+        # sum x_j^2 (D - 1), e^-v and its negation (2), e^-v x_j (D - 1),
+        # g_0's six
+        return 2 * d + 6
     if name == "banana":
         return 12
     if name == "mixture":
@@ -280,12 +293,15 @@ def gradient_ops(form, d: int) -> float:
         return 8 * params[0].shape[0] + 13
     if name == "coin":
         return 12 * d              # two sigmoids a dim
-    if name == "funnel_model":
-        return 4 * d + 8
     if name == "diag_model":
         return 2 * d
-    n = params[0].shape[0]         # nbody: n^2 pairs of 12
-    return 12 * n * n
+    # nbody, each pair once (thread_layout.cu): S differences and S
+    # multiply-adds of d2, + eps^2, the root, the reciprocal, inv^3 (2),
+    # the two masses' products (2) and 2 S multiply-adds into the two
+    # bodies' sums; then -m_i (G acc) a dim (2)
+    n = params[0].shape[0]
+    s = d // n
+    return n * (n - 1) // 2 * (3 * s + 7) + 2 * d
 
 
 def fail(msg: str) -> None:
@@ -522,8 +538,10 @@ def main() -> None:
         return line
 
     def check_b(case, form, q, steps, step, time_it, beta=1.0, scale=1.0,
-                plain_reps=20):
-        """Kernel B against its plain version, as ``check_a``."""
+                plain_reps=20, layouts=False):
+        """Kernel B against its plain version, as ``check_a``;
+        ``layouts``: the lane-group layout forced must give the chosen
+        thread layout's bits, and is timed beside it."""
         w, d = q.shape
         vg = kernels.device_value_and_grad(form)
         u, g = vg(q)
@@ -538,12 +556,27 @@ def main() -> None:
             form, SEED, counter, q, u, g, **kw), B_ORDER)
         log_u = torch.log(philox.accept_uniforms(SEED, counter, w, dev))
         err = compare(case, out_k, out_p, log_u)
-        line = {"case": case, "max_abs_err": err,
+        layout = kernels.form_layout(form, d, "B")
+        if layouts:
+            forced = kernels.fused_hmc_transition(
+                form, SEED, counter, q, u, g, _layout="group", **kw)
+            torch.cuda.synchronize()
+            if layout != "thread" or not all(
+                    same_bits(out_k[k], v)
+                    for k, v in named(forced, B_ORDER).items()):
+                fail(f"{case}: the lane-group layout does not give the "
+                     f"thread layout's bits")
+        line = {"case": case, "max_abs_err": err, "layout": layout,
+                **({"same_bits_as_group_layout": True} if layouts else {}),
                 **bound(transition_bytes(w, d, True),
                         w * (steps + 1) * (gradient_ops(form, d) + 3 * d))}
         if time_it:
             line["ms"] = median_ms(lambda: kernels.fused_hmc_transition(
                 form, SEED, counter, q, u, g, **kw))
+            if layouts:
+                line["group_layout_ms"] = median_ms(
+                    lambda: kernels.fused_hmc_transition(
+                        form, SEED, counter, q, u, g, _layout="group", **kw))
             line["plain_ms"] = median_ms(
                 lambda: kernels.fused_hmc_transition_plain(
                     form, SEED, counter, q, u, g, **kw), reps=plain_reps,
@@ -591,16 +624,18 @@ def main() -> None:
         pot.make_gaussian_mixture(torch.tensor([[-3.0, 0.0], [3.0, 0.0]]),
                                   device=dev).device_form,
         3.0 * randn(8192, 2), 16, 0.3, True)["max_abs_err"])
-    # ... and the others
+    # ... and the others: the funnel and N-body forms one walker a thread,
+    # the lane-group layout forced beside them
     b_main = check_b("B funnel W=8192 D=10 L=16",
                      pot.make_funnel(10, device=dev).device_form,
-                     0.5 * randn(8192, 10), 16, 0.1, True)
+                     0.5 * randn(8192, 10), 16, 0.1, True, layouts=True)
     b_errs = [b_main["max_abs_err"]]
-    b_errs.append(check_b(
+    b_nbody8k = check_b(
         "B nbody W=8192 N=8 D=24 L=16",
         pot.make_nbody_potential(uniform(0.5, 1.5, 8), 8, softening=0.5,
                                  device=dev).device_form,
-        2.0 * randn(8192, 24), 16, 0.05, True)["max_abs_err"])
+        2.0 * randn(8192, 24), 16, 0.05, True, layouts=True)
+    b_errs.append(b_nbody8k["max_abs_err"])
 
     # ---- 3. main path at full width ----------------------------------------
     kernels.reset_launch_counts()
@@ -727,7 +762,7 @@ def main() -> None:
                                               **checked) if layouts
                   else again)
         torch.cuda.synchronize()
-        if layouts and kernels.walker_layout(form[0], d, "D") != "thread":
+        if layouts and kernels.form_layout(form, d, "D") != "thread":
             fail(f"{case}: not a thread-layout shape")
         worst = 0.0
         for key, k, pl, k2, k3 in zip(("q", "p", "u", "g"), out_k, out_p,
@@ -744,7 +779,7 @@ def main() -> None:
             worst = max(worst, finite_err(k, pl))
         # q, p in; q', p', g' and u' out
         line = {"case": case, "max_abs_err": worst,
-                "layout": kernels.walker_layout(form[0], d, "D"),
+                "layout": kernels.form_layout(form, d, "D"),
                 **({"same_bits_as_group_layout": True} if layouts else {}),
                 **bound(4 * w * (5 * d + 1),
                         w * (steps + 1) * (gradient_ops(form, d) + 3 * d))}
@@ -1055,7 +1090,7 @@ def main() -> None:
         counts = kernels.launch_counts()
         by = dict(kernels.fused_hmc_transition.launches_by)
         by_layout = dict(kernels.fused_hmc_transition.launches_by_layout)
-        layout = kernels.walker_layout(mp.potential.device_form[0], d8, "B")
+        layout = kernels.form_layout(mp.potential.device_form, d8, "B")
         if by_layout[layout] != n_warm8 + n_samp8:
             fail(f"phase {sub} launched kernel B in the layouts {by_layout}, "
                  f"want {layout} only")
@@ -1293,7 +1328,7 @@ def main() -> None:
         if layouts:
             forced = run(**{**checked, "_layout": "group"})
             torch.cuda.synchronize()
-            if kernels.walker_layout(form[0], d_, "B") != "thread" or not all(
+            if kernels.form_layout(form, d_, "B") != "thread" or not all(
                     same_bits(a, b) for a, b in zip(out, forced)):
                 fail(f"{case}: the lane-group layout does not give the "
                      f"thread layout's bits")
@@ -1324,7 +1359,7 @@ def main() -> None:
                 err = max(err, finite_err(k, pl))
         line = {"case": case, "max_abs_err": err,
                 "accepted": out[4].float().mean().item(),
-                "layout": kernels.walker_layout(form[0], d_, "B"),
+                "layout": kernels.form_layout(form, d_, "B"),
                 **({"same_bits_as_plain": True} if bits else {}),
                 **({"same_bits_as_group_layout": True} if layouts else {}),
                 **bound(transition_bytes(w_, d_, True)
@@ -1361,7 +1396,7 @@ def main() -> None:
         check_b8("B proposal (fixed count) funnel W=8192 D=10 L=16",
                  pot.make_funnel(10, device=dev).device_form,
                  0.5 * randn2(8192, 10), 16, 0.1, False,
-                 proposal=True)["max_abs_err"],
+                 proposal=True, layouts=True)["max_abs_err"],
         check_b8("B counted+proposal diag form W=8192 D=32 n=9 max=16",
                  ("diag", (torch.ones(32, device=dev),
                            torch.zeros(32, device=dev))),
@@ -1423,9 +1458,12 @@ def main() -> None:
     def tile_lr(w_, d_):
         return f"(tile {kernels.logistic_tile(w_, 256, d_)})"
 
+    # the data forms' plain versions take some 3 s a transition at W=102400:
+    # one replay of one call times them
+    slow = dict(reps=1, rounds=1, warm=1)
     lr_main = check_b8(f"B logistic W=102400 D=32 N=256 L=16 "
                        f"{tile_lr(102400, 32)}", form_lr, q_lr,
-                       16, step_lr, True, plain_reps=2,
+                       16, step_lr, True, plain_timing=slow,
                        library=logistic_library, mass=mass_lr, bits=True)
     lr_errs = [lr_main["max_abs_err"]]
     lr_errs.append(check_b8(
@@ -1448,7 +1486,8 @@ def main() -> None:
     d_lr = check_d(f"D logistic W=102400 D=32 N=256 L=16 "
                    f"{tile_lr(102400, 32)}", form_lr, 102400, 32, 16,
                    step_lr, (1.0 / mass_lr).contiguous(), q=q_lr,
-                   p=randn2(102400, 32), library=logistic_library, bits=True)
+                   p=randn2(102400, 32), library=logistic_library, bits=True,
+                   plain_timing=slow)
     # A float32 trajectory through tau = e^q1 amplifies the last-bit
     # differences between the kernel and its plain version: at the adapted
     # step, after 16 steps, one walker in 102400 (a near-divergent one,
@@ -1512,13 +1551,20 @@ def main() -> None:
     b_nbody = check_b(
         "B nbody N=8 eps=0.3 W=102400 D=24 L=8 beta=1 scale=0.37",
         nbody8.device_form, 2.0 * randn(102400, 24), 8, 0.3, True,
-        scale=0.37, plain_reps=2)
+        scale=0.37, plain_reps=2, layouts=True)
     bimodal = pot.make_gaussian_mixture(
         torch.tensor([[-6.0, 0.0], [6.0, 0.0]]), device=dev)
     b_mixture = check_b(
         "B mixture K=2 W=16384 D=2 L=10 beta=0.21 scale=1",
         bimodal.device_form, 6.0 * randn(16384, 2), 10, 0.5, True,
         beta=0.21)
+    # kernel B at the target and shape of phase 4's 10-dim drive, whose
+    # launches the funnel's row above does not make
+    b_gauss10 = check_b(
+        "B correlated gaussian W=8192 D=10 L=16 (phase 4's drive)",
+        pot.make_gaussian(mean10, cov=cov10, device=dev).device_form,
+        mean10.to(dev) + randn(8192, 10), 16, 0.1, True)
+    b_errs.append(b_gauss10["max_abs_err"])
 
     # ---- 9. tempered SMC, mutating in kernels A and B -----------------------
     def smc_phase(sub, title, target, q0, wanted, **kw):
@@ -1533,6 +1579,7 @@ def main() -> None:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = kernels.launch_counts()
+        by_layout = dict(kernels.fused_hmc_transition.launches_by_layout)
         reads = smc._host_read.reads - reads
         n = res.num_stages
         k_mut = kw["num_mutation_steps"]
@@ -1578,6 +1625,7 @@ def main() -> None:
             "mean_stage_accept": accepts.mean().item(),
             "min_stage_accept": accepts.min().item(),
             "final_step_size": res.final_step_size.item(),
+            "launches_by_layout": by_layout,
             "host_reads": reads, "seconds": seconds,
             "ms_per_stage": 1e3 * seconds / n,
             "walker_mutations_per_s": q0.shape[0] * k_mut * n / seconds}
@@ -1612,9 +1660,45 @@ def main() -> None:
         num_leapfrog_steps=8, init_step_size=0.3, beta0=0.05, max_stages=30)
     print(json.dumps(line9b))
     if not (np.isfinite(line9b["log_evidence"])
-            and line9b["mean_stage_accept"] > 0.5):
+            and line9b["mean_stage_accept"] > 0.5
+            and line9b["launches_by_layout"]["thread"] == launched_9b):
         fail(f"phase 9b off: log Z {line9b['log_evidence']}, mean stage "
-             f"accept {line9b['mean_stage_accept']} (limit 0.5)")
+             f"accept {line9b['mean_stage_accept']} (limit 0.5), launches "
+             f"by layout {line9b['launches_by_layout']} (want all "
+             f"{launched_9b} one walker a thread)")
+
+    # 9c: kernel D with the N-body form, as a user reaches it: run_hmc with
+    # integrator="pallas_leapfrog" on 9b's target from 9b's particles, 20 +
+    # 20 transitions of L=8; every launch one walker a thread, finite
+    # moments. Then the form in kernel D against its plain version (every
+    # output its bits) and against the lane-group layout forced, timed.
+    kernels.reset_launch_counts()
+    res9c = run_hmc(SEED + 18, nbody8, res9b.q.contiguous(), num_warmup=20,
+                    num_samples=20, num_steps=8,
+                    init_step_size=res9b.final_step_size.item(),
+                    collect="moments", integrator="pallas_leapfrog")
+    counts9c = kernels.launch_counts()
+    launched_9c = counts9c["leapfrog_trajectory"]
+    layout9c = dict(kernels.leapfrog_trajectory.launches_by_layout)
+    if not (res9c.kernel_used == "composed" and launched_9c == 40
+            and sum(counts9c.values()) == 40 and layout9c["thread"] == 40
+            and bool(torch.isfinite(res9c.mean).all())):
+        fail(f"phase 9c off: ran {res9c.kernel_used} with {counts9c} "
+             f"({layout9c}), mean {res9c.mean}")
+    print(json.dumps({
+        "phase": f"9c run_hmc nbody N=8 eps=0.3 D=24 W={w} L=8 "
+                 f"integrator=pallas_leapfrog 20 + 20 from 9b's particles",
+        "kernel_used": res9c.kernel_used, "launches": launched_9c,
+        "launches_by_layout": layout9c,
+        "accept_rate": res9c.accept_rate.item(),
+        "ms_per_transition": 1e3 * res9c.sampling_seconds / 20}))
+    d_nbody = check_d("D nbody N=8 eps=0.3 W=102400 D=24 L=16",
+                      nbody8.device_form, w, 24, 16,
+                      0.5 * res9b.final_step_size.item(),
+                      torch.ones(24, device=dev), q=res9b.q.contiguous(),
+                      p=torch.randn(w, 24, generator=seeded(90), device=dev),
+                      bits=True, layouts=True,
+                      plain_timing=dict(reps=2, rounds=3))
 
     # ---- 10. parallel tempering on the bimodal mixture ----------------------
     # modes at (+-6, 0), sigma 1; every walker starts in the left one
@@ -2749,6 +2833,19 @@ def main() -> None:
                                 "closed"),
     }
 
+    # the forms that run one walker a thread: the two eight-schools forms and
+    # the funnel model's (every launch of these must be in that layout)
+    thread14 = ("eight_schools", "eight_schools reparam=auto", "funnel")
+
+    def layout14(label, kernel):
+        mp_ = cases14[label][4]
+        chosen = kernels.form_layout(mp_.potential.device_form, mp_.num_dims,
+                                     kernel)
+        if (chosen == "thread") != (label in thread14):
+            fail(f"phase 14: {label} takes the {chosen} layout in kernel "
+                 f"{kernel}")
+        return chosen
+
     def closed_form(label, nd):
         if label == "coin_toss":
             a = torch.tensor([coin_np[k].sum() + 1.0 for k in ("c1", "c2")],
@@ -2811,9 +2908,7 @@ def main() -> None:
                   and launched14[label] == n_warm8 + n_samp8
                   and by["counted"] == n_samp8
                   and by["counted+proposal"] == n_warm8
-                  and by_layout[kernels.walker_layout(
-                      mp14.potential.device_form[0], mp14.num_dims, "B")]
-                  == launched14[label]
+                  and by_layout[layout14(label, "B")] == launched14[label]
                   and sum(counts.values()) == launched14[label]
                   and bool(torch.isfinite(mean).all())
                   and bool(torch.isfinite(var).all()))
@@ -2904,8 +2999,7 @@ def main() -> None:
         by_layout = dict(kernels.leapfrog_trajectory.launches_by_layout)
         if not (res14.kernel_used == "composed"
                 and launched14d[label] == 40
-                and by_layout[kernels.walker_layout(
-                    mp14.potential.device_form[0], mp14.num_dims, "D")] == 40
+                and by_layout[layout14(label, "D")] == 40
                 and sum(counts.values()) == 40
                 and bool(torch.isfinite(res14.mean).all())):
             fail(f"phase 14d {label} off: {res14.kernel_used}, launches "
@@ -2948,7 +3042,6 @@ def main() -> None:
         return grad
 
     b14, d14, errs14b = {}, {}, {}
-    slow = dict(reps=1, rounds=1, warm=1)  # the linear form's 3 s plain
     for label in new_forms14 + ("eight_schools reparam=auto",):
         mp14 = cases14[label][4]
         form14 = mp14.potential.device_form
@@ -2959,7 +3052,7 @@ def main() -> None:
             q14, var14 = near_posterior(label, nd)
             step14 = 0.5 * summaries14[label]["step_size"]
         lin = form14[0] == "linear"
-        threads = {k: kernels.walker_layout(form14[0], nd, k) == "thread"
+        threads = {k: kernels.form_layout(form14, nd, k) == "thread"
                    for k in ("B", "D")}
         short = label in ("eight_schools", "funnel")
         tag = f"(tile {kernels.logistic_tile(w, 256, nd)})" if lin else ""
@@ -3322,6 +3415,10 @@ def main() -> None:
         entry("fused_hmc_diag_quadratic", SOURCE, 893, launched_a, a_errs,
               a_main),
         entry("fused_hmc_transition", SOURCE, 373, launched_b, b_errs,
+              b_gauss10),
+        # the funnel at W=8192, D=10 (one walker a thread), which no driven
+        # path runs
+        entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 373, 0, b_errs,
               b_main),
         entry("fused_hmc_transition", SOURCE, 576, launched_c, c_errs,
               c_main),
@@ -3360,7 +3457,10 @@ def main() -> None:
         entry("fused_hmc_diag_quadratic", SOURCE, 893, launched_9a,
               [a_scaled["max_abs_err"]], a_scaled),
         entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 373, launched_9b,
-              [b_nbody["max_abs_err"]], b_nbody),
+              [b_nbody["max_abs_err"], b_nbody8k["max_abs_err"]], b_nbody),
+        # the N-body form in kernel D (9c)
+        entry("leapfrog_trajectory", f"{CSRC}/forms.cuh", 140, launched_9c,
+              [d_nbody["max_abs_err"]], d_nbody),
         entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576, launched_10,
               [b_mixture["max_abs_err"]], b_mixture),
         # the command-line driver: kernel A under its hmc (12a) and its SMC

@@ -1,7 +1,7 @@
 // Device forms of the potentials, shared by kernel B (fused_hmc.cu) and
 // kernel D (leapfrog.cu), and the warp layout they run in (the lane-group
-// layout; the eight-schools forms also run one walker a thread,
-// thread_layout.cu).
+// layout; the eight-schools, funnel and N-body forms also run one walker a
+// thread, thread_layout.cu).
 //
 // Layout: a walker's dims are split into dim-groups of four. T =
 // min(32, next_pow2(ceil(D / 4))) consecutive lanes of a warp form a lane
@@ -301,9 +301,24 @@ struct GaussianForm {
   }
 };
 
+// Whether dim e of a walker held in N = 4 ceil(D / 4) registers is one of
+// its d: always below N - 3, which the compiler folds (d >= N - 3).
+template <int N>
+__device__ __forceinline__ bool in_dims(int e, int d) {
+  return e < N - 3 || e < d;
+}
+
 // Neal's funnel, q = (v, x): U = v^2 / (2 s^2) + (D-1)/2 v + e^-v |x|^2 / 2
 // + c. params = (2 s^2, (D-1)/2); c = 0 for the analytic target, the
 // normalising constant for the funnel model of the DSL.
+//
+// Two layouts with the same arithmetic (sx = sum_{j >= 1} x_j^2 in index
+// order, one e^-v, then g_j = e^-v x_j and g_0 = 2 v / (2 s^2) + (D-1)/2 -
+// (e^-v / 2) sx), so that both and the plain versions (ops/kernels.py
+// _funnel_vg) round alike: one walker a thread (grad_thread, value_thread;
+// thread_layout.cu, up to D = 16), the walker's dims in registers; T lanes
+// a walker above that (grad, value), each lane reading the walker from its
+// buffer row and running the sum alone.
 struct FunnelForm {
   const float* params;            // [2]
   const float* consts = nullptr;  // [1]: c, or null for 0
@@ -316,6 +331,34 @@ struct FunnelForm {
   __device__ void stage(float* sh, int, int) const {
     if (threadIdx.x < 2) sh[threadIdx.x] = params[threadIdx.x];
     if (threadIdx.x == 2) sh[2] = consts != nullptr ? consts[0] : 0.0f;
+  }
+
+  // sum_{1 <= j < d} q_j^2 of a walker in registers
+  template <int N>
+  __device__ __forceinline__ static float sum_x2(const float q[N], int d) {
+    float s = 0.0f;
+#pragma unroll
+    for (int e = 1; e < N; ++e)
+      if (in_dims<N>(e, d)) s += q[e] * q[e];
+    return s;
+  }
+
+  // One walker a thread: its N >= D dims in registers (zeros past D).
+  template <int N>
+  __device__ __forceinline__ void grad_thread(const float q[N], float g[N],
+                                              int d, const float* sh) const {
+    const float v = q[0], sx = sum_x2<N>(q, d);
+    const float ev = expf(-v);
+#pragma unroll
+    for (int e = 1; e < N; ++e) g[e] = in_dims<N>(e, d) ? ev * q[e] : 0.0f;
+    g[0] = 2.0f * v / sh[0] + sh[1] - 0.5f * ev * sx;
+  }
+
+  template <int N>
+  __device__ __forceinline__ float value_thread(const float q[N], int d,
+                                                const float* sh) const {
+    const float v = q[0], sx = sum_x2<N>(q, d);
+    return v * v / sh[0] + sh[1] * v + 0.5f * expf(-v) * sx + sh[2];
   }
 
   // v and sum_{i >= 1} x_i^2 of the walker, on every lane
@@ -456,6 +499,22 @@ struct MixtureForm {
 // S = D / N space dims: U = -G sum_{i<j} m_i m_j / r_ij, r_ij softened as
 // sqrt(|x_j - x_i|^2 + eps^2); dU/dx_i = -m_i G sum_{j != i} m_j
 // (x_j - x_i) / r_ij^3. params = masses [N], (G, eps^2).
+//
+// Two layouts, the same sums (ops/kernels.py _nbody_vg): each body's
+// acc_i = sum_{j != i} (m_j inv_ij^3) (x_j - x_i) and row_i = sum_{j != i}
+// m_j inv_ij in increasing j, then g_i = -m_i (G acc_i) and U = (-G / 2)
+// sum_i m_i row_i in increasing i, with inv_ij = 1 / sqrtf(d2 + eps^2) and
+// d2 = sum_c (x_jc - x_ic)^2 in c order.
+// * T lanes a walker (grad, value): each of the walker's D dims is a
+//   lane's, and recomputes inv_ij to all N - 1 partners of its body; every
+//   lane runs all N^2 pairs of the value.
+// * one walker a thread (NbodyThreadForm<S>: grad_thread, value_thread;
+//   thread_layout.cu, S = 2 or 3 up to D = 24): the pairs i < j once each,
+//   in index order, i outer. A pair's inv serves both bodies: acc_i gains
+//   (m_j inv^3) (x_j - x_i) and acc_j gains (m_i inv^3) (x_i - x_j). So a
+//   body gains its partners below it in earlier outer passes and those
+//   above it in its own, in increasing order, and as (x_i - x_j)^2 rounds
+//   as (x_j - x_i)^2, every term is the lane groups' term: the same bits.
 struct NbodyForm {
   const float* mass;    // [N]
   const float* consts;  // [2]
@@ -515,6 +574,94 @@ struct NbodyForm {
       total += sh[i] * row;
     }
     __syncwarp();
+    return (-0.5f * sh[n]) * total;
+  }
+};
+
+// The N-body form one walker a thread at S space dims: the thread's N >= D
+// registers hold bodies 0 .. N / S - 1 (zeros past D), of which the first
+// n are the walker's (NbodyForm's comment).
+template <int S>
+struct NbodyThreadForm : NbodyForm {
+  // Whether body i of the N / S in registers is one of the walker's n:
+  // always below ceil((N - 3) / S), which the compiler folds.
+  template <int N>
+  __device__ __forceinline__ bool is_body(int i) const {
+    return i < (N - 3 + S - 1) / S || i < n;
+  }
+
+  // 1 / r of bodies i < j
+  template <int N>
+  __device__ __forceinline__ static float inv_pair(const float q[N], int i,
+                                                   int j, float eps2,
+                                                   float r[S]) {
+    float d2 = 0.0f;
+#pragma unroll
+    for (int c = 0; c < S; ++c) {
+      r[c] = q[j * S + c] - q[i * S + c];
+      d2 += r[c] * r[c];
+    }
+    return 1.0f / sqrtf(d2 + eps2);
+  }
+
+  template <int N>
+  __device__ __forceinline__ void grad_thread(const float q[N], float g[N],
+                                              int, const float* sh) const {
+    constexpr int kBodies = N / S;
+    const float big_g = sh[n], eps2 = sh[n + 1];
+#pragma unroll
+    for (int e = 0; e < N; ++e) g[e] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kBodies; ++i) {
+#pragma unroll
+      for (int j = i + 1; j < kBodies; ++j) {
+        if (is_body<N>(j)) {
+          float r[S];
+          const float inv = inv_pair<N>(q, i, j, eps2, r);
+          const float inv3 = inv * inv * inv;
+          const float to_i = sh[j] * inv3, to_j = sh[i] * inv3;
+#pragma unroll
+          for (int c = 0; c < S; ++c) {
+            g[i * S + c] += to_i * r[c];
+            g[j * S + c] += to_j * -r[c];
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBodies; ++i) {
+      if (is_body<N>(i)) {
+#pragma unroll
+        for (int c = 0; c < S; ++c)
+          g[i * S + c] = -sh[i] * (big_g * g[i * S + c]);
+      }
+    }
+  }
+
+  template <int N>
+  __device__ __forceinline__ float value_thread(const float q[N], int,
+                                                const float* sh) const {
+    constexpr int kBodies = N / S;
+    const float eps2 = sh[n + 1];
+    float row[kBodies];
+#pragma unroll
+    for (int i = 0; i < kBodies; ++i) row[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kBodies; ++i) {
+#pragma unroll
+      for (int j = i + 1; j < kBodies; ++j) {
+        if (is_body<N>(j)) {
+          float r[S];
+          const float inv = inv_pair<N>(q, i, j, eps2, r);
+          row[i] += sh[j] * inv;
+          row[j] += sh[i] * inv;
+        }
+      }
+    }
+    float total = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kBodies; ++i)
+      if (is_body<N>(i)) total += sh[i] * row[i];
     return (-0.5f * sh[n]) * total;
   }
 };
@@ -1011,7 +1158,7 @@ struct EightSchoolsForm {
   // One walker a thread: its N >= D dims in registers.
   template <int N>
   __device__ __forceinline__ void grad_thread(const float q[N], float g[N],
-                                              const float* sh) const {
+                                              int, const float* sh) const {
     const float2* yr = reinterpret_cast<const float2*>(sh);
     const float mu = q[0], tau = expf(q[1]);
     float s1 = 0.0f, s2 = 0.0f;
@@ -1031,7 +1178,7 @@ struct EightSchoolsForm {
   }
 
   template <int N>
-  __device__ __forceinline__ float value_thread(const float q[N],
+  __device__ __forceinline__ float value_thread(const float q[N], int,
                                                 const float* sh) const {
     const float2* yr = reinterpret_cast<const float2*>(sh);
     const float mu = q[0], lt = q[1], tau = expf(lt);
@@ -1150,7 +1297,7 @@ struct EightSchoolsCentredForm {
   // One walker a thread: its N >= D dims in registers.
   template <int N>
   __device__ __forceinline__ void grad_thread(const float q[N], float g[N],
-                                              const float* sh) const {
+                                              int, const float* sh) const {
     const float2* yr = reinterpret_cast<const float2*>(sh);
     const float mu = q[0], tau = expf(q[1]), itau = expf(-q[1]);
     float s1 = 0.0f, s2 = 0.0f;
@@ -1170,7 +1317,7 @@ struct EightSchoolsCentredForm {
   }
 
   template <int N>
-  __device__ __forceinline__ float value_thread(const float q[N],
+  __device__ __forceinline__ float value_thread(const float q[N], int,
                                                 const float* sh) const {
     const float2* yr = reinterpret_cast<const float2*>(sh);
     const float mu = q[0], lt = q[1], tau = expf(lt), itau = expf(-lt);

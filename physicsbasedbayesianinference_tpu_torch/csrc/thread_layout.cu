@@ -9,22 +9,26 @@
 //                                      leapfrog_kernel), replacing
 //                                      make_pallas_leapfrog
 // (physicsbasedbayesianinference_tpu/ops/pallas_kernels.py:373, :576 and
-// :140), for the two eight-schools forms (forms.cuh EightSchoolsForm and
-// EightSchoolsCentredForm) up to D = kMaxThreadDims = 16, where
-// ops/kernels.py walker_layout chooses it (the centred form in D up to 12).
-// Above that the forms run in the lane-group layout of fused_hmc.cu and
-// leapfrog.cu.
+// :140), for the forms whose gradient couples a walker's dims (forms.cuh):
+// the two eight-schools forms and the two funnel forms up to D = 16, the
+// N-body form in 2 or 3 space dims up to D = 24 (kMaxDims,
+// kMaxNbodyDims), where
+// ops/kernels.py walker_layout chooses it (THREAD_LAYOUT_DIMS). Above that
+// the forms run in the lane-group layout of fused_hmc.cu and leapfrog.cu.
 //
 // Why a layout of its own: the lane-group layout gives a walker T =
 // next_pow2(ceil(D / 4)) lanes, four dims a lane, and its sums over dims
-// are shuffles. An eight-schools gradient couples every dim to every
-// school: each of the T lanes ran the whole J loop (and at D = 10 lane 3
-// owned no dim at all), shared the walker through a buffer row under a
-// warp barrier and evaluated tau once more. Here one thread holds one
-// walker's N = 4 ceil(D / 4) dims (q, p, g in registers, zeros past D) and
-// runs the J terms once a gradient: no shared walker buffer, no warp
-// barrier, no shuffle in the trajectory. The forms' arithmetic is the
-// lane-group layout's, term for term, so both layouts give the same bits.
+// are shuffles. Where a gradient couples every dim to the others (an
+// eight-schools gradient to every school, the funnel's to sum x_j^2, an
+// N-body force to every other body), each of the T lanes shared the
+// walker through a buffer row under a warp barrier and ran the whole
+// coupling sum alone (at D = 10 lane 3 owned no dim at all; at 8 bodies in
+// 3-D lanes 6 and 7 idled and each pair's distance was taken 6 times).
+// Here one thread holds one walker's N = 4 ceil(D / 4) dims (q, p, g in
+// registers, zeros past D) and runs the sum once a gradient, the N-body
+// pairs once each: no shared walker buffer, no warp barrier, no shuffle in
+// the trajectory. The forms' arithmetic is the lane-group layout's, term
+// for term, so both layouts give the same bits.
 //
 // The same draws: the momenta of dim-group k are momentum_normals4(t,
 // w0 + w, k, ...), as lane k of the lane-group layout draws them, and the
@@ -40,16 +44,16 @@
 // still in the buffer at the end, so nothing is read twice. Each thread
 // reading and writing its own row in device memory instead measured 5%
 // faster in B with the count fixed at D = 10, 12% slower with the proposal
-// outputs and 3% slower in D, and at D = 16 15-60% slower (PERF.md).
+// outputs and 3% slower in D, and at D = 16 15-60% slower (PERF.md). The
+// drift's metric (dt / m in B, 1 / m in D) is staged once a block too and
+// read in 16-byte broadcasts each step rather than held in N registers.
 //
 // What bounds it: the arithmetic. Rows are read and written once a
-// transition against 17 gradients of some 10 J + 4 D operations each, so
-// the bytes (0.005 ms at W = 102400, D = 10) are far below the
-// instructions (PERF.md). The J loop's schools are independent but for
-// their running sums, which gives the scheduler work between the
-// dependent operations of one school. At W = 102400 the launch is 800
-// blocks of 128 threads, 6.1 a SM: all resident at once at 64 registers a
-// thread (thread_min_blocks).
+// transition against 17 gradients of some 7-8 J + 9-13 (eight schools),
+// 2 D + 6 (funnel) or N (N - 1) / 2 (3 S + 7) + 2 D (N-body) operations
+// each, so at D = 10 and 16 the bytes and the operations are of one size
+// (0.005-0.008 ms at W = 102400, PERF.md) and at 8 bodies the operations
+// lead. At W = 102400 the launch is 800 blocks of 128 threads, 6.1 a SM.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -70,23 +74,37 @@ namespace {
 #define PBBI_THREAD_BLOCK 128
 #endif
 constexpr int kThreadBlock = PBBI_THREAD_BLOCK;
-// Blocks of kThreadBlock threads the compiler must fit on an SM (0: by N,
-// thread_min_blocks).
+// Blocks of kThreadBlock threads the compiler must fit on an SM, for every
+// form (0: by form and N, thread_min_blocks).
 #ifndef PBBI_THREAD_MIN_BLOCKS
 #define PBBI_THREAD_MIN_BLOCKS 0
 #endif
-constexpr int kMaxThreadDims = 16;
+// Dims the eight-schools and funnel forms take here, and the N-body form.
+constexpr int kMaxDims = 16;
+constexpr int kMaxNbodyDims = 24;
 
-// Up to N = 12, 8 blocks: 64 registers a thread, 32 warps an SM. Uncapped
-// the kernels take 110-116 registers at N = 12 (94 in D), 16 warps an SM,
-// and B takes 12% more time, D 20%; caps of 80 and 48 registers 11-21%
-// more (tools/kernel_sweeps.py --only threads on an H100 80GB HBM3 at 700
-// W, PERF.md). Above N = 12 no cap (N = 16 takes 118-128 registers, and a
-// cap of 80 is 4-9% slower in B).
-template <int N>
+// The register policy, by form and N (tools/kernel_sweeps.py --only
+// threads on an H100 80GB HBM3 at 700 W, PERF.md). The eight-schools forms:
+// up to N = 12, 8 blocks, 64 registers a thread, 32 warps an SM (uncapped
+// the kernels took 110-116 registers at N = 12, 94 in D, and B 12% more
+// time, D 20%; caps of 80 and 48 registers 11-21% more); above N = 12 no
+// cap (N = 16 took 118-128 registers, and a cap of 80 was 4-9% slower in
+// B). The funnel and N-body forms: 4 blocks, 128 registers, at every N
+// (the funnel's B at N = 12 takes 14% less time than under 64 registers;
+// N-body B at 8 bodies in 3-D 24% less than uncapped at 152-154 registers
+// and 9% less than under 64; within 6% of the fastest cap at every shape
+// swept but B at 12 bodies in 2-D, where 64 registers take 12% less with
+// the count fixed and 20% more with the proposal outputs).
+template <class Form, int N>
 constexpr int thread_min_blocks() {
-  return PBBI_THREAD_MIN_BLOCKS > 0 ? PBBI_THREAD_MIN_BLOCKS
-                                    : (N <= 12 ? 8 : 1);
+  if constexpr (PBBI_THREAD_MIN_BLOCKS > 0) {
+    return PBBI_THREAD_MIN_BLOCKS;
+  } else if constexpr (std::is_same_v<Form, EightSchoolsForm> ||
+                       std::is_same_v<Form, EightSchoolsCentredForm>) {
+    return N <= 12 ? 8 : 1;
+  } else {
+    return 4;
+  }
 }
 
 // The sum of G dim-groups' partial sums as segment_sum leaves it on lane 0
@@ -114,6 +132,24 @@ __device__ __forceinline__ float lane_sum(const float part[G]) {
 template <class Form>
 __host__ __device__ int params_floats(const Form& form, int d) {
   return (form.shared_floats(d, 1) + 3) / 4 * 4;
+}
+
+// Floats of the staged metric after the parameters: N = 4 ceil(d / 4).
+__host__ __device__ inline int metric_floats(int d) { return (d + 3) / 4 * 4; }
+
+// The drift's metric, scale * inv_mass (zeros past d), staged by the block
+// at `to` for the N dims of a thread's walker.
+__device__ __forceinline__ void stage_metric(const float* __restrict__ inv_mass,
+                                             float scale, int d, float* to) {
+  for (int i = threadIdx.x; i < metric_floats(d); i += kThreadBlock)
+    to[i] = i < d ? scale * inv_mass[i] : 0.0f;
+}
+
+// The staged metric's dims 4 k .. 4 k + 3: one 16-byte broadcast (the
+// same address for every thread)
+__device__ __forceinline__ void metric4(const float* m, int k, float v[4]) {
+  const float4 m4 = reinterpret_cast<const float4*>(m)[k];
+  v[0] = m4.x, v[1] = m4.y, v[2] = m4.z, v[3] = m4.w;
 }
 
 // The block's rows [first, first + rows) of a row-major [W, d] array into
@@ -156,7 +192,7 @@ __device__ __forceinline__ void write_row(float* buf, int i, int d,
 // generic_kernel (the count fixed or read from device memory, kDyn; the
 // endpoint (q1, -p1) stored, kProp).
 template <class Form, int N, bool kDyn, bool kProp>
-__global__ void __launch_bounds__(kThreadBlock, thread_min_blocks<N>())
+__global__ void __launch_bounds__(kThreadBlock, thread_min_blocks<Form, N>())
 thread_transition_kernel(
     Form form, const float* __restrict__ q, const float* __restrict__ u,
     const float* __restrict__ g, const float* __restrict__ inv_mass,
@@ -174,8 +210,11 @@ thread_transition_kernel(
   float* smem = reinterpret_cast<float*>(smem4);
   const int d = num_dims;
   form.stage(smem, d, 1);
-  // q and g in, q' and g' out; the proposal's q1 and -p1
-  float* qb = smem + params_floats(form, d);
+  // dt / m of the drift; q and g in, q' and g' out; the proposal's q1 and
+  // -p1
+  float* dtm = smem + params_floats(form, d);
+  stage_metric(inv_mass, scalars[0], d, dtm);
+  float* qb = dtm + metric_floats(d);
   float* gb = qb + kThreadBlock * d;
   float* xb = gb + kThreadBlock * d;
   float* yb = xb + kThreadBlock * d;
@@ -190,7 +229,7 @@ thread_transition_kernel(
     const long long w = first + i;
     const float dt = scalars[0], beta = scalars[1], scale = scalars[2];
     const float ck = dt * scale;
-    float qv[N], gv[N], pv[N], dtim[N], part[G];
+    float qv[N], gv[N], pv[N], part[G];
     read_row<N>(qb, i, d, qv);
     read_row<N>(gb, i, d, gv);
 #pragma unroll
@@ -205,7 +244,6 @@ thread_transition_kernel(
         const float imv = in ? inv_mass[at] : 0.0f;
         const float p0 = in ? p_std[at] * n[e] : 0.0f;
         kin0 += p0 * p0 * imv;
-        dtim[at] = dt * imv;
         pv[at] = p0 - (0.5f * ck) * gv[at];
       }
       part[k] = kin0;
@@ -215,13 +253,18 @@ thread_transition_kernel(
 
     for (int s = 0; s < num_steps; ++s) {
 #pragma unroll
-      for (int e = 0; e < N; ++e) qv[e] += pv[e] * dtim[e];
-      form.template grad_thread<N>(qv, gv, smem);
+      for (int k = 0; k < G; ++k) {
+        float m[4];
+        metric4(dtm, k, m);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qv[4 * k + e] += pv[4 * k + e] * m[e];
+      }
+      form.template grad_thread<N>(qv, gv, d, smem);
 #pragma unroll
       for (int e = 0; e < N; ++e) pv[e] -= ck * gv[e];
     }
     const float u1 =
-        num_steps > 0 ? form.template value_thread<N>(qv, smem) : u0;
+        num_steps > 0 ? form.template value_thread<N>(qv, d, smem) : u0;
 #pragma unroll
     for (int k = 0; k < G; ++k) {
       float kin1 = 0.0f;
@@ -268,7 +311,7 @@ thread_transition_kernel(
 // leapfrog.cu's leapfrog_kernel (the cached (u, g) when g is given, else g
 // evaluated at q).
 template <class Form, int N>
-__global__ void __launch_bounds__(kThreadBlock, thread_min_blocks<N>())
+__global__ void __launch_bounds__(kThreadBlock, thread_min_blocks<Form, N>())
 thread_leapfrog_kernel(Form form, const float* __restrict__ q,
                        const float* __restrict__ p,
                        const float* __restrict__ u,
@@ -282,7 +325,10 @@ thread_leapfrog_kernel(Form form, const float* __restrict__ q,
   float* smem = reinterpret_cast<float*>(smem4);
   const int d = num_dims;
   form.stage(smem, d, 1);
-  float* qb = smem + params_floats(form, d);
+  // 1 / m of the drift; q, p and g in, q', p' and g' out
+  float* im = smem + params_floats(form, d);
+  stage_metric(inv_mass, 1.0f, d, im);
+  float* qb = im + metric_floats(d);
   float* pb = qb + kThreadBlock * d;
   float* gb = pb + kThreadBlock * d;
   const long long first = (long long)blockIdx.x * kThreadBlock;
@@ -298,29 +344,33 @@ thread_leapfrog_kernel(Form form, const float* __restrict__ q,
     const long long w = first + i;
     const float dt = step[0];
     const float half = 0.5f * dt;
-    float qv[N], pv[N], gv[N], imv[N];
-#pragma unroll
-    for (int e = 0; e < N; ++e) imv[e] = e < d ? inv_mass[e] : 0.0f;
+    float qv[N], pv[N], gv[N];
     read_row<N>(qb, i, d, qv);
     read_row<N>(pb, i, d, pv);
     if (cached) {
       read_row<N>(gb, i, d, gv);
     } else {
-      form.template grad_thread<N>(qv, gv, smem);
+      form.template grad_thread<N>(qv, gv, d, smem);
     }
     for (int s = 0; s < num_steps; ++s) {
 #pragma unroll
-      for (int e = 0; e < N; ++e) {
-        pv[e] -= half * gv[e];
-        qv[e] += (dt * pv[e]) * imv[e];
+      for (int k = 0; k < N / 4; ++k) {
+        float m[4];
+        metric4(im, k, m);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int at = 4 * k + e;
+          pv[at] -= half * gv[at];
+          qv[at] += (dt * pv[at]) * m[e];
+        }
       }
-      form.template grad_thread<N>(qv, gv, smem);
+      form.template grad_thread<N>(qv, gv, d, smem);
 #pragma unroll
       for (int e = 0; e < N; ++e) pv[e] -= half * gv[e];
     }
     u_out[w] = cached && num_steps == 0
                    ? u[w]
-                   : form.template value_thread<N>(qv, smem);
+                   : form.template value_thread<N>(qv, d, smem);
     write_row<N>(qb, i, d, qv);
     write_row<N>(pb, i, d, pv);
     write_row<N>(gb, i, d, gv);
@@ -331,35 +381,69 @@ thread_leapfrog_kernel(Form form, const float* __restrict__ q,
   store_rows(g_out, first, rows, d, gb);
 }
 
-// Run `body(form, std::integral_constant<int, N>)` for form 7 or 9
-// (forms.cuh with_form) at D = count + 2 <= kMaxThreadDims, N = 4 ceil(D /
-// 4); cudaErrorInvalidValue for any other form or shape.
+// Run `body(form, std::integral_constant<int, N>)` at N = 4 ceil(D / 4)
+// for D <= kMax; cudaErrorInvalidValue past it.
+template <int kMax, class Form, class Body>
+int with_dims(const Form& form, int num_dims, Body body) {
+  if (num_dims < 1 || num_dims > kMax) return (int)cudaErrorInvalidValue;
+  switch ((num_dims + 3) / 4) {
+    case 1: return body(form, std::integral_constant<int, 4>{});
+    case 2: return body(form, std::integral_constant<int, 8>{});
+    case 3: return body(form, std::integral_constant<int, 12>{});
+    case 4: return body(form, std::integral_constant<int, 16>{});
+    case 5:
+      if constexpr (kMax >= 20)
+        return body(form, std::integral_constant<int, 20>{});
+      break;
+    case 6:
+      if constexpr (kMax >= 24)
+        return body(form, std::integral_constant<int, 24>{});
+      break;
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Run `body(form, std::integral_constant<int, N>)` for the forms of this
+// layout (forms.cuh with_form's numbering): 7 and 9 at D = count + 2 <=
+// kMaxDims, 1 and 11 at D <= kMaxDims, 4 at D = count S <= kMaxNbodyDims
+// with S = 2 or 3; cudaErrorInvalidValue for any other form or shape.
 template <class Body>
 int with_thread_form(int form, const float* param0, const float* param1,
                      const float* param2, int count, int num_dims,
                      Body body) {
-  if (count <= 0 || num_dims != count + 2 || num_dims > kMaxThreadDims)
-    return (int)cudaErrorInvalidValue;
-  auto dims = [&](auto f) {
-    switch ((num_dims + 3) / 4) {
-      case 1: return body(f, std::integral_constant<int, 4>{});
-      case 2: return body(f, std::integral_constant<int, 8>{});
-      case 3: return body(f, std::integral_constant<int, 12>{});
-      case 4: return body(f, std::integral_constant<int, 16>{});
-      default: return (int)cudaErrorInvalidValue;
-    }
-  };
-  if (form == 7) return dims(EightSchoolsForm{param0, param1, param2, count});
-  if (form == 9)
-    return dims(EightSchoolsCentredForm{param0, param1, param2, count});
+  switch (form) {
+    case 1:
+      return with_dims<kMaxDims>(FunnelForm{param0}, num_dims, body);
+    case 11:
+      return with_dims<kMaxDims>(FunnelForm{param0, param1}, num_dims, body);
+    case 4:
+      if (count <= 0 || num_dims % count != 0) break;
+      if (num_dims / count == 2)
+        return with_dims<kMaxNbodyDims>(
+            NbodyThreadForm<2>{{param0, param1, count}}, num_dims, body);
+      if (num_dims / count == 3)
+        return with_dims<kMaxNbodyDims>(
+            NbodyThreadForm<3>{{param0, param1, count}}, num_dims, body);
+      break;
+    case 7:
+      if (count <= 0 || num_dims != count + 2) break;
+      return with_dims<kMaxDims>(
+          EightSchoolsForm{param0, param1, param2, count}, num_dims, body);
+    case 9:
+      if (count <= 0 || num_dims != count + 2) break;
+      return with_dims<kMaxDims>(
+          EightSchoolsCentredForm{param0, param1, param2, count}, num_dims,
+          body);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory of a block: the form's parameters and `buffers`
-// row buffers of kThreadBlock walkers.
+// Dynamic shared memory of a block: the form's parameters, the drift's
+// metric and `buffers` row buffers of kThreadBlock walkers.
 template <class Form>
 size_t thread_shared_bytes(const Form& form, int d, int buffers) {
-  return sizeof(float) * (params_floats(form, d) + buffers * kThreadBlock * d);
+  return sizeof(float) * (params_floats(form, d) + metric_floats(d) +
+                          buffers * kThreadBlock * d);
 }
 
 template <class Kernel, class... Args>
@@ -379,8 +463,8 @@ int launch(Kernel kernel, size_t smem, int num_walkers, void* stream,
 extern "C" {
 
 // Kernel B in the thread layout: pbbi_fused_hmc_transition's arguments
-// (fused_hmc.cu), for forms 7 and 9 at D = count + 2 <= 16; walker_tile
-// must be 1.
+// (fused_hmc.cu), for the forms and shapes of with_thread_form;
+// walker_tile must be 1.
 int pbbi_fused_hmc_transition_threads(
     int form, const float* param0, const float* param1, const float* param2,
     int count, const float* q, const float* u, const float* g,
@@ -416,7 +500,7 @@ int pbbi_fused_hmc_transition_threads(
 }
 
 // Kernel D in the thread layout: pbbi_leapfrog_trajectory's arguments
-// (leapfrog.cu), for forms 7 and 9 at D = count + 2 <= 16; walker_tile
+// (leapfrog.cu), for the forms and shapes of with_thread_form; walker_tile
 // must be 1.
 int pbbi_leapfrog_trajectory_threads(
     int form, const float* param0, const float* param1, const float* param2,

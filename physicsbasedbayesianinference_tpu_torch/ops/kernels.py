@@ -6,8 +6,9 @@
     D  leapfrog_trajectory        csrc/leapfrog.cu   leapfrog trajectory
     E  nbody_accelerations_tiled  csrc/nbody.cu      N-body accelerations
 
-B and D run the two eight-schools forms one walker a thread up to D = 16
-(the centred form in D up to 12), in csrc/thread_layout.cu
+B and D run the two eight-schools forms (the centred form in D up to
+D = 12) and the two funnel forms one walker a thread up to D = 16, and the
+N-body form in 2 or 3 space dims up to D = 24, in csrc/thread_layout.cu
 (:func:`walker_layout`).
 
 Each wrapper takes the plain version for tensors on the CPU and launches
@@ -68,14 +69,21 @@ _FILL_BLOCKS = 128
 LOGISTIC_ROWS = 4
 # Kernels B ("B") and D ("D") run these forms one walker a thread
 # (csrc/thread_layout.cu) up to THREAD_LAYOUT_DIMS[form, kernel] dims, T
-# lanes a walker (csrc/forms.cuh) above: walker_layout. The centred form's
-# kernel D stops at 12: at D = 16 it took 0.0710 ms against the lane groups'
-# 0.0655 (H100 80GB HBM3 at 700 W, tools/kernel_sweeps.py, PERF.md). "thread"
-# and "group" name the two layouts.
-THREAD_FORMS = ("eight_schools_nc", "eight_schools")
+# lanes a walker (csrc/forms.cuh) above: walker_layout. The centred
+# eight-schools form's kernel D stops at 12: at D = 16 it took 0.0710 ms
+# against the lane groups' 0.0655 (H100 80GB HBM3 at 700 W,
+# tools/kernel_sweeps.py, PERF.md). The N-body form takes the thread layout
+# in NBODY_THREAD_SPACE_DIMS space dims only. "thread" and "group" name the
+# two layouts.
+THREAD_FORMS = ("eight_schools_nc", "eight_schools", "funnel",
+                "funnel_model", "nbody")
 THREAD_LAYOUT_DIMS = {("eight_schools_nc", "B"): 16,
                       ("eight_schools_nc", "D"): 16,
-                      ("eight_schools", "B"): 16, ("eight_schools", "D"): 12}
+                      ("eight_schools", "B"): 16, ("eight_schools", "D"): 12,
+                      ("funnel", "B"): 16, ("funnel", "D"): 16,
+                      ("funnel_model", "B"): 16, ("funnel_model", "D"): 16,
+                      ("nbody", "B"): 24, ("nbody", "D"): 24}
+NBODY_THREAD_SPACE_DIMS = (2, 3)
 LAYOUTS = ("thread", "group")
 # All the shared memory a block may have on an H100 (227 KiB).
 MAX_SHARED_BYTES = 232448
@@ -474,23 +482,40 @@ def logistic_tile(num_walkers: int, num_rows: int, num_dims: int) -> int:
     return tile
 
 
-def walker_layout(form_name: str, num_dims: int, kernel: str) -> str:
+def walker_layout(form_name: str, num_dims: int, kernel: str,
+                  space_dims: Optional[int] = None) -> str:
     """The layout kernel ``kernel`` ("B" or "D") runs the form
-    ``form_name`` in at ``num_dims``, decided from the three alone before
-    any launch: "thread" (one walker a thread, csrc/thread_layout.cu) for
-    the eight-schools forms up to ``THREAD_LAYOUT_DIMS[form_name, kernel]``
-    dims, "group" (T lanes a walker, :func:`threads_per_walker`) for every
-    other form and shape."""
+    ``form_name`` in at ``num_dims``, decided from these alone before any
+    launch: "thread" (one walker a thread, csrc/thread_layout.cu) for the
+    forms of ``THREAD_FORMS`` up to ``THREAD_LAYOUT_DIMS[form_name,
+    kernel]`` dims (the N-body form in ``NBODY_THREAD_SPACE_DIMS`` space
+    dims only, ``space_dims`` = D / bodies, which it needs), "group" (T
+    lanes a walker, :func:`threads_per_walker`) for every other form and
+    shape."""
     limit = THREAD_LAYOUT_DIMS.get((form_name, kernel), 0)
+    if form_name == "nbody":
+        if space_dims is None:
+            raise ValueError("the nbody form's layout depends on its space "
+                             "dims: pass space_dims")
+        if space_dims not in NBODY_THREAD_SPACE_DIMS:
+            limit = 0
     return "thread" if 1 <= num_dims <= limit else "group"
+
+
+def form_layout(device_form, num_dims: int, kernel: str) -> str:
+    """:func:`walker_layout` of a device form at ``num_dims`` (the N-body
+    form's space dims from its masses)."""
+    name, params = device_form
+    space = (num_dims // params[0].shape[0] if name == "nbody" else None)
+    return walker_layout(name, num_dims, kernel, space)
 
 
 def _layout_for(device_form, num_dims: int, kernel: str,
                 layout: Optional[str]) -> str:
-    """The layout a launch of kernel ``kernel`` takes: :func:`walker_layout`'s
+    """The layout a launch of kernel ``kernel`` takes: :func:`form_layout`'s
     unless the tests' hook forces one; "group" can be forced everywhere,
     "thread" only where the chooser takes it."""
-    chosen = walker_layout(device_form[0], num_dims, kernel)
+    chosen = form_layout(device_form, num_dims, kernel)
     if layout is None:
         return chosen
     if layout not in LAYOUTS:
@@ -619,7 +644,19 @@ def _mixture_vg(means, log_w, inv_var):
     return vg
 
 
+def _sqrt_rn(x: Tensor) -> Tensor:
+    """The correctly rounded square root of float32 ``x``, as the card's
+    ``sqrtf`` takes it: through float64, whose 53 bits round a float32
+    root without a double-rounding error (the CPU's vectorised float32
+    ``torch.sqrt`` is off by one ulp for some inputs)."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
 def _nbody_vg(mass, consts):
+    """Every pair's ``inv = 1 / sqrt(d2 + eps^2)``, ``d2`` summed over the
+    space dims in order, then per body the sums over its partners in
+    increasing index order (csrc/forms.cuh NbodyForm, in either walker
+    layout)."""
     big_g, eps2 = consts[0], consts[1]
     n = mass.shape[0]
 
@@ -631,7 +668,7 @@ def _nbody_vg(mass, consts):
         for c in range(d // n):
             d2 = d2 + r[..., c] * r[..., c]
         eye = torch.eye(n, dtype=torch.bool, device=q.device)
-        inv = torch.where(eye, 0.0, 1.0 / torch.sqrt(d2 + eps2))
+        inv = torch.where(eye, 0.0, 1.0 / _sqrt_rn(d2 + eps2))
         inv3 = inv * inv * inv
         acc = torch.zeros_like(x)
         row = torch.zeros(w, n, dtype=q.dtype, device=q.device)

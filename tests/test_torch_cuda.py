@@ -824,30 +824,20 @@ def test_logistic_tile_chooser_on_cuda(dev):
     assert kernels.fused_hmc_transition.launches == before
 
 
-@pytest.mark.parametrize("w,j", [(1, 1), (37, 3), (1001, 8), (64, 30),
-                                 (129, 14), (75, 15), (257, 6), (97, 10),
-                                 (65, 11)])
-@pytest.mark.parametrize("name", ["eight_schools_nc", "eight_schools"])
-def test_eight_schools_form_matches_plain(dev, w, j, name):
-    """Both eight-schools forms in kernels B and D at J on both sides of
-    the thread layout's limits (D = 16; D = 12 for the centred form in
-    kernel D) and W no multiple of its block:
-    kernel B in its four variants (the count fixed or on the device, with
-    or without the proposal) against the plain version (``_assert_match``;
-    the proposal to 1e-5), kernel D with and without the cached pair to
-    1e-5; a second launch gives the same bits, and so does the lane-group
-    layout forced where the thread layout runs (the forms' arithmetic is
-    the same in both)."""
-    form = _schools_form(j, dev, name)
-    d = j + 2
-    assert kernels.walker_layout(name, d, "B") == ("thread" if d <= 16
-                                                   else "group")
-    d_limit = 16 if name == "eight_schools_nc" else 12
-    assert kernels.walker_layout(name, d, "D") == ("thread" if d <= d_limit
-                                                   else "group")
-    layouts = (None, "group") if d <= 16 else (None,)
-    d_layouts = (None, "group") if d <= d_limit else (None,)
-    q, u, g, kw = _b_case(form, w, d, dev)
+def _check_thread_layout(dev, form, w, d, spread=0.5, bits=False):
+    """Kernel B in its four variants (the count fixed or on the device,
+    with or without the proposal) against the plain version
+    (``_assert_match``; the proposal to 1e-5), kernel D with and without the
+    cached pair to 1e-5; a second launch gives the same bits, and so does
+    the lane-group layout forced where the thread layout runs (the forms'
+    arithmetic is the same in both). ``bits``: B's q', u', g' where the
+    decisions agree and its proposal, and all of D's outputs, are the plain
+    version's bits. Forcing the thread layout past the chooser raises."""
+    layout_b = kernels.form_layout(form, d, "B")
+    layout_d = kernels.form_layout(form, d, "D")
+    layouts = (None, "group") if layout_b == "thread" else (None,)
+    d_layouts = (None, "group") if layout_d == "thread" else (None,)
+    q, u, g, kw = _b_case(form, w, d, dev, spread=spread)
     for counted in (False, True):
         for prop in (False, True):
             extra = dict(emit_proposal=prop)
@@ -863,7 +853,7 @@ def test_eight_schools_form_matches_plain(dev, w, j, name):
                 again = kernels.fused_hmc_transition(
                     form, 7, 3, q, u, g, _layout=layout, **kw, **extra)
                 torch.cuda.synchronize()
-                ran = layout or kernels.walker_layout(name, d, "B")
+                ran = layout or layout_b
                 assert kernels.fused_hmc_transition.launches_by_layout[
                     ran] == before[ran] + 2
                 for a, b in zip(out, again):
@@ -875,6 +865,12 @@ def test_eight_schools_form_matches_plain(dev, w, j, name):
                     for a, b in zip(out[6:], want[6:]):
                         torch.testing.assert_close(a, b, rtol=1e-5,
                                                    atol=1e-5)
+                    if bits:
+                        agree = out[4] == want[4]
+                        for a, b in zip(out[:3], want[:3]):
+                            _same_bits(a, b, agree)
+                        for a, b in zip(out[6:], want[6:]):
+                            _same_bits(a, b)
                 else:
                     for a, b in zip(out, first):
                         _same_bits(a, b)
@@ -893,7 +889,7 @@ def test_eight_schools_form_matches_plain(dev, w, j, name):
             again = kernels.leapfrog_trajectory(form, q, p, _layout=layout,
                                                 **lk)
             torch.cuda.synchronize()
-            ran = layout or kernels.walker_layout(name, d, "D")
+            ran = layout or layout_d
             assert kernels.leapfrog_trajectory.launches_by_layout[
                 ran] == before[ran] + 2
             for a, b in zip(out, again):
@@ -902,30 +898,106 @@ def test_eight_schools_form_matches_plain(dev, w, j, name):
                 first = out
                 for a, b in zip(out, want):
                     torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+                    if bits:
+                        _same_bits(a, b)
             else:
                 for a, b in zip(out, first):
                     _same_bits(a, b)
+    if layout_b == "group":
+        with pytest.raises(ValueError, match="no thread layout"):
+            kernels.fused_hmc_transition(form, 7, 3, q, u, g, num_steps=2,
+                                         _layout="thread", **kw)
+    if layout_d == "group":
+        with pytest.raises(ValueError, match="no thread layout"):
+            kernels.leapfrog_trajectory(form, q, p, _layout="thread", **lk)
+    return q, u, kw
+
+
+@pytest.mark.parametrize("w,j", [(1, 1), (37, 3), (1001, 8), (64, 30),
+                                 (129, 14), (75, 15), (257, 6), (97, 10),
+                                 (65, 11)])
+@pytest.mark.parametrize("name", ["eight_schools_nc", "eight_schools"])
+def test_eight_schools_form_matches_plain(dev, w, j, name):
+    """Both eight-schools forms in kernels B and D at J on both sides of
+    the thread layout's limits (D = 16; D = 12 for the centred form in
+    kernel D) and W no multiple of its block (``_check_thread_layout``)."""
+    form = _schools_form(j, dev, name)
+    d = j + 2
+    assert kernels.walker_layout(name, d, "B") == ("thread" if d <= 16
+                                                   else "group")
+    d_limit = 16 if name == "eight_schools_nc" else 12
+    assert kernels.walker_layout(name, d, "D") == ("thread" if d <= d_limit
+                                                   else "group")
+    q, u, kw = _check_thread_layout(dev, form, w, d)
     with pytest.raises(ValueError, match="takes D="):
         kernels.fused_hmc_transition(form, 7, 3, torch.zeros(4, d + 1,
                                                              device=dev),
                                      u[:4], torch.zeros(4, d + 1, device=dev),
                                      num_steps=2, **kw)
-    if d > 16:
-        with pytest.raises(ValueError, match="no thread layout"):
-            kernels.fused_hmc_transition(form, 7, 3, q, u, g, num_steps=2,
-                                         _layout="thread", **kw)
-    if d > d_limit:
-        with pytest.raises(ValueError, match="no thread layout"):
-            kernels.leapfrog_trajectory(form, q, p, _layout="thread", **lk)
 
 
-@pytest.mark.parametrize("name", ["eight_schools_nc", "eight_schools"])
+def _funnel_form(name, d, dev):
+    if name == "funnel":
+        return pot.make_funnel(d, device=dev).device_form
+    return ("funnel_model", (_t([18.0, 0.5 * (d - 1)], dev),
+                             _t([0.25 * d], dev)))
+
+
+def _nbody_form(n, s, eps, dev):
+    rng = np.random.default_rng(10 * n + s)
+    return pot.make_nbody_potential(rng.uniform(0.5, 1.5, n), n, s,
+                                    softening=eps, device=dev).device_form
+
+
+@pytest.mark.parametrize("w,d", [(1, 2), (1000, 10), (129, 16), (37, 17),
+                                 (257, 5), (64, 12), (100, 13)])
+@pytest.mark.parametrize("name", ["funnel", "funnel_model"])
+def test_funnel_forms_match_plain_in_both_layouts(dev, w, d, name):
+    """The two funnel forms in kernels B and D at D on both sides of the
+    thread layout's limit (16) and W off its block of 128
+    (``_check_thread_layout``)."""
+    form = _funnel_form(name, d, dev)
+    for kernel in ("B", "D"):
+        assert kernels.walker_layout(name, d, kernel) == (
+            "thread" if d <= 16 else "group")
+    _check_thread_layout(dev, form, w, d)
+
+
+@pytest.mark.parametrize("w,n,s", [(1000, 8, 3), (129, 9, 3), (37, 2, 3),
+                                   (257, 12, 2), (64, 13, 2), (100, 5, 2),
+                                   (75, 7, 3), (1, 1, 3), (50, 2, 4),
+                                   (33, 20, 1)])
+@pytest.mark.parametrize("eps", [0.0, 0.3])
+def test_nbody_form_matches_plain_bitwise_in_both_layouts(dev, w, n, s, eps):
+    """The N-body form in kernels B and D at D = n s on both sides of the
+    thread layout's limit (24) and in 1, 2, 3 and 4 space dims (the thread
+    layout takes 2 and 3), with and without softening: both layouts and
+    the plain version take every pair's inverse distance with the same
+    operations and sum each body's partners in the same order, so B's q',
+    u', g' and proposal and all of D's outputs are the plain version's bits
+    (``_check_thread_layout`` with ``bits``)."""
+    form = _nbody_form(n, s, eps, dev)
+    d = n * s
+    for kernel in ("B", "D"):
+        assert kernels.form_layout(form, d, kernel) == (
+            "thread" if d <= 24 and s in (2, 3) else "group")
+    _check_thread_layout(dev, form, w, d, spread=2.0, bits=True)
+
+
+@pytest.mark.parametrize("name", ["eight_schools_nc", "eight_schools",
+                                  "funnel", "funnel_model", "nbody"])
 def test_thread_layout_offset_halves_join_to_the_whole_launch(dev, name):
     """Kernel B in the thread layout on two blocks of walkers at their
     global offsets gives the whole launch's bits, in each variant."""
-    form = _schools_form(8, dev, name)
+    if name == "nbody":
+        form, d = _nbody_form(8, 3, 0.3, dev), 24
+    elif name.startswith("funnel"):
+        form, d = _funnel_form(name, 16, dev), 16
+    else:
+        form, d = _schools_form(8, dev, name), 10
+    assert kernels.form_layout(form, d, "B") == "thread"
     w = 1001
-    q, u, g, kw = _b_case(form, w, 10, dev)
+    q, u, g, kw = _b_case(form, w, d, dev)
     rows = (slice(0, w // 3), slice(w // 3, w))
     for extra in (dict(num_steps=8),
                   dict(num_steps=_count(8, dev), max_steps=8,

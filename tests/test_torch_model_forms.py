@@ -356,23 +356,41 @@ def test_schools_plain_forms_match_both_dsl_potentials_at_any_j(name, j):
         np.testing.assert_allclose(fg.numpy(), g, **TOL)
 
 
+# the thread layout's dim limit of each form in kernels B and D
+THREAD_LIMITS = {("eight_schools_nc", "B"): 16, ("eight_schools_nc", "D"): 16,
+                 ("eight_schools", "B"): 16, ("eight_schools", "D"): 12,
+                 ("funnel", "B"): 16, ("funnel", "D"): 16,
+                 ("funnel_model", "B"): 16, ("funnel_model", "D"): 16,
+                 ("nbody", "B"): 24, ("nbody", "D"): 24}
+
+
 @pytest.mark.parametrize("name", sorted(tk.FORM_IDS))
 def test_walker_layout_is_chosen_from_the_form_and_d_alone(name):
-    """The thread layout for the two eight-schools forms up to D = 16 in
-    kernel B and in the non-centred form's kernel D, up to D = 12 in the
-    centred form's kernel D, the lane-group layout above it and for every
-    other form: a choice from the form, D and the kernel alone. A forced
-    layout is checked before any launch (CPU tensors: the plain version
-    runs, and no kernel is counted)."""
+    """The thread layout for the eight-schools and funnel forms up to D =
+    16 (the centred eight schools' kernel D up to 12) and the N-body form
+    in 2 or 3 space dims up to D = 24, the lane-group layout above it and
+    for every other form: a choice from the form, D and the kernel alone
+    (the N-body form's space dims are D over its bodies). A forced layout
+    is checked before any launch (CPU tensors: the plain version runs, and
+    no kernel is counted)."""
     thread = name in tk.THREAD_FORMS
-    form = (name, ())
+    assert thread == any(form == name for form, _ in THREAD_LIMITS)
     for kernel in ("B", "D"):
-        limit = (0 if not thread else
-                 12 if (name, kernel) == ("eight_schools", "D") else 16)
+        limit = THREAD_LIMITS.get((name, kernel), 0)
+        assert tk.THREAD_LAYOUT_DIMS.get((name, kernel), 0) == limit
         for d in range(1, tk.MAX_GENERIC_DIMS + 1):
             want = "thread" if d <= limit else "group"
-            assert tk.walker_layout(name, d, kernel) == want, (kernel, d)
+            if name == "nbody":
+                for space in (1, 2, 3, 4):
+                    assert tk.walker_layout(name, d, kernel, space) == (
+                        want if space in (2, 3) else "group"), (kernel, d)
+            else:
+                assert tk.walker_layout(name, d, kernel) == want, (kernel, d)
+        # ten dims: 5 bodies in 2-D
+        form = (name, (torch.ones(5),)) if name == "nbody" else (name, ())
         assert tk._layout_for(form, 10, kernel, None) == (
+            "thread" if thread else "group")
+        assert tk.form_layout(form, 10, kernel) == (
             "thread" if thread else "group")
         assert tk._layout_for(form, 10, kernel, "group") == "group"
         with pytest.raises(ValueError, match="no thread layout"):
@@ -382,6 +400,11 @@ def test_walker_layout_is_chosen_from_the_form_and_d_alone(name):
         if not thread:
             with pytest.raises(ValueError, match="no thread layout"):
                 tk._layout_for(form, 10, kernel, "thread")
+    if name == "nbody":
+        with pytest.raises(ValueError, match="space dims"):
+            tk.walker_layout(name, 24, "B")
+        # ten bodies on a line: one space dim, the lane groups
+        assert tk.form_layout((name, (torch.ones(10),)), 10, "B") == "group"
 
 
 @pytest.mark.parametrize("name", sorted(SCHOOLS_MODELS))

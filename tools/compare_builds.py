@@ -9,14 +9,18 @@ under another name, builds both kernel libraries, and at each row of the
 kernel table (``PERF.md`` section 6) runs both on the same inputs and the
 same Philox draws:
 
-* says whether the outputs are the same bits and the largest absolute
-  difference otherwise (every row runs the fixed leapfrog count without
+* says whether the outputs are the same bits (NaNs compared by their
+  bits) and the largest absolute difference otherwise (every row runs the fixed leapfrog count without
   the proposal outputs, which both checkouts have); the logistic rows
   (``models.logistic_regression_data(256, 31)``, the data of phase 8a)
   differ wherever the two checkouts' logistic forms round differently, and
   the eight-schools rows (both forms on ``models.EIGHT_SCHOOLS_DATA`` at
   W = 102400, D = 10, about the posterior) wherever their eight-schools
-  forms do;
+  forms do; the funnel-model rows (``models.funnel``, D = 16, W = 102400)
+  and the N-body rows (8 bodies in 3-D, D = 24: phase 9b's kernel B at
+  W = 102400, L = 8 and potential scale 0.37, kernel D at L = 16, and
+  kernel B at W = 8192) wherever those forms round otherwise (the thread
+  layout keeps the lane groups' bits);
 * times both in the order other, this, this, other (CUDA-graph replays
   timed with CUDA events, ``chip_smoke.median_ms``), since two cards or
   two calls differ by more than most changes.
@@ -204,10 +208,14 @@ def main() -> None:
                                  cov=a @ a.T + 0.5 * torch.eye(d),
                                  device=dev).device_form
 
+    def bits(x):
+        """x as integers of its width: NaNs compare by their bits."""
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
     def report(row, run_this, run_other):
         outs = run_this(), run_other()
         torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(*outs))
+        same = all(torch.equal(bits(a), bits(b)) for a, b in zip(*outs))
         diff = max((a.float() - b.float()).abs().nan_to_num(0.0).max().item()
                    for a, b in zip(*outs))
         times = [median_ms(f) for f in (run_other, run_this, run_this,
@@ -216,12 +224,12 @@ def main() -> None:
                           "other_ms": [times[0], times[3]],
                           "this_ms": [times[1], times[2]]}))
 
-    def row_b(row, form, q, step):
+    def row_b(row, form, q, step, steps=16, scale=1.0):
         d = q.shape[1]
         u, g = this.device_value_and_grad(form)(q)
         im = (0.5 + 1.5 * torch.rand(d, generator=gen)).to(dev)
-        kw = dict(scalars=torch.tensor([step, 1.0, 1.0], device=dev),
-                  p_std=torch.sqrt(1.0 / im), inv_mass=im, num_steps=16)
+        kw = dict(scalars=torch.tensor([step, 1.0, scale], device=dev),
+                  p_std=torch.sqrt(1.0 / im), inv_mass=im, num_steps=steps)
         report(row,
                lambda: this.fused_hmc_transition(form, SEED, 11, q, u, g,
                                                  **kw),
@@ -294,6 +302,19 @@ def main() -> None:
         q = torch.cat([4.0 + 3.0 * z[:, :1], 1.0 + 0.5 * z[:, 1:2], theta], 1)
         row_b(f"B {form[0]} W=102400 D=10 L=16", form, q, 0.05)
         row_d(f"D {form[0]} W=102400 D=10 L=16", form, 102400, 10, 0.05, q=q)
+    funnel = models.make_model_potential(models.funnel, (), {},
+                                         device=dev).potential.device_form
+    z = randn(102400, 16)
+    q = torch.cat([1.5 * z[:, :1], torch.exp(0.75 * z[:, :1]) * z[:, 1:]], 1)
+    row_b("B funnel_model W=102400 D=16 L=16", funnel, q, 0.1)
+    row_d("D funnel_model W=102400 D=16 L=16", funnel, 102400, 16, 0.1, q=q)
+    nbody8 = pot.make_nbody_potential(torch.ones(8), 8, softening=0.3,
+                                      device=dev).device_form
+    q = 2.0 * randn(102400, 24)
+    row_b("B nbody N=8 eps=0.3 W=102400 D=24 L=8 scale=0.37", nbody8, q,
+          0.3, steps=8, scale=0.37)
+    row_d("D nbody N=8 eps=0.3 W=102400 D=24 L=16", nbody8, 102400, 24,
+          0.05, q=q)
 
 
 if __name__ == "__main__":

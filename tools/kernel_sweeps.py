@@ -3,6 +3,7 @@
 of the Gaussian and logistic forms' register tiles in kernels B and D.
 
     python3 tools/kernel_sweeps.py [--only e|a|gaussian|logistic|threads|registers]
+                                   [--source thread_layout.cu]
 
 from the repository root, on a GPU (every sweep unless ``--only`` names one).
 
@@ -46,21 +47,25 @@ build is hashed by its flags, ``ops/_build.py``) and times, as
   share of the sigmoid's instructions); and, as context, the two
   ``torch.matmul`` calls and the sigmoid of each of the 17 gradients of a
   transition (the port never calls them);
-* kernels B and D in the thread layout (``csrc/thread_layout.cu``, the two
-  eight-schools forms) on ``models.EIGHT_SCHOOLS_DATA`` at W = 102400, D =
-  10, L = 16, and on 14 schools from numpy seed 14 (D = 16, the layout's
-  limit) (B with the count fixed, and with the count on the device and
-  the proposal outputs; D with the cached pair), in the default build and
-  with ``PBBI_THREAD_MIN_BLOCKS`` (the register cap: 1 block of 128
-  threads, none; 6, 80 registers; 10, 48; the default 8, 64, up to N =
-  12) and ``PBBI_THREAD_BLOCK`` (threads a block: 64, 256) varied,
-  beside the lane-group layout forced on the same build where the chooser
-  takes the thread layout;
+* kernels B and D in the thread layout (``csrc/thread_layout.cu``) at L =
+  16 (B with the count fixed, and with the count on the device and the
+  proposal outputs; D with the cached pair): the two eight-schools forms on
+  ``models.EIGHT_SCHOOLS_DATA`` at W = 102400, D = 10, and on 14 schools
+  from numpy seed 14 (D = 16, the layout's limit); the funnel at D = 10
+  (W = 8192 and 102400) and D = 16, the funnel model (D = 16, W =
+  102400), both about the funnel's own spread; the N-body form (unit
+  masses, softening 0.3, positions 2 N(0, 1)) at 8 bodies in 3-D (D = 24,
+  W = 102400 and 8192), 12 in 2-D (D = 24) and 5 in 3-D (D = 15). In the
+  default build (each form's register policy, thread_min_blocks) and with
+  ``PBBI_THREAD_MIN_BLOCKS`` (one register cap for every form: 1, 2, 4, 6,
+  8, 10 blocks of 128 threads) and ``PBBI_THREAD_BLOCK`` (threads a block:
+  64, 256) varied, beside the lane-group layout forced on the default
+  build;
 * the registers, stack and spills of every instantiation of kernels B and D
   (``nvcc -Xptxas -v``, the library's flags without ``-split-compile``,
   whose parallel ptxas runs interleave their reports), one line each with
   the form, the walker tile and the variant, and the seconds each source
-  took.
+  took (``--source`` names one of the three sources).
 
 Prints the card, then one JSON line per measurement.
 """
@@ -84,6 +89,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from chip_smoke import median_ms  # noqa: E402
 from physicsbasedbayesianinference_tpu_torch.ops import _build  # noqa: E402
 from physicsbasedbayesianinference_tpu_torch.ops import kernels  # noqa: E402
+from physicsbasedbayesianinference_tpu_torch.ops import potentials as pot  # noqa: E402,E501
 from physicsbasedbayesianinference_tpu_torch import models  # noqa: E402
 
 SEED = 20261016
@@ -104,10 +110,19 @@ G_VARIANTS = ((), ("-DPBBI_BD_MIN_BLOCKS=1",), ("-DPBBI_G_UNROLL=1",),
 L_VARIANTS = ((), ("-DPBBI_L_ROWS=2",), ("-DPBBI_L_ROWS=8",),
               ("-DPBBI_BD_MIN_BLOCKS=1",), ("-DPBBI_L_FAST_SIGMOID",))
 # extra nvcc flags of the thread layout's sweep, the default first
+# (every form at one register cap: 1 block of 128 threads a SM, none; 2,
+# 255 registers; 4, 128; 6, 80; 8, 64; 10, 48)
 T_VARIANTS = ((), ("-DPBBI_THREAD_MIN_BLOCKS=1",),
+              ("-DPBBI_THREAD_MIN_BLOCKS=2",),
+              ("-DPBBI_THREAD_MIN_BLOCKS=4",),
               ("-DPBBI_THREAD_MIN_BLOCKS=6",),
+              ("-DPBBI_THREAD_MIN_BLOCKS=8",),
               ("-DPBBI_THREAD_MIN_BLOCKS=10",), ("-DPBBI_THREAD_BLOCK=64",),
               ("-DPBBI_THREAD_BLOCK=256",))
+
+
+# the sources whose kernels sweep_registers reports
+REGISTER_SOURCES = ["fused_hmc.cu", "leapfrog.cu", "thread_layout.cu"]
 
 
 def use(flags=()):
@@ -126,7 +141,11 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=("e", "a", "gaussian", "logistic",
                                            "threads", "registers"))
-    only = parser.parse_args().only
+    parser.add_argument("--source", choices=REGISTER_SOURCES)
+    args = parser.parse_args()
+    only = args.only
+    if args.source:
+        REGISTER_SOURCES[:] = [args.source]
     if not torch.cuda.is_available():
         raise SystemExit("tools/kernel_sweeps.py needs a CUDA device")
     print(subprocess.run(
@@ -352,7 +371,7 @@ def sweep_logistic(gen, dev) -> None:
 def sweep_threads(gen, dev) -> None:
     steps = 16
 
-    def case(name, j):
+    def schools(name, j):
         data = models.EIGHT_SCHOOLS_DATA
         if j != 8:
             rng = np.random.default_rng(j)
@@ -363,24 +382,50 @@ def sweep_threads(gen, dev) -> None:
                  "eight_schools": models.eight_schools}[name]
         form = models.make_model_potential(model, (), data,
                                            device=dev).potential.device_form
-        d = j + 2
-        z = torch.randn(102400, d, generator=gen)
+        z = torch.randn(102400, j + 2, generator=gen)
         # mu, log tau and theta about the posterior of the Rubin data
         theta = z[:, 2:] if name == "eight_schools_nc" else 4.0 + 3.0 * z[
             :, 2:]
-        q = torch.cat([4.0 + 3.0 * z[:, :1], 1.0 + 0.5 * z[:, 1:2], theta],
-                      1).to(dev)
-        u, g = kernels.device_value_and_grad(form)(q)
-        return form, q, torch.randn(102400, d, generator=gen).to(dev), u, g
+        return form, torch.cat([4.0 + 3.0 * z[:, :1],
+                                1.0 + 0.5 * z[:, 1:2], theta], 1)
 
-    cases = {(name, j): case(name, j) for name in kernels.THREAD_FORMS
-             for j in (8, 14)}
-    sizes = (8, 14)  # D = 10 and 16, the layout's limit
+    def funnel(name, w, d):
+        form = (pot.make_funnel(d, device=dev).device_form
+                if name == "funnel" else models.make_model_potential(
+                    models.funnel, (), {"dim": d - 1},
+                    device=dev).potential.device_form)
+        z = torch.randn(w, d, generator=gen)
+        # v ~ N(0, 1.5^2), x | v ~ N(0, e^v): the funnel's own spread
+        return form, torch.cat([1.5 * z[:, :1],
+                                torch.exp(0.75 * z[:, :1]) * z[:, 1:]], 1)
+
+    def nbody(w, n, s):
+        form = pot.make_nbody_potential(torch.ones(n), n, s, softening=0.3,
+                                        device=dev).device_form
+        return form, 2.0 * torch.randn(w, n * s, generator=gen)
+
+    # (form, W, D, label) -> (form, q on the card)
+    cases = {}
+    for name in ("eight_schools_nc", "eight_schools"):
+        for j in (8, 14):  # D = 10 and 16, the layout's limit
+            cases[name, 102400, j + 2, ""] = schools(name, j)
+    for w, d in ((8192, 10), (102400, 10), (102400, 16)):
+        cases["funnel", w, d, ""] = funnel("funnel", w, d)
+    cases["funnel_model", 102400, 16, ""] = funnel("funnel_model", 102400, 16)
+    for w, n, s in ((102400, 8, 3), (8192, 8, 3), (102400, 12, 2),
+                    (102400, 5, 3)):
+        cases["nbody", w, n * s, f"N={n} S={s}"] = nbody(w, n, s)
     scalars = torch.tensor([0.05, 1.0, 1.0], device=dev)
     step = torch.tensor([0.05], device=dev)
+    state = {}
+    for key, (form, q) in cases.items():
+        q = q.to(dev)
+        u, g = kernels.device_value_and_grad(form)(q)
+        state[key] = (form, q, torch.randn(q.shape, generator=gen).to(dev),
+                      u, g)
 
     def times(key, forced=None):
-        form, q, p, u, g = cases[key]
+        form, q, p, u, g = state[key]
         one = torch.ones(q.shape[1], device=dev)
         count = torch.tensor([steps], dtype=torch.int32, device=dev)
         b = dict(scalars=scalars, p_std=one, inv_mass=one, _layout=forced)
@@ -397,17 +442,17 @@ def sweep_threads(gen, dev) -> None:
 
     for flags in T_VARIANTS:
         use(flags)
-        for name in kernels.THREAD_FORMS:
-            for j in sizes:
-                line = {"kernel": "B and D, thread layout",
-                        "flags": list(flags), "form": name, "W": 102400,
-                        "D": j + 2, "L": steps,
-                        "layouts": {k: kernels.walker_layout(name, j + 2, k)
-                                    for k in ("B", "D")},
-                        "chosen": times((name, j))}
-                if not flags:
-                    line["group"] = times((name, j), "group")
-                print(json.dumps(line))
+        for key in state:
+            form, w, d, label = key
+            line = {"kernel": "B and D, thread layout",
+                    "flags": list(flags), "form": form, "W": w, "D": d,
+                    "shape": label, "L": steps,
+                    "layouts": {k: kernels.form_layout(state[key][0], d, k)
+                                for k in ("B", "D")},
+                    "chosen": times(key)}
+            if not flags:
+                line["group"] = times(key, "group")
+            print(json.dumps(line))
     use()
 
 
@@ -440,7 +485,7 @@ def sweep_registers(gen, dev) -> None:
         Path(nvcc).parent / "cu++filt")
     out_dir = _build.BUILD_DIR / "ptxas"
     out_dir.mkdir(parents=True, exist_ok=True)
-    for src in ("fused_hmc.cu", "leapfrog.cu", "thread_layout.cu"):
+    for src in REGISTER_SOURCES:
         t0 = time.perf_counter()
         done = subprocess.run(
             [nvcc, *flags, "-Xptxas", "-v", "-c", "-o",
