@@ -63,7 +63,7 @@
    to 8a's; 8f the model of 8b the same way (20 + 20 transitions from
    8b's posterior, 40 launches of kernel D's eight-schools form, finite
    moments; run after the checks of 2 below). Every launch of kernels B
-   and D in phases 8, 9 and 14 must be in the walker layout that
+   and D in phases 8, 9, 12c, 14 and 15a must be in the walker layout that
    ``kernels.walker_layout`` names (one walker a thread for the
    eight-schools forms at D = 10, the funnel model at D = 16 and the
    N-body form at D = 24, the lane groups for the others).
@@ -80,9 +80,11 @@
    input must give its bits (timed beside it).
    The logistic form's q', u', g' (and proposal, and kernel D's q', p',
    u', g') must be the plain version's bits, as both sum in the same order
-   and round each multiply-add once. Times them, and for the logistic form
-   the two ``torch.matmul`` calls and the sigmoid that its gradients
-   amount to.
+   and round each multiply-add once. Kernel B's logistic form is also
+   held and timed at W = 101376, where its blocks make 3 whole waves of
+   the card (102400 make 3.03: the last wave's cost). Times them, and for
+   the logistic form the two ``torch.matmul`` calls and the sigmoid that
+   its gradients amount to.
 2, at the tempered shapes. Holds kernel A (W = 102400, D = 32) and kernel
    B's N-body form (W = 102400, D = 24, one walker a thread, the lane
    groups forced giving its bits) with a potential scale of 0.37 in
@@ -1257,23 +1259,28 @@ def main() -> None:
                     collect="moments", integrator="pallas_leapfrog")
     counts8e = kernels.launch_counts()
     launched_d_lr = counts8e["leapfrog_trajectory"]
+    layout8e = dict(kernels.leapfrog_trajectory.launches_by_layout)
     sd_8a = torch.sqrt(res8a.var)
     mean_err = ((res8e.mean - res8a.mean) / sd_8a).abs().max().item()
     var_err = (res8e.var / res8a.var - 1.0).abs().max().item()
     accept = res8e.accept_rate.item()
     if not (res8e.kernel_used == "composed"
             and launched_d_lr == n_warm8e + n_samp8e
+            and layout8e[kernels.form_layout(mp_lr.potential.device_form,
+                                             32, "D")] == launched_d_lr
             and sum(counts8e.values()) == launched_d_lr
             and mean_err < 0.044 and var_err < 0.0625
             and 0.6 <= accept <= 0.99):
-        fail(f"phase 8e off: ran {res8e.kernel_used} with {counts8e}, mean "
+        fail(f"phase 8e off: ran {res8e.kernel_used} with {counts8e} "
+             f"({layout8e}), mean "
              f"{mean_err} sd from 8a (limit 0.044), var {var_err} (limit "
              f"0.0625), accept {accept}")
     print(json.dumps({
         "phase": f"8e run_hmc logistic regression N=256 W={w} D=32 L={steps} "
                  f"integrator=pallas_leapfrog from 8a's posterior",
         "kernel_used": res8e.kernel_used, "launches": launched_d_lr,
-        "max_mean_err_sd_vs_8a": mean_err, "max_rel_var_err_vs_8a": var_err,
+        "launches_by_layout": layout8e, "max_mean_err_sd_vs_8a": mean_err,
+        "max_rel_var_err_vs_8a": var_err,
         "accept_rate": accept, "step_size": res8e.step_size.item(),
         "ms_per_transition": 1e3 * res8e.sampling_seconds / n_samp8e,
         "walker_transitions_per_s": w * n_samp8e / res8e.sampling_seconds}))
@@ -1466,6 +1473,13 @@ def main() -> None:
                        16, step_lr, True, plain_timing=slow,
                        library=logistic_library, mass=mass_lr, bits=True)
     lr_errs = [lr_main["max_abs_err"]]
+    # the last wave: at W = 101376 the lane groups' 792 blocks make 3
+    # whole waves of 264, at 102400 their 800 make 3.03
+    lr_tail = check_b8(
+        f"B logistic W=101376 D=32 N=256 L=16 {tile_lr(101376, 32)}",
+        form_lr, q_lr[:101376].contiguous(), 16, step_lr, True,
+        plain_timing=slow, library=logistic_library, mass=mass_lr, bits=True)
+    lr_errs.append(lr_tail["max_abs_err"])
     lr_errs.append(check_b8(
         f"B logistic W=8192 D=32 N=256 L=16 {tile_lr(8192, 32)}", form_lr,
         q_lr[:8192].contiguous(), 16, step_lr, True, plain_reps=2,
@@ -1998,7 +2012,10 @@ def main() -> None:
                 "--num-warmup", str(n_warm8), "--num-samples", str(n_samp8),
                 "--init-step-size", str(init_step), "--collect", "moments"])
             by = l12c["fused_hmc_transition_by"]
+            by_layout = l12c["fused_hmc_transition_by_layout"]
             launched_12c[model] = l12c["fused_hmc_transition"]
+            layout12c = {"logistic_regression": "group",
+                         "eight_schools_noncentered": "thread"}[model]
             mean = torch.tensor(s12c["posterior_mean"], device=dev)
             var = torch.tensor(s12c["posterior_var"], device=dev)
             mean_err = ((mean - ref8.mean) / torch.sqrt(ref8.var)).abs().max(
@@ -2009,6 +2026,7 @@ def main() -> None:
                     and launched_12c[model] == n_warm8 + n_samp8
                     and by["counted"] == n_samp8
                     and by["counted+proposal"] == n_warm8
+                    and by_layout[layout12c] == n_warm8 + n_samp8
                     and others_zero(l12c, "fused_hmc_transition")
                     and mean_err < 0.044 and var_err < 0.0625):
                 fail(f"phase 12c {model} off: {s12c['warmup_kernel_used']}/"
@@ -2021,6 +2039,7 @@ def main() -> None:
                 "kernel_used": s12c["kernel_used"],
                 "warmup_kernel_used": s12c["warmup_kernel_used"],
                 "launches": launched_12c[model], "launches_by": by,
+                "launches_by_layout": by_layout,
                 "max_mean_err_sd_vs_composed": mean_err,
                 "max_rel_var_err_vs_composed": var_err,
                 "accept_rate": s12c["accept_rate"],
@@ -3119,6 +3138,7 @@ def main() -> None:
         SEED + 8, mp_lr.potential, q15a, kernel="auto", mesh=mesh, **kw15a))
     launched_15a = kernels.launch_counts()["fused_hmc_transition"]
     by15a = dict(kernels.fused_hmc_transition.launches_by)
+    layout15a = dict(kernels.fused_hmc_transition.launches_by_layout)
     bits15a = all(same(a, b) for a, b in (
         (res15a.state.ensemble.q, res8a.state.ensemble.q),
         (res15a.mean, res8a.mean), (res15a.var, res8a.var),
@@ -3133,20 +3153,22 @@ def main() -> None:
                  f"group",
         "kernel_used": [res15a.warmup_kernel_used, res15a.kernel_used],
         "launches": launched_15a, "launches_by": by15a,
-        "same_bits_as_8a": bits15a,
+        "launches_by_layout": layout15a, "same_bits_as_8a": bits15a,
         "sampling_ms": 1e3 * res15a.sampling_seconds / n_samp8,
         "sampling_ms_8a": 1e3 * res8a.sampling_seconds / n_samp8,
         "warmup_ms": 1e3 * res15a.warmup_seconds / n_warm8,
         "warmup_ms_8a": 1e3 * res8a.warmup_seconds / n_warm8,
         "wall_seconds": wall15a, **coll15a, "card": card}))
     if not (bits15a and launched_15a == n_warm8 + n_samp8
+            and layout15a[kernels.form_layout(mp_lr.potential.device_form,
+                                              32, "B")] == launched_15a
             and by15a["counted"] == n_samp8
             and by15a["counted+proposal"] == n_warm8
             and coll15a["collectives_per_warmup_transition"] == 2
             and coll15a["collectives_per_sampling_transition"] == 0
             and coll15a["host_copies_per_sampling_transition"] == 0):
         fail(f"phase 15a off: 8a's bits {bits15a}, launches {launched_15a} "
-             f"({by15a}), per transition {coll15a}")
+             f"({by15a}, {layout15a}), per transition {coll15a}")
 
     # 15b: parallel tempering on phase 10's mixture, a 1 x 1 replica mesh
     rm15 = par.make_replica_mesh(1)
@@ -3443,6 +3465,10 @@ def main() -> None:
               b_prop),
         entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576, launched_lr,
               lr_errs, lr_main),
+        # the same at W=101376 (3 whole waves of the lane groups' blocks),
+        # which no driven path runs
+        entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576, 0, lr_errs,
+              lr_tail),
         entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576, launched_es,
               es_errs, es_main),
         # the logistic form in kernel D (phase 8e), and the eight-schools

@@ -180,7 +180,9 @@ def _list(x) -> list:
 def _launches() -> dict:
     return dict(kernels.launch_counts(),
                 fused_hmc_transition_by=dict(
-                    kernels.fused_hmc_transition.launches_by))
+                    kernels.fused_hmc_transition.launches_by),
+                fused_hmc_transition_by_layout=dict(
+                    kernels.fused_hmc_transition.launches_by_layout))
 
 
 def _walker_mesh(cfg: RunConfig):
@@ -242,12 +244,11 @@ def run(cfg: RunConfig) -> dict:
             print(f"# wrote {cfg.output_path}", file=sys.stderr)
     summary.setdefault("wall_seconds", round(time.perf_counter() - t0, 3))
     after = _launches()
-    by = {k: v - before["fused_hmc_transition_by"][k]
-          for k, v in after.pop("fused_hmc_transition_by").items()}
-    if lead:
-        print("# launches " + json.dumps(dict(
-            {k: v - before[k] for k, v in after.items()},
-            fused_hmc_transition_by=by)), file=sys.stderr)
+    if lead:  # the counts and the counts by variant and layout, this run's
+        print("# launches " + json.dumps({
+            k: ({c: n - before[k][c] for c, n in v.items()}
+                if isinstance(v, dict) else v - before[k])
+            for k, v in after.items()}), file=sys.stderr)
     return summary
 
 

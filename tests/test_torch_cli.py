@@ -41,6 +41,7 @@ from physicsbasedbayesianinference_tpu_torch import diagnostics as tdiag
 from physicsbasedbayesianinference_tpu_torch import main as tmain
 from physicsbasedbayesianinference_tpu_torch.checkpoint import (
     CheckpointManager)
+from physicsbasedbayesianinference_tpu_torch.ops import kernels as tkernels
 from physicsbasedbayesianinference_tpu_torch.ops import potentials as tp
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -400,6 +401,22 @@ def test_the_command_line(tmp_path):
         assert data["samples"].shape == (10, 64, 2)
         assert json.loads(str(data["summary"]))["accept_rate"] == \
             summary["accept_rate"]
+
+
+@pytest.mark.parametrize("sampler", ["hmc", "chees"])
+def test_the_launches_line_counts_by_variant_and_layout(sampler):
+    """The ``# launches`` line holds every kernel's count and kernel B's
+    counts by variant and by layout, this run's: on the CPU all 0."""
+    _, err = _quiet(tmain.run, _cfg(
+        model="builtin:banana", sampler=sampler, num_walkers=32,
+        num_warmup=4, num_samples=3, num_steps=2))
+    launches = json.loads(err.split("# launches ")[1].splitlines()[0])
+    assert set(launches["fused_hmc_transition_by_layout"]) == set(
+        tkernels.LAYOUTS)
+    assert launches["fused_hmc_transition_by"]
+    for v in launches.values():
+        for n in (v.values() if isinstance(v, dict) else [v]):
+            assert n == 0
 
 
 def test_metrics_logger_and_wall_clock_print_the_jax_strings():

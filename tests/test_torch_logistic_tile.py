@@ -34,6 +34,7 @@ def _form(n, p):
 # (W, N, D) -> tile
 @pytest.mark.parametrize("w,n,d,want", [
     (102400, 256, 32, 4),  # phase 8a's shape: 800 blocks at tile 4
+    (101376, 256, 32, 4),  # 792 blocks: 3 whole waves of 2 an SM on 132 SMs
     (8192, 256, 32, 2),    # 128 blocks at tile 2, 64 at tile 4
     (8192, 256, 31, 2),    # off the 16-byte path, the same layout
     (4096, 256, 32, 1),    # 128 blocks at tile 1

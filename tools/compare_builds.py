@@ -12,8 +12,11 @@ same Philox draws:
 * says whether the outputs are the same bits (NaNs compared by their
   bits) and the largest absolute difference otherwise (every row runs the fixed leapfrog count without
   the proposal outputs, which both checkouts have); the logistic rows
-  (``models.logistic_regression_data(256, 31)``, the data of phase 8a)
-  differ wherever the two checkouts' logistic forms round differently, and
+  (``models.logistic_regression_data(256, 31)``, the data of phase 8a,
+  kernel B at W = 102400, 101376 and 8192: at 101376 the lane groups'
+  blocks make whole waves of the card) and the linear-regression rows
+  (``models.linear_regression_data(256, 30)``, the data of phase 14c)
+  differ wherever the two checkouts' data forms round differently, and
   the eight-schools rows (both forms on ``models.EIGHT_SCHOOLS_DATA`` at
   W = 102400, D = 10, about the posterior) wherever their eight-schools
   forms do; the funnel-model rows (``models.funnel``, D = 16, W = 102400)
@@ -287,10 +290,16 @@ def main() -> None:
     x, y = models.logistic_regression_data(256, 31)
     logistic = ("logistic", (torch.as_tensor(x).to(dev),
                              torch.as_tensor(y).to(dev)))
-    for w_ in (102400, 8192):
+    for w_ in (102400, 101376, 8192):
         row_b(f"B logistic W={w_} D=32 N=256 L=16", logistic,
               0.3 * randn(w_, 32), 0.05)
     row_d("D logistic W=102400 D=32 N=256 L=16", logistic, 102400, 32, 0.05)
+    linear = models.make_model_potential(
+        models.linear_regression, models.linear_regression_data(256, 30), {},
+        device=dev).potential.device_form
+    q = 0.3 * randn(102400, 32)
+    row_b("B linear W=102400 D=32 N=256 L=16", linear, q, 0.02)
+    row_d("D linear W=102400 D=32 N=256 L=16", linear, 102400, 32, 0.02, q=q)
     for model in (models.eight_schools_noncentered, models.eight_schools):
         form = models.make_model_potential(
             model, (), models.EIGHT_SCHOOLS_DATA,

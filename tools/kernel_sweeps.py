@@ -2,7 +2,7 @@
 """The measured sweeps behind the design constants of kernels E and A and
 of the Gaussian and logistic forms' register tiles in kernels B and D.
 
-    python3 tools/kernel_sweeps.py [--only e|a|gaussian|logistic|threads|registers]
+    python3 tools/kernel_sweeps.py [--only e|a|gaussian|logistic|threads|tail|registers]
                                    [--source thread_layout.cu]
 
 from the repository root, on a GPU (every sweep unless ``--only`` names one).
@@ -61,6 +61,11 @@ build is hashed by its flags, ``ops/_build.py``) and times, as
   8, 10 blocks of 128 threads) and ``PBBI_THREAD_BLOCK`` (threads a block:
   64, 256) varied, beside the lane-group layout forced on the default
   build;
+* the launch's last wave: kernel B with the logistic form (N = 256, D =
+  32, L = 16) in the lane groups at W = 101376 (792 blocks of tile 4, 3
+  whole waves of 2 blocks an SM on 132 SMs) and W = 102400 (800 blocks,
+  3.03 waves), timed twice each, with ``walkers_per_block`` the blocks'
+  walkers and ``blocks`` their count;
 * the registers, stack and spills of every instantiation of kernels B and D
   (``nvcc -Xptxas -v``, the library's flags without ``-split-compile``,
   whose parallel ptxas runs interleave their reports), one line each with
@@ -140,7 +145,7 @@ def bodies(n, dtype, gen, dev):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=("e", "a", "gaussian", "logistic",
-                                           "threads", "registers"))
+                                           "threads", "tail", "registers"))
     parser.add_argument("--source", choices=REGISTER_SOURCES)
     args = parser.parse_args()
     only = args.only
@@ -158,6 +163,7 @@ def main() -> None:
                         ("gaussian", sweep_gaussian),
                         ("logistic", sweep_logistic),
                         ("threads", sweep_threads),
+                        ("tail", sweep_tail),
                         ("registers", sweep_registers)):
         if only in (None, name):
             sweep(gen, dev)
@@ -454,6 +460,30 @@ def sweep_threads(gen, dev) -> None:
                 line["group"] = times(key, "group")
             print(json.dumps(line))
     use()
+
+
+def sweep_tail(gen, dev) -> None:
+    x, y = models.logistic_regression_data(256, 31)
+    form = ("logistic", (torch.as_tensor(x).to(dev),
+                         torch.as_tensor(y).to(dev)))
+    d, steps = 32, 16
+    one = torch.ones(d, device=dev)
+    scalars = torch.tensor([0.05, 1.0, 1.0], device=dev)
+    q = 0.3 * torch.randn(102400, d, generator=gen).to(dev)
+    u, g = kernels.device_value_and_grad(form)(q)
+    for w in (101376, 102400):
+        qw, uw, gw = q[:w].contiguous(), u[:w].contiguous(), \
+            g[:w].contiguous()
+        per_block = (kernels._BLOCK_THREADS // kernels.threads_per_walker(d)
+                     * kernels.logistic_tile(w, 256, d))
+        print(json.dumps({
+            "kernel": "B, logistic form, the last wave", "layout": "group",
+            "W": w, "D": d, "N": 256, "L": steps,
+            "walkers_per_block": per_block, "blocks": -(-w // per_block),
+            "ms": [median_ms(lambda: kernels.fused_hmc_transition(
+                form, SEED, 7, qw, uw, gw, scalars=scalars, p_std=one,
+                inv_mass=one, num_steps=steps))
+                for _ in range(2)]}))
 
 
 def _ptxas_report(text: str):
