@@ -107,10 +107,17 @@
 10. Runs parallel tempering, ``run_parallel_tempering``, on the bimodal
    mixture with modes at (+-6, 0), 6 replicas down to beta = 0.02, 16384
    walkers a replica all started in the left mode: one launch of kernel
-   B's mixture form per replica and transition at the replica's beta;
-   checks the cold replica's share of the right mode, the acceptance and
-   swap rates, and that the run's blocking calls do not grow with its
-   transitions.
+   B's mixture form a transition for all six replicas (the kernels' rung
+   axis), each at its beta; checks the cold replica's share of the right
+   mode, the acceptance and swap rates, and that the run's blocking calls
+   do not grow with its transitions. Then holds that rung launch, on the
+   run's final ladder and state, against six launches of one rung each
+   and against the plain version (every output their bits), timed beside
+   the six launches. 10b and 10c run the same sampler through kernel A's
+   rungs (the 2-D standard normal) and kernel B's rungs one walker a
+   thread (8b's eight schools from its posterior), 50 + 50 transitions
+   of 6 rungs, one launch each, and hold their rung launches the same
+   way.
 11. Runs lockstep NUTS, ``run_nuts``, on the sampler-matrix target (the
    16-dim Gaussian with sd logspace(0, 1, 16)) at 65536 walkers: no fused
    kernel; checks moments, acceptance and mean depth, and prints the host
@@ -1769,16 +1776,153 @@ def main() -> None:
         "ms_per_transition": 1e3 * seconds10 / (n_warm10 + n_samp10),
         "sampling_ms_per_transition":
             1e3 * res10.sampling_seconds / n_samp10}))
+    # the r10 rungs in one launch a transition
     if not (res10.kernel_used == "fused"
-            and launched_10 == r10 * (n_warm10 + n_samp10)
+            and launched_10 == n_warm10 + n_samp10
             and sum(counts10.values()) == launched_10
             and 0.35 <= right <= 0.65 and min_acc > 0.5 and max_swap > 0.05
             and blocking_short == blocking_long):
         fail(f"phase 10 off: ran {res10.kernel_used} with {launched_10} "
-             f"launches (want {r10 * (n_warm10 + n_samp10)}), right-mode "
+             f"launches (want {n_warm10 + n_samp10}), right-mode "
              f"share {right} (limits 0.35-0.65), min accept {min_acc}, max "
              f"swap rate {max_swap}, blocking calls {blocking_short} and "
              f"{blocking_long}")
+
+    # ---- 2, at the rung axis: a ladder's rungs in one launch ------------
+    def check_rungs(case, form, q, steps, step_sizes, betas, seeds, u=None,
+                    g=None, plain_bits=True):
+        """A launch of kernel A (``form`` None: the standard normal) or B
+        on the R rungs of ``q`` [R, W, D] at a ladder's step sizes and betas
+        (mass 1, momenta thermal at each beta): every output the bits of R
+        launches of one rung each and, with ``plain_bits``, of the plain
+        version (without: within ``compare``'s limits of it, as a launch of
+        one rung of that form is); timed beside those R launches
+        (``before_ms``), as the sweep ran before the rung axis."""
+        r, w, d = q.shape
+        counter = 600
+        kw = dict(scalars=torch.stack((step_sizes, betas,
+                                       torch.ones_like(betas)), 1),
+                  p_std=torch.sqrt(1.0 / betas)[:, None].expand(
+                      r, d).contiguous(),
+                  inv_mass=torch.ones(d, device=dev), num_steps=steps)
+        if form is None:
+            kw.update(k_diag=torch.ones(d, device=dev),
+                      mean=torch.zeros(d, device=dev))
+            kernel, plain = (kernels.fused_hmc_diag_quadratic,
+                             kernels.fused_hmc_diag_quadratic_plain)
+            order = A_ORDER
+        else:
+            kernel, plain = (kernels.fused_hmc_transition,
+                             kernels.fused_hmc_transition_plain)
+            order = B_ORDER
+
+        def call(fn, i=None):
+            """``fn`` on every rung, or on rung ``i`` alone"""
+            pick = (lambda x: x) if i is None else (lambda x: x[i])
+            args = {k: pick(v) if k in ("scalars", "p_std") else v
+                    for k, v in kw.items()}
+            keys = seeds if i is None else seeds[i]
+            if form is None:
+                return fn(keys, counter, pick(q), **args)
+            return fn(form, keys, counter, pick(q), pick(u), pick(g), **args)
+
+        before = kernel.launches
+        out = call(kernel)
+        if kernel.launches != before + 1:
+            fail(f"{case}: {kernel.launches - before} launches, want 1")
+        each = kernels._stack_rungs(call(kernel, i) for i in range(r))
+        want = call(plain)
+        torch.cuda.synchronize()
+        held = ((each, "its rungs' own launches"),
+                (want, "the plain version"))
+        for other, label in held[:2 if plain_bits else 1]:
+            differ = [k for k, a, b in zip(order, out, other)
+                      if not same_bits(a, b)]
+            if differ:
+                fail(f"{case}: {differ} are not the bits of {label}")
+        err = max(compare(
+            f"{case} rung {i}", named([x[i] for x in out], order),
+            named([x[i] for x in want], order),
+            torch.log(philox.accept_uniforms(seeds[i], counter, w, dev)))
+            for i in range(r))
+        ops = w * d * (4 * steps + 10) if form is None else w * (
+            steps + 1) * (gradient_ops(form, d) + 3 * d)
+        line = {"case": case, "max_abs_err": err,
+                "same_bits_as_plain": plain_bits,
+                "same_bits_as_rung_launches": True,
+                **bound(r * transition_bytes(w, d, form is not None),
+                        r * ops),
+                "ms": median_ms(lambda: call(kernel)),
+                "before_ms": median_ms(
+                    lambda: [call(kernel, i) for i in range(r)]),
+                "plain_ms": median_ms(lambda: call(plain), reps=2,
+                                      rounds=3)}
+        if form is not None:
+            line["layout"] = kernels.form_layout(form, d, "B")
+        print(json.dumps(line))
+        return line
+
+    from physicsbasedbayesianinference_tpu_torch.tempering import (
+        _replica_seed)
+    b_rungs = check_rungs(
+        f"B mixture K=2 R={r10} W={w10} D=2 L=10, phase 10's ladder and "
+        f"state", bimodal.device_form, res10.q, 10, res10.step_sizes,
+        res10.betas, [_replica_seed(SEED + 14, i) for i in range(r10)],
+        res10.u, res10.g)
+
+    # 10b, 10c: parallel tempering through kernel A's rungs (the 2-D
+    # standard normal) and kernel B's one walker a thread (8b's eight
+    # schools from 8b's posterior), 50 + 50 transitions, one launch each
+    def pt_route(sub, title, target, q0, wanted, layout, init_step,
+                 min_accept):
+        kernels.reset_launch_counts()
+        res = run_parallel_tempering(
+            SEED + 16, target, q0, num_replicas=r10, beta_min=0.1,
+            num_warmup=50, num_samples=50, num_steps=10,
+            init_step_size=init_step, collect="moments")
+        counts = kernels.launch_counts()
+        by_layout = dict(kernels.fused_hmc_transition.launches_by_layout)
+        ok = (res.kernel_used == "fused" and counts[wanted] == 100
+              and sum(counts.values()) == 100
+              and (layout is None or by_layout[layout] == 100)
+              and bool(torch.isfinite(res.mean).all())
+              and res.accept_rate.min().item() > min_accept)
+        print(json.dumps({
+            "phase": f"{sub} run_parallel_tempering {title} R={r10} "
+                     f"W={q0.shape[0]} L=10 beta_min=0.1 50 + 50",
+            "kernel_used": res.kernel_used, "launches": counts[wanted],
+            "launches_by_layout": by_layout,
+            "accept_rate": res.accept_rate.tolist(),
+            "swap_rate": res.swap_rate.tolist(),
+            "cold_mean": res.mean.tolist(), "cold_var": res.var.tolist(),
+            "sampling_ms_per_transition": 1e3 * res.sampling_seconds / 50}))
+        if not ok:
+            fail(f"phase {sub} off: ran {res.kernel_used} with {counts} "
+                 f"({by_layout}), accept {res.accept_rate.tolist()}, cold "
+                 f"mean {res.mean.tolist()}")
+        return res, counts[wanted]
+
+    res10b, launched_10b = pt_route(
+        "10b", "standard normal D=2 (kernel A)", pot.make_standard_normal(2),
+        torch.randn(w10, 2, generator=seeded(13), device=dev),
+        "fused_hmc_diag_quadratic", None, 0.5, 0.5)
+    if not (res10b.mean.abs().max().item() < 0.05
+            and (res10b.var - 1.0).abs().max().item() < 0.1):
+        fail(f"phase 10b moments off: mean {res10b.mean.tolist()}, var "
+             f"{res10b.var.tolist()} (limits 0.05, 0.1)")
+    a_rungs = check_rungs(
+        f"A std_normal R={r10} W={w10} D=2 L=10, phase 10b's ladder and "
+        f"state", None, res10b.q, 10, res10b.step_sizes, res10b.betas,
+        [_replica_seed(SEED + 16, i) for i in range(r10)])
+    res10c, launched_10c = pt_route(
+        "10c", "eight schools non-centred D=10 (kernel B, one walker a "
+        "thread)", mp_es.potential, q_es[:w10].contiguous(),
+        "fused_hmc_transition", "thread", step_es, 0.3)
+    b_thread_rungs = check_rungs(
+        f"B eight_schools_nc R={r10} W={w10} D=10 L=10, phase 10c's ladder "
+        f"and state", form_es, res10c.q, 10, res10c.step_sizes,
+        res10c.betas, [_replica_seed(SEED + 16, i) for i in range(r10)],
+        res10c.u, res10c.g, plain_bits=False)
 
     # ---- 11. lockstep NUTS on the sampler-matrix target ---------------------
     # the ill-conditioned 16-dim Gaussian, sd logspace(0, 1, 16); NUTS has
@@ -2143,7 +2287,7 @@ def main() -> None:
                 state, ref_q, shape = ({"q": ref.q, "u": ref.u, "g": ref.g},
                                        ref.q, (6,))
                 launched_12e = counts["fused_hmc_transition"]
-                launches_ok = (launched_12e == 6 * (n_w + n_s)
+                launches_ok = (launched_12e == n_w + n_s
                                and others_zero(counts,
                                                "fused_hmc_transition"))
             else:
@@ -3199,7 +3343,7 @@ def main() -> None:
         "sampling_ms": 1e3 * res15b.sampling_seconds / n_samp10,
         "sampling_ms_10": 1e3 * res10.sampling_seconds / n_samp10,
         **coll15b, "card": card}))
-    if not (bits15b and launched_15b == r10 * (n_warm10 + n_samp10)
+    if not (bits15b and launched_15b == n_warm10 + n_samp10
             and sum(counts15b.values()) == launched_15b
             and coll15b["collectives_per_warmup_transition"] == 1
             and coll15b["collectives_per_sampling_transition"] == 0
@@ -3487,8 +3631,18 @@ def main() -> None:
         # the N-body form in kernel D (9c)
         entry("leapfrog_trajectory", f"{CSRC}/forms.cuh", 140, launched_9c,
               [d_nbody["max_abs_err"]], d_nbody),
-        entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576, launched_10,
+        # the launch of one rung at a rung's beta, which no driven path
+        # makes since PT's rungs are one launch
+        entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576, 0,
               [b_mixture["max_abs_err"]], b_mixture),
+        # PT's rungs in one launch: B's mixture form (10), A (10b), B one
+        # walker a thread (10c)
+        entry("fused_hmc_transition", SOURCE, 576, launched_10,
+              [b_rungs["max_abs_err"]], b_rungs),
+        entry("fused_hmc_diag_quadratic", SOURCE, 893, launched_10b,
+              [a_rungs["max_abs_err"]], a_rungs),
+        entry("fused_hmc_transition", SOURCE, 373, launched_10c,
+              [b_thread_rungs["max_abs_err"]], b_thread_rungs),
         # the command-line driver: kernel A under its hmc (12a) and its SMC
         # mutations at the stage beta (12d), kernel B's model forms under
         # its chees (12c) and B's mixture form under its pt (12e)
@@ -3500,8 +3654,8 @@ def main() -> None:
               launched_12c["logistic_regression"], lr_errs, lr_main),
         entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576,
               launched_12c["eight_schools_noncentered"], es_errs, es_main),
-        entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576, launched_12e,
-              [b_mixture["max_abs_err"]], b_mixture),
+        entry("fused_hmc_transition", SOURCE, 576, launched_12e,
+              [b_rungs["max_abs_err"]], b_rungs),
         # the sharded paths: kernels A and B with a walker offset (13b's
         # runs, and 13d's for A), kernel E's source-block form (13e's ring)
         entry("fused_hmc_diag_quadratic", SOURCE, 893,
@@ -3530,8 +3684,8 @@ def main() -> None:
         # checkpointed chees (15e)
         entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576, launched_15a,
               lr_errs, lr_main),
-        entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576, launched_15b,
-              [b_mixture["max_abs_err"]], b_mixture),
+        entry("fused_hmc_transition", SOURCE, 576, launched_15b,
+              [b_rungs["max_abs_err"]], b_rungs),
         entry("fused_hmc_diag_quadratic", SOURCE, 893, launched_15e_smc,
               [a_scaled["max_abs_err"]], a_scaled),
         entry("fused_hmc_diag_quadratic", SOURCE, 893, launched_15e_stream,

@@ -47,6 +47,15 @@
 // adapting the step size never needs a host read-back. Outputs are
 // allocated by the caller; no kernel allocates or synchronises.
 //
+// Rungs (transition.cuh): blockIdx.y is the rung of a parallel-tempering
+// ladder, each rung an ensemble of W rows with its own Philox key, scalars
+// and momentum std, so one launch sweeps a block of rungs. Launched one
+// rung at a time, phase 10's ladder (6 rungs of 16384 walkers in 2-D, the
+// mixture form) was six launches of 64 blocks of 256 threads on the card's
+// 132 SMs, each a serial chain of 10 leapfrog steps bound by latency and
+// not by bytes or arithmetic, each with its own host work; as one launch it
+// is 384 blocks. A launch of one rung is the case R = 1 of the same code.
+//
 // The TPU kernels' dynamic_steps and emit_proposal (what ChEES-HMC needs)
 // are template flags here, so that the kernels without them are unchanged:
 // kDyn reads the leapfrog count from device memory and clips it to [1,
@@ -160,9 +169,13 @@ diag_quadratic_kernel(
     float* __restrict__ u_out, float* __restrict__ acc_out,
     uint8_t* __restrict__ taken_out, float* __restrict__ derr_out,
     const int* __restrict__ steps_dev, int num_walkers, int num_dims, int tpw,
-    int num_steps, float threshold, uint32_t k0, uint32_t k1, uint32_t t,
-    uint32_t w0) {
+    int num_steps, float threshold,
+    const __grid_constant__ RungKeys keys, uint32_t t, uint32_t w0) {
   if (kDyn) num_steps = device_steps(steps_dev, num_steps);
+  const Rung rung = this_rung(keys, num_walkers);
+  const uint32_t k0 = rung.k0, k1 = rung.k1;
+  p_std += rung.index * num_dims;
+  scalars += 3 * rung.index;
   // k, mean, inv_mass, p_std, each padded with zeros to 4 * tpw floats
   __shared__ float4 params[kMaxGenericDims];
   // log of the Metropolis uniform of each of the block's walkers, drawn by
@@ -191,7 +204,7 @@ diag_quadratic_kernel(
   const long long w = (long long)blockIdx.x * wpb + slot;
   const int base = 4 * lane;
   const bool active = w < num_walkers && base < num_dims;
-  const long long at = w * num_dims + base;
+  const long long at = (rung.row + w) * num_dims + base;
   const float dt = scalars[0], beta = scalars[1], scale = scalars[2];
   const float ck = dt * scale;
 
@@ -254,10 +267,11 @@ diag_quadratic_kernel(
   const Decision dec = metropolis(h0, h1, beta, threshold, log_u[slot]);
   if (w >= num_walkers) return;
   if (lane == 0) {
-    u_out[w] = dec.accepted ? uu1 : uu0;
-    acc_out[w] = dec.accept_prob;
-    taken_out[w] = dec.accepted ? 1 : 0;
-    derr_out[w] = dec.energy_error;
+    const long long row = rung.row + w;
+    u_out[row] = dec.accepted ? uu1 : uu0;
+    acc_out[row] = dec.accept_prob;
+    taken_out[row] = dec.accepted ? 1 : 0;
+    derr_out[row] = dec.energy_error;
   }
   if (!active) return;
   float qs[4], gs[4];
@@ -290,14 +304,18 @@ __global__ void __launch_bounds__(kBlock) diag_quadratic_loop_kernel(
     float* __restrict__ u_out, float* __restrict__ acc_out,
     uint8_t* __restrict__ taken_out, float* __restrict__ derr_out,
     const int* __restrict__ steps_dev, int num_walkers, int num_dims, int tpw,
-    int num_steps, float threshold, uint32_t k0, uint32_t k1, uint32_t t,
-    uint32_t w0) {
+    int num_steps, float threshold,
+    const __grid_constant__ RungKeys keys, uint32_t t, uint32_t w0) {
   if (kDyn) num_steps = device_steps(steps_dev, num_steps);
+  const Rung rung = this_rung(keys, num_walkers);
+  const uint32_t k0 = rung.k0, k1 = rung.k1;
+  p_std += rung.index * num_dims;
+  scalars += 3 * rung.index;
   const int lane = threadIdx.x % tpw;
   const long long w =
       (long long)blockIdx.x * (kBlock / tpw) + threadIdx.x / tpw;
   const bool valid = w < num_walkers;
-  const long long row = w * num_dims;
+  const long long row = (rung.row + w) * num_dims;
   const int groups = (num_dims + 3) / 4;
   const float dt = scalars[0], beta = scalars[1], scale = scalars[2];
   const float ck = dt * scale;
@@ -354,10 +372,10 @@ __global__ void __launch_bounds__(kBlock) diag_quadratic_loop_kernel(
                  logf(pbbi::accept_uniform(t, w0 + (uint32_t)w, k0, k1)));
   if (!valid) return;
   if (lane == 0) {
-    u_out[w] = dec.accepted ? uu1 : uu0;
-    acc_out[w] = dec.accept_prob;
-    taken_out[w] = dec.accepted ? 1 : 0;
-    derr_out[w] = dec.energy_error;
+    u_out[rung.row + w] = dec.accepted ? uu1 : uu0;
+    acc_out[rung.row + w] = dec.accept_prob;
+    taken_out[rung.row + w] = dec.accepted ? 1 : 0;
+    derr_out[rung.row + w] = dec.energy_error;
   }
   if (!dec.accepted) {
     for (int g = lane; g < groups; g += tpw) {
@@ -404,9 +422,13 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) generic_kernel(
     uint8_t* __restrict__ taken_out, float* __restrict__ derr_out,
     float* __restrict__ q_prop, float* __restrict__ p_prop,
     const int* __restrict__ steps_dev, int num_walkers, int num_dims, int tpw,
-    int num_steps, float threshold, uint32_t k0, uint32_t k1, uint32_t t,
-    uint32_t w0) {
+    int num_steps, float threshold,
+    const __grid_constant__ RungKeys keys, uint32_t t, uint32_t w0) {
   if (kDyn) num_steps = device_steps(steps_dev, num_steps);
+  const Rung rung = this_rung(keys, num_walkers);
+  const uint32_t k0 = rung.k0, k1 = rung.k1;
+  p_std += rung.index * num_dims;
+  scalars += 3 * rung.index;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   form.stage(smem, num_dims, tpw);
@@ -444,7 +466,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) generic_kernel(
     const long long w = first + r;
     const bool valid = w < num_walkers;
     left[r] = valid ? num_dims - base : 0;
-    const long long at = valid ? w * num_dims + base : 0;
+    const long long at = valid ? (rung.row + w) * num_dims + base : 0;
     load_group<kVec>(q, at, left[r], qv[r]);
     load_group<kVec>(g, at, left[r], gv[r]);
     float n[4];
@@ -457,7 +479,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) generic_kernel(
       kin0 += p0 * p0 * imv[e];
       pv[r][e] = p0 - (0.5f * ck) * gv[r][e];
     }
-    u0[r] = valid ? u[w] : 0.0f;
+    u0[r] = valid ? u[rung.row + w] : 0.0f;
     h0[r] = 0.5f * segment_sum(kin0, tpw) + scale * u0[r];
   }
 
@@ -494,7 +516,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) generic_kernel(
         metropolis(h0[r], h1, beta, threshold,
                    logf(pbbi::accept_uniform(t, w0 + (uint32_t)w, k0, k1)));
     if (w >= num_walkers) continue;
-    const long long at = w * num_dims + base;
+    const long long at = (rung.row + w) * num_dims + base;
     if (kProp) {  // the endpoint (q1, -p1), whatever the decision
       const float flipped[4] = {-pv[r][0], -pv[r][1], -pv[r][2], -pv[r][3]};
       store_group<kVec>(q_prop, at, left[r], qv[r]);
@@ -507,10 +529,10 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) generic_kernel(
     store_group<kVec>(q_out, at, left[r], qv[r]);
     store_group<kVec>(g_out, at, left[r], gv[r]);
     if (lane == 0) {
-      u_out[w] = dec.accepted ? u1[r] : u0[r];
-      acc_out[w] = dec.accept_prob;
-      taken_out[w] = dec.accepted ? 1 : 0;
-      derr_out[w] = dec.energy_error;
+      u_out[rung.row + w] = dec.accepted ? u1[r] : u0[r];
+      acc_out[rung.row + w] = dec.accept_prob;
+      taken_out[rung.row + w] = dec.accepted ? 1 : 0;
+      derr_out[rung.row + w] = dec.energy_error;
     }
   }
 }
@@ -538,8 +560,8 @@ int launch_generic(Form form, const float* q, const float* u, const float* g,
                    float* derr_out, float* q_prop, float* p_prop,
                    const int* steps_dev, int num_walkers, int num_dims,
                    int num_steps, int walker_tile, float threshold,
-                   uint64_t seed, uint32_t counter, uint32_t walker_offset,
-                   void* stream) {
+                   int num_rungs, const RungKeys& keys, uint32_t counter,
+                   uint32_t walker_offset, void* stream) {
   if (num_walkers <= 0 || num_dims <= 0 || num_dims > kMaxGenericDims ||
       num_steps < 0 || (q_prop == nullptr) != (p_prop == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -562,12 +584,11 @@ int launch_generic(Form form, const float* q, const float* u, const float* g,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const int wpb = kBlock / tpw * R;
-    const unsigned blocks = (unsigned)((num_walkers + wpb - 1) / wpb);
-    kernel<<<blocks, kBlock, smem, (cudaStream_t)stream>>>(
+    const dim3 grid((unsigned)((num_walkers + wpb - 1) / wpb), num_rungs);
+    kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(
         form, q, u, g, inv_mass, p_std, scalars, q_out, u_out, g_out, acc_out,
         taken_out, derr_out, q_prop, p_prop, steps_dev, num_walkers, num_dims,
-        tpw, num_steps, threshold, (uint32_t)seed, (uint32_t)(seed >> 32),
-        counter, walker_offset);
+        tpw, num_steps, threshold, keys, counter, walker_offset);
     return (int)cudaGetLastError();
   });
 }
@@ -583,25 +604,29 @@ const char* pbbi_error_string(int code) {
 // Kernel A. steps_dev: null, or a device int holding the leapfrog count,
 // and num_steps is then the most it may be. trajectory_bf16: nonzero runs
 // the drift/kick chain in bfloat16 (D <= 128; above, cudaErrorInvalidValue
-// and no launch). walker_offset: the global index of row 0 of q, the
-// walker index of its Philox draws (0 for a whole ensemble; a process
-// holding rows [o, o + W) of a sharded one passes o and draws what the
-// whole launch draws for those rows).
+// and no launch). num_rungs, seeds: the launch's rungs (transition.cuh),
+// 1 to kMaxRungs, and their 64-bit Philox keys; q is [num_rungs, W, D],
+// scalars [num_rungs, 3], p_std [num_rungs, D]. walker_offset: the global
+// index of row 0 of each rung, the walker index of its Philox draws (0 for
+// a whole ensemble; a process holding rows [o, o + W) of a sharded one
+// passes o and draws what the whole launch draws for those rows).
 int pbbi_fused_hmc_diag_quadratic(
     const float* q, const float* kdiag, const float* mean,
     const float* inv_mass, const float* p_std, const float* scalars,
     float* q_out, float* g_out, float* u_out, float* acc_out,
     uint8_t* taken_out, float* derr_out, const int* steps_dev,
     int trajectory_bf16, int num_walkers, int num_dims, int num_steps,
-    float threshold, uint64_t seed, uint32_t counter, uint32_t walker_offset,
-    void* stream) {
-  if (num_walkers <= 0 || num_dims <= 0 || num_steps < 0)
+    float threshold, int num_rungs, const uint64_t* seeds, uint32_t counter,
+    uint32_t walker_offset, void* stream) {
+  RungKeys keys;
+  if (num_walkers <= 0 || num_dims <= 0 || num_steps < 0 ||
+      !rung_keys(num_rungs, seeds, &keys))
     return (int)cudaErrorInvalidValue;
   const int tpw = threads_per_walker(num_dims);
   const bool looped = (num_dims + 3) / 4 > tpw;  // D > kMaxGenericDims
   if (looped && trajectory_bf16) return (int)cudaErrorInvalidValue;
   const int wpb = (looped ? kBlock : kBlockA) / tpw;
-  const unsigned blocks = (unsigned)((num_walkers + wpb - 1) / wpb);
+  const dim3 grid((unsigned)((num_walkers + wpb - 1) / wpb), num_rungs);
   const bool vec = num_dims % 4 == 0 && !misaligned16(q) &&
                    !misaligned16(q_out) && !misaligned16(g_out);
   using Kernel = decltype(&diag_quadratic_loop_kernel<false>);
@@ -620,11 +645,10 @@ int pbbi_fused_hmc_diag_quadratic(
       looped ? (dyn ? &diag_quadratic_loop_kernel<true>
                     : &diag_quadratic_loop_kernel<false>)
              : grouped[trajectory_bf16 != 0][vec][dyn];
-  kernel<<<blocks, looped ? kBlock : kBlockA, 0, (cudaStream_t)stream>>>(
+  kernel<<<grid, looped ? kBlock : kBlockA, 0, (cudaStream_t)stream>>>(
       q, kdiag, mean, inv_mass, p_std, scalars, q_out, g_out, u_out, acc_out,
       taken_out, derr_out, steps_dev, num_walkers, num_dims, tpw, num_steps,
-      threshold, (uint32_t)seed, (uint32_t)(seed >> 32), counter,
-      walker_offset);
+      threshold, keys, counter, walker_offset);
   return (int)cudaGetLastError();
 }
 
@@ -634,7 +658,9 @@ int pbbi_fused_hmc_diag_quadratic(
 // logistic_tile), 1 for any other. q_prop and
 // p_prop: both null, or where to write every walker's endpoint (q1, -p1).
 // steps_dev: null, or a device int holding the leapfrog count, and
-// num_steps is then the most it may be. walker_offset: as kernel A's.
+// num_steps is then the most it may be. num_rungs, seeds and walker_offset:
+// as kernel A's; q, g and the outputs are [num_rungs, W, D], u [num_rungs,
+// W].
 int pbbi_fused_hmc_transition(
     int form, const float* param0, const float* param1, const float* param2,
     int count, const float* q, const float* u, const float* g,
@@ -642,15 +668,17 @@ int pbbi_fused_hmc_transition(
     float* q_out, float* u_out, float* g_out, float* acc_out,
     uint8_t* taken_out, float* derr_out, float* q_prop, float* p_prop,
     const int* steps_dev, int num_walkers, int num_dims, int num_steps,
-    int walker_tile, float threshold, uint64_t seed, uint32_t counter,
-    uint32_t walker_offset, void* stream) {
+    int walker_tile, float threshold, int num_rungs, const uint64_t* seeds,
+    uint32_t counter, uint32_t walker_offset, void* stream) {
+  RungKeys keys;
+  if (!rung_keys(num_rungs, seeds, &keys)) return (int)cudaErrorInvalidValue;
   return with_form(
       form, param0, param1, param2, count, num_dims, [&](auto f) {
         return launch_generic(f, q, u, g, inv_mass, p_std, scalars, q_out,
                               u_out, g_out, acc_out, taken_out, derr_out,
                               q_prop, p_prop, steps_dev, num_walkers, num_dims,
-                              num_steps, walker_tile, threshold, seed, counter,
-                              walker_offset, stream);
+                              num_steps, walker_tile, threshold, num_rungs,
+                              keys, counter, walker_offset, stream);
       });
 }
 

@@ -25,6 +25,13 @@ struct Philox4 {
 __device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1,
                                                  uint32_t c2, uint32_t c3,
                                                  uint32_t k0, uint32_t k1) {
+  // An opaque copy of the key, so that each call derives its round keys
+  // anew: with the key loaded at run time (a rung's, transition.cuh) the
+  // compiler held the round keys in registers from one draw to the next.
+  // Without this copy kernel B's mixture form took 94 registers a thread
+  // (78 with it) and the eight-schools forms' thread layout spilled more
+  // (PERF.md).
+  asm("" : "+r"(k0), "+r"(k1));
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
     if (r > 0) {

@@ -202,10 +202,14 @@ thread_transition_kernel(
     uint8_t* __restrict__ taken_out, float* __restrict__ derr_out,
     float* __restrict__ q_prop, float* __restrict__ p_prop,
     const int* __restrict__ steps_dev, int num_walkers, int num_dims,
-    int num_steps, float threshold, uint32_t k0, uint32_t k1, uint32_t t,
-    uint32_t w0) {
+    int num_steps, float threshold,
+    const __grid_constant__ RungKeys keys, uint32_t t, uint32_t w0) {
   constexpr int G = N / 4;
   if (kDyn) num_steps = device_steps(steps_dev, num_steps);
+  const Rung rung = this_rung(keys, num_walkers);
+  const uint32_t k0 = rung.k0, k1 = rung.k1;
+  p_std += rung.index * num_dims;
+  scalars += 3 * rung.index;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int d = num_dims;
@@ -218,10 +222,12 @@ thread_transition_kernel(
   float* gb = qb + kThreadBlock * d;
   float* xb = gb + kThreadBlock * d;
   float* yb = xb + kThreadBlock * d;
+  // the block's first walker: within its rung, and its row in the arrays
   const long long first = (long long)blockIdx.x * kThreadBlock;
+  const long long at = rung.row + first;
   const int rows = (int)min((long long)kThreadBlock, num_walkers - first);
-  load_rows(q, first, rows, d, qb);
-  load_rows(g, first, rows, d, gb);
+  load_rows(q, at, rows, d, qb);
+  load_rows(g, at, rows, d, gb);
   __syncthreads();
 
   const int i = threadIdx.x;
@@ -248,7 +254,7 @@ thread_transition_kernel(
       }
       part[k] = kin0;
     }
-    const float u0 = u[w];
+    const float u0 = u[at + i];
     const float h0 = 0.5f * lane_sum<G>(part) + scale * u0;
 
     for (int s = 0; s < num_steps; ++s) {
@@ -293,17 +299,17 @@ thread_transition_kernel(
     }
     write_row<N>(qb, i, d, qv);
     write_row<N>(gb, i, d, gv);
-    u_out[w] = dec.accepted ? u1 : u0;
-    acc_out[w] = dec.accept_prob;
-    taken_out[w] = dec.accepted ? 1 : 0;
-    derr_out[w] = dec.energy_error;
+    u_out[at + i] = dec.accepted ? u1 : u0;
+    acc_out[at + i] = dec.accept_prob;
+    taken_out[at + i] = dec.accepted ? 1 : 0;
+    derr_out[at + i] = dec.energy_error;
   }
   __syncthreads();
-  store_rows(q_out, first, rows, d, qb);
-  store_rows(g_out, first, rows, d, gb);
+  store_rows(q_out, at, rows, d, qb);
+  store_rows(g_out, at, rows, d, gb);
   if (kProp) {
-    store_rows(q_prop, first, rows, d, xb);
-    store_rows(p_prop, first, rows, d, yb);
+    store_rows(q_prop, at, rows, d, xb);
+    store_rows(p_prop, at, rows, d, yb);
   }
 }
 
@@ -446,15 +452,16 @@ size_t thread_shared_bytes(const Form& form, int d, int buffers) {
                           buffers * kThreadBlock * d);
 }
 
+// num_rungs: the launch's rungs (transition.cuh), blockIdx.y.
 template <class Kernel, class... Args>
-int launch(Kernel kernel, size_t smem, int num_walkers, void* stream,
-           Args... args) {
+int launch(Kernel kernel, size_t smem, int num_walkers, int num_rungs,
+           void* stream, Args... args) {
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const unsigned blocks =
-      (unsigned)((num_walkers + kThreadBlock - 1) / kThreadBlock);
-  kernel<<<blocks, kThreadBlock, smem, (cudaStream_t)stream>>>(args...);
+  const dim3 grid(
+      (unsigned)((num_walkers + kThreadBlock - 1) / kThreadBlock), num_rungs);
+  kernel<<<grid, kThreadBlock, smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -463,8 +470,8 @@ int launch(Kernel kernel, size_t smem, int num_walkers, void* stream,
 extern "C" {
 
 // Kernel B in the thread layout: pbbi_fused_hmc_transition's arguments
-// (fused_hmc.cu), for the forms and shapes of with_thread_form;
-// walker_tile must be 1.
+// (fused_hmc.cu), its rung axis included, for the forms and shapes of
+// with_thread_form; walker_tile must be 1.
 int pbbi_fused_hmc_transition_threads(
     int form, const float* param0, const float* param1, const float* param2,
     int count, const float* q, const float* u, const float* g,
@@ -472,10 +479,12 @@ int pbbi_fused_hmc_transition_threads(
     float* q_out, float* u_out, float* g_out, float* acc_out,
     uint8_t* taken_out, float* derr_out, float* q_prop, float* p_prop,
     const int* steps_dev, int num_walkers, int num_dims, int num_steps,
-    int walker_tile, float threshold, uint64_t seed, uint32_t counter,
-    uint32_t walker_offset, void* stream) {
+    int walker_tile, float threshold, int num_rungs, const uint64_t* seeds,
+    uint32_t counter, uint32_t walker_offset, void* stream) {
+  RungKeys keys;
   if (num_walkers <= 0 || num_steps < 0 || walker_tile != 1 ||
-      (q_prop == nullptr) != (p_prop == nullptr))
+      (q_prop == nullptr) != (p_prop == nullptr) ||
+      !rung_keys(num_rungs, seeds, &keys))
     return (int)cudaErrorInvalidValue;
   const bool dyn = steps_dev != nullptr, prop = q_prop != nullptr;
   return with_thread_form(
@@ -491,11 +500,11 @@ int pbbi_fused_hmc_transition_threads(
             &thread_transition_kernel<Form, N, true, true>};
         return launch(table[2 * dyn + prop],
                       thread_shared_bytes(f, num_dims, prop ? 4 : 2),
-                      num_walkers, stream, f, q, u, g, inv_mass, p_std,
-                      scalars, q_out, u_out, g_out, acc_out, taken_out,
-                      derr_out, q_prop, p_prop, steps_dev, num_walkers,
-                      num_dims, num_steps, threshold, (uint32_t)seed,
-                      (uint32_t)(seed >> 32), counter, walker_offset);
+                      num_walkers, num_rungs, stream, f, q, u, g, inv_mass,
+                      p_std, scalars, q_out, u_out, g_out, acc_out,
+                      taken_out, derr_out, q_prop, p_prop, steps_dev,
+                      num_walkers, num_dims, num_steps, threshold, keys,
+                      counter, walker_offset);
       });
 }
 
@@ -516,7 +525,7 @@ int pbbi_leapfrog_trajectory_threads(
         using Form = decltype(f);
         constexpr int N = decltype(n)::value;
         return launch(&thread_leapfrog_kernel<Form, N>,
-                      thread_shared_bytes(f, num_dims, 3), num_walkers,
+                      thread_shared_bytes(f, num_dims, 3), num_walkers, 1,
                       stream, f, q, p, u, g, inv_mass, step, q_out, p_out,
                       u_out, g_out, num_walkers, num_dims, num_steps);
       });

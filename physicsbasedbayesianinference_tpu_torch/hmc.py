@@ -395,6 +395,53 @@ class FusedTransition:
             potential_energy=u1, step_size=torch.as_tensor(step_size))
         return new_state, info, proposal
 
+    def ladder(self, betas: Tensor, mass: Tensor, num_dims: int) -> dict:
+        """What a call of :meth:`rungs` at the inverse temperatures ``betas``
+        ``[R]`` needs beside its state, made once per ladder: each rung's
+        thermal momentum std ``sqrt(m / beta_r)`` ``[R, D]``, taken rung by
+        rung as a call with ``beta=beta_r`` takes it, and the beta and
+        potential-scale columns of the launch's scalars."""
+        m = torch.broadcast_to(mass, (num_dims,))
+        return {"mass": mass, "betas": betas.to(torch.float32),
+                "scale": torch.ones_like(betas, dtype=torch.float32),
+                "p_std": torch.stack([torch.sqrt(m / b) for b in betas])}
+
+    def rungs(self, seeds, counter: int, q: Tensor, u: Tensor, g: Tensor,
+              step_sizes: Tensor, ladder: dict, *, num_steps,
+              walker_offset: int = 0):
+        """One transition of each of R rungs of a ladder (:meth:`ladder`)
+        in one launch of kernel A or B (their rung axis, ``ops.kernels``):
+        ``q`` ``[R, W, D]`` with its cached ``(u [R, W], g [R, W, D])``,
+        rung r keyed ``(seeds[r], counter)`` at step size ``step_sizes[r]``
+        and beta_r. Rung r's rows are those of a call with ``beta=beta_r``
+        on rung r alone, bit for bit. Returns ``(q', u', g', accept_prob
+        [R, W])``."""
+        mass = ladder["mass"]
+        _, w, d = q.shape
+        variant = self.variant_for(w, d, mass.ndim)
+        if variant == "composed":
+            raise ValueError(
+                "no fused kernel for these rungs: the potential has no "
+                f"diag_quadratic and no device_form for D={d}, or the mass "
+                f"is per walker (mass.ndim={mass.ndim})")
+        _, inv_mass = self._metric(mass, d)
+        scalars = torch.stack((step_sizes.to(torch.float32), ladder["betas"],
+                               ladder["scale"]), dim=1)
+        common = dict(scalars=scalars, p_std=ladder["p_std"],
+                      inv_mass=inv_mass, num_steps=num_steps,
+                      divergence_threshold=self.divergence_threshold,
+                      walker_offset=walker_offset)
+        q = q.contiguous()
+        if variant == "diag":
+            k_diag, mean = self._params(q.device, d)
+            q1, g1, u1, accept_prob, _, _ = kernels.fused_hmc_diag_quadratic(
+                list(seeds), counter, q, k_diag=k_diag, mean=mean, **common)
+        else:
+            q1, u1, g1, accept_prob, _, _ = kernels.fused_hmc_transition(
+                self._params(q.device, d), list(seeds), counter, q,
+                u.contiguous(), g.contiguous(), **common)
+        return q1, u1, g1, accept_prob
+
 
 def build_fused_hmc_kernel(
     potential_fn: Callable[[Tensor], Tensor],

@@ -47,9 +47,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_double
-# W, D, L, threshold, seed, transition index, walker offset, stream
-_TAIL = [_I, _I, _I, _F, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_uint32,
-         _P]
+# W, D, L, threshold, the rungs and their Philox keys (an array of uint64,
+# csrc/transition.cuh), transition index, walker offset, stream
+_TAIL = [_I, _I, _I, _F, _I, ctypes.POINTER(ctypes.c_uint64),
+         ctypes.c_uint32, ctypes.c_uint32, _P]
 _SIGNATURES = {
     # 13 pointers: q, k, mean, inv_mass, p_std, scalars, 6 outputs, the
     # device step count (or null); the bfloat16 trajectory flag

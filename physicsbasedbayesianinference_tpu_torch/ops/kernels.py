@@ -33,10 +33,22 @@ one launch on the whole ensemble draws for them; ``scalars`` is a float32
 tensor ``[3]`` on q's device holding (step size, beta, potential scale);
 ``p_std`` and ``inv_mass`` are ``[D]``. With ``scale != 1`` forces and H
 use ``scale * U`` while the returned (u, g) stay unscaled.
+
+Kernels A and B also take a rung axis: q ``[R, W, D]`` is R independent
+ensembles (a parallel-tempering ladder's rungs), ``seed`` a sequence of
+their R Philox keys, ``scalars`` ``[R, 3]`` and ``p_std`` ``[R, D]`` each
+rung's own, u ``[R, W]`` and g ``[R, W, D]``; ``inv_mass`` and the
+potential's parameters are shared, and ``walker_offset`` is each rung's.
+Every output gains the axis, and rung r's rows are the bits of the call on
+rung r alone. On CUDA the rungs are one launch (``MAX_RUNGS`` at most: a
+longer ladder is launched in blocks of that many, each counted); the plain
+versions loop over the rungs.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -110,6 +122,9 @@ FORM_IDS = {
     "diag_model": (12, ("k_diag", "mean", "consts")),
 }
 _HALF_LOG_2PI = 0.9189385332046727
+# Rungs one launch of kernels A and B sweeps at most (csrc/transition.cuh
+# kMaxRungs; their keys travel in the launch's parameters)
+MAX_RUNGS = 16
 
 
 def _metropolis(seed: int, counter: int, h0: Tensor, h1: Tensor,
@@ -141,13 +156,61 @@ def _check_offset(walker_offset: int, num_walkers: int) -> int:
     return int(walker_offset)
 
 
+def _rungs(seed, q: Tensor, scalars: Tensor, p_std: Tensor,
+           **rows: Tensor) -> Optional[list]:
+    """None for a call on one ensemble (q ``[W, D]``); for q ``[R, W, D]``
+    the R rungs' Philox keys, once ``seed`` is checked to hold R of them,
+    ``scalars`` to be ``[R, 3]``, ``p_std`` ``[R, D]`` and each of ``rows``
+    (u ``[R, W]``, g ``[R, W, D]``) of its shape."""
+    if q.ndim != 3:
+        return None
+    r, w, d = q.shape
+    if min(r, w, d) < 1:
+        raise ValueError(f"q must be a non-empty [R, W, D] tensor, got "
+                         f"{tuple(q.shape)}")
+    n = len(seed) if isinstance(seed, (list, tuple)) else None
+    if n != r:
+        raise ValueError(f"q of {r} rungs takes a list of {r} Philox keys, "
+                         f"one a rung; got {'one key' if n is None else n}")
+    want = {"scalars": (r, 3), "p_std": (r, d), "u": (r, w), "g": (r, w, d)}
+    for name, t in {"scalars": scalars, "p_std": p_std, **rows}.items():
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} of a call on {r} rungs has shape "
+                             f"{tuple(t.shape)}, want {want[name]}")
+    return [int(k) for k in seed]
+
+
+def _stack_rungs(outs) -> tuple:
+    """The rungs' output tuples as one tuple with the rung axis first."""
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def _rung_blocks(num_rungs: int):
+    """The ``[first, last)`` rungs of each launch: ``MAX_RUNGS`` a
+    launch."""
+    return [(a, min(a + MAX_RUNGS, num_rungs))
+            for a in range(0, num_rungs, MAX_RUNGS)]
+
+
+def _rung_ptr(x: Tensor, rung: int) -> int:
+    """The address of rung ``rung`` of ``x``, whose leading axis is the
+    rungs' (a tensor of one ensemble is rung 0)."""
+    return x.data_ptr() if rung == 0 else x[rung].data_ptr()
+
+
+def _key_array(seeds) -> ctypes.Array:
+    """The keys as the C entries take them: uint64 words."""
+    return (ctypes.c_uint64 * len(seeds))(
+        *(k & 0xFFFFFFFFFFFFFFFF for k in seeds))
+
+
 def _check(q: Tensor, named: dict, shapes: dict) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"the kernels take CPU or CUDA tensors, got "
                          f"{q.device}")
-    if q.ndim != 2 or q.shape[0] < 1 or q.shape[1] < 1:
-        raise ValueError(f"q must be a non-empty [W, D] tensor, got "
-                         f"{tuple(q.shape)}")
+    if q.ndim not in (2, 3) or 0 in q.shape:
+        raise ValueError(f"q must be a non-empty [W, D] or [R, W, D] "
+                         f"tensor, got {tuple(q.shape)}")
     for name, t in named.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -161,12 +224,12 @@ def _check(q: Tensor, named: dict, shapes: dict) -> None:
 
 
 def _outputs(q: Tensor):
-    w = q.shape[0]
+    rows = q.shape[:-1]
     return (torch.empty_like(q), torch.empty_like(q),
-            torch.empty(w, dtype=q.dtype, device=q.device),
-            torch.empty(w, dtype=q.dtype, device=q.device),
-            torch.empty(w, dtype=torch.uint8, device=q.device),
-            torch.empty(w, dtype=q.dtype, device=q.device))
+            torch.empty(rows, dtype=q.dtype, device=q.device),
+            torch.empty(rows, dtype=q.dtype, device=q.device),
+            torch.empty(rows, dtype=torch.uint8, device=q.device),
+            torch.empty(rows, dtype=q.dtype, device=q.device))
 
 
 def _counted(num_steps, max_steps: Optional[int]) -> bool:
@@ -246,7 +309,18 @@ def fused_hmc_diag_quadratic_plain(
     to float32 for the last half kick. The momentum draw, both
     Hamiltonians and the Metropolis test stay in float32, so the test is
     exact for the map that was simulated.
+
+    On q ``[R, W, D]`` (the rung axis, module docstring) it runs each rung
+    in turn with its key, scalars and momentum std.
     """
+    seeds = _rungs(seed, q, scalars, p_std)
+    if seeds is not None:
+        return _stack_rungs(fused_hmc_diag_quadratic_plain(
+            key, counter, q[r], scalars=scalars[r], p_std=p_std[r],
+            inv_mass=inv_mass, k_diag=k_diag, mean=mean, num_steps=num_steps,
+            divergence_threshold=divergence_threshold, max_steps=max_steps,
+            walker_offset=walker_offset, trajectory_dtype=trajectory_dtype)
+            for r, key in enumerate(seeds))
     bf16 = _trajectory_bf16(trajectory_dtype)
     num_steps = _host_steps(num_steps, max_steps)
     walker_offset = _check_offset(walker_offset, q.shape[0])
@@ -289,7 +363,10 @@ def fused_hmc_diag_quadratic(
     refused above); see :func:`fused_hmc_diag_quadratic_plain` for the
     contract. Any D; up to D = 128 each walker's q' and g' are stored once,
     in 16-byte accesses when D % 4 == 0 and the tensors' storage is 16-byte
-    aligned. ``launches_by`` counts the launches by trajectory dtype."""
+    aligned. ``launches_by`` counts the launches by trajectory dtype. On
+    q ``[R, W, D]`` it sweeps the R rungs in one launch (module
+    docstring)."""
+    seeds = _rungs(seed, q, scalars, p_std)
     if q.device.type == "cpu":
         return fused_hmc_diag_quadratic_plain(
             seed, counter, q, scalars=scalars, p_std=p_std,
@@ -298,30 +375,36 @@ def fused_hmc_diag_quadratic(
             max_steps=max_steps, walker_offset=walker_offset,
             trajectory_dtype=trajectory_dtype)
     bf16 = _trajectory_bf16(trajectory_dtype)
-    d = q.shape[-1]
+    w, d = q.shape[-2:] if q.ndim in (2, 3) else (0, 0)
     if bf16 and d > MAX_GENERIC_DIMS:
         raise ValueError(f"kernel A takes a bfloat16 trajectory up to "
                          f"D={MAX_GENERIC_DIMS}, got D={d}")
+    rung = q.shape[:-2]
     _check(q, {"q": q, "scalars": scalars, "p_std": p_std,
                "inv_mass": inv_mass, "k_diag": k_diag, "mean": mean},
-           {"q": tuple(q.shape), "scalars": (3,), "p_std": (d,),
+           {"q": tuple(q.shape), "scalars": (*rung, 3), "p_std": (*rung, d),
             "inv_mass": (d,), "k_diag": (d,), "mean": (d,)})
     steps_ptr, steps = _device_steps(num_steps, max_steps, q)
-    walker_offset = _check_offset(walker_offset, q.shape[0])
+    walker_offset = _check_offset(walker_offset, w)
+    seeds = [seed] if seeds is None else seeds
     outs = _outputs(q)
-    q_out, g_out, u_out, acc, taken, derr = outs
+    blocks = _rung_blocks(len(seeds))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = load_library().pbbi_fused_hmc_diag_quadratic(
-            *map(Tensor.data_ptr,
-                 (q, k_diag, mean, inv_mass, p_std, scalars, *outs)),
-            steps_ptr, int(bf16), q.shape[0], d, steps,
-            divergence_threshold, seed & 0xFFFFFFFFFFFFFFFF,
-            counter & 0xFFFFFFFF, walker_offset, stream)
-    _raise_on(rc, "fused_hmc_diag_quadratic")
-    fused_hmc_diag_quadratic.launches += 1
+        lib = load_library()
+        for a, b in blocks:
+            at = functools.partial(_rung_ptr, rung=a)
+            rc = lib.pbbi_fused_hmc_diag_quadratic(
+                at(q), k_diag.data_ptr(), mean.data_ptr(),
+                inv_mass.data_ptr(), at(p_std), at(scalars), *map(at, outs),
+                steps_ptr, int(bf16), w, d, steps, divergence_threshold,
+                b - a, _key_array(seeds[a:b]), counter & 0xFFFFFFFF,
+                walker_offset, stream)
+            _raise_on(rc, "fused_hmc_diag_quadratic")
+    fused_hmc_diag_quadratic.launches += len(blocks)
     fused_hmc_diag_quadratic.launches_by[
-        "bfloat16" if bf16 else "float32"] += 1
+        "bfloat16" if bf16 else "float32"] += len(blocks)
+    q_out, g_out, u_out, acc, taken, derr = outs
     return q_out, g_out, u_out, acc, taken.view(torch.bool), derr
 
 
@@ -927,7 +1010,17 @@ def fused_hmc_transition_plain(
     cached unscaled ``(u, g)``. Returns ``(q', u', g', accept_prob,
     accepted, energy_error)`` and, with ``emit_proposal``, the trajectory's
     endpoint with its momentum flipped, ``(q1, -p1)``, for every walker
-    whatever its decision."""
+    whatever its decision. On q ``[R, W, D]`` (the rung axis, module
+    docstring) it runs each rung in turn with its key, scalars and momentum
+    std."""
+    seeds = _rungs(seed, q, scalars, p_std, u=u, g=g)
+    if seeds is not None:
+        return _stack_rungs(fused_hmc_transition_plain(
+            device_form, key, counter, q[r], u[r], g[r], scalars=scalars[r],
+            p_std=p_std[r], inv_mass=inv_mass, num_steps=num_steps,
+            divergence_threshold=divergence_threshold, max_steps=max_steps,
+            emit_proposal=emit_proposal, walker_offset=walker_offset)
+            for r, key in enumerate(seeds))
     num_steps = _host_steps(num_steps, max_steps)
     walker_offset = _check_offset(walker_offset, q.shape[0])
     vg = device_value_and_grad(device_form)
@@ -971,10 +1064,12 @@ def fused_hmc_transition(
     :func:`walker_layout`'s; ``_layout``, a hook for the tests and the
     tools, forces one, and the two layouts give the same bits.
     ``launches_by`` counts the launches by variant, ``launches_by_layout``
-    by layout."""
+    by layout. On q ``[R, W, D]`` it sweeps the R rungs in one launch of
+    either layout (module docstring)."""
+    seeds = _rungs(seed, q, scalars, p_std, u=u, g=g)
     if q.device.type == "cpu":
         if tile is not None:
-            _tile_for(device_form, *q.shape, tile)
+            _tile_for(device_form, *q.shape[-2:], tile)
         if _layout is not None:
             _layout_for(device_form, q.shape[-1], "B", _layout)
         return fused_hmc_transition_plain(
@@ -983,45 +1078,50 @@ def fused_hmc_transition(
             divergence_threshold=divergence_threshold, max_steps=max_steps,
             emit_proposal=emit_proposal, walker_offset=walker_offset)
     name, params = device_form
-    w, d = q.shape if q.ndim == 2 else (0, 0)
+    w, d = q.shape[-2:] if q.ndim in (2, 3) else (0, 0)
     why = generic_unsupported(device_form, d)
     if why is not None:
         raise ValueError(why)
     form_id, names = FORM_IDS[name]
     shapes, count = _param_shapes(device_form, d)
     named = dict(zip(names, params))
+    rung = q.shape[:-2]
     _check(q, {"q": q, "u": u, "g": g, **named, "scalars": scalars,
                "p_std": p_std, "inv_mass": inv_mass},
-           {"q": (w, d), "u": (w,), "g": (w, d), **shapes, "scalars": (3,),
-            "p_std": (d,), "inv_mass": (d,)})
+           {"q": (*rung, w, d), "u": (*rung, w), "g": (*rung, w, d),
+            **shapes, "scalars": (*rung, 3), "p_std": (*rung, d),
+            "inv_mass": (d,)})
     tile = _tile_for(device_form, w, d, tile)
     layout = _layout_for(device_form, d, "B", _layout)
     steps_ptr, steps = _device_steps(num_steps, max_steps, q)
     walker_offset = _check_offset(walker_offset, w)
+    seeds = [seed] if seeds is None else seeds
     param_ptrs = [t.data_ptr() for t in params]
     param_ptrs += [None] * (3 - len(param_ptrs))
     q_out, g_out, u_out, acc, taken, derr = _outputs(q)
     proposal = ((torch.empty_like(q), torch.empty_like(q)) if emit_proposal
                 else ())
-    prop_ptrs = [t.data_ptr() for t in proposal] or [None, None]
+    blocks = _rung_blocks(len(seeds))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         lib = load_library()
         entry = (lib.pbbi_fused_hmc_transition_threads if layout == "thread"
                  else lib.pbbi_fused_hmc_transition)
-        rc = entry(
-            form_id, *param_ptrs, count,
-            *map(Tensor.data_ptr,
-                 (q, u, g, inv_mass, p_std, scalars,
-                  q_out, u_out, g_out, acc, taken, derr)),
-            *prop_ptrs, steps_ptr, w, d, steps, tile, divergence_threshold,
-            seed & 0xFFFFFFFFFFFFFFFF, counter & 0xFFFFFFFF, walker_offset,
-            stream)
-    _raise_on(rc, f"fused_hmc_transition[{name}]")
-    fused_hmc_transition.launches += 1
+        for a, b in blocks:
+            at = functools.partial(_rung_ptr, rung=a)
+            rc = entry(
+                form_id, *param_ptrs, count, at(q), at(u), at(g),
+                inv_mass.data_ptr(), at(p_std), at(scalars),
+                *map(at, (q_out, u_out, g_out, acc, taken, derr)),
+                *(map(at, proposal) if proposal else (None, None)),
+                steps_ptr, w, d, steps, tile, divergence_threshold, b - a,
+                _key_array(seeds[a:b]), counter & 0xFFFFFFFF, walker_offset,
+                stream)
+            _raise_on(rc, f"fused_hmc_transition[{name}]")
+    fused_hmc_transition.launches += len(blocks)
     fused_hmc_transition.launches_by[
-        _variant_name(steps_ptr is not None, emit_proposal)] += 1
-    fused_hmc_transition.launches_by_layout[layout] += 1
+        _variant_name(steps_ptr is not None, emit_proposal)] += len(blocks)
+    fused_hmc_transition.launches_by_layout[layout] += len(blocks)
     return (q_out, u_out, g_out, acc, taken.view(torch.bool), derr,
             *proposal)
 

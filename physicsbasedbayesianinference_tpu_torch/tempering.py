@@ -13,12 +13,14 @@ on odd ones, both members of a pair deciding on the same uniform.
 
 The HMC sweep runs one transition per replica. On the fused engine
 (``hmc.resolve_engine``: CUDA and a potential with ``diag_quadratic`` or a
-``device_form``) that is one launch of kernel A or B per replica, on the
-replica's contiguous ``[W, D]`` slice, with its beta, step size and
-thermal momentum std ``sqrt(m / beta)`` read from the device; the
-composed engine integrates all R x W walkers as one batch. Neither the sweep,
-the swaps nor the warmup's dual averaging reads the device, so the
-warmup and sampling loops never synchronise.
+``device_form``) that is one launch of kernel A or B for all the replicas
+(the kernels' rung axis, ``ops.kernels``; a ladder of more than
+``kernels.MAX_RUNGS`` rungs takes a launch for each block of that many),
+each replica with its beta, step size and thermal momentum std ``sqrt(m /
+beta)`` read from the device, and each replica's rows the bits of a launch
+of it alone; the composed engine integrates all R x W walkers as one batch.
+Neither the sweep, the swaps nor the warmup's dual averaging reads the
+device, so the warmup and sampling loops never synchronise.
 
 Randomness: transition ``t`` of a run keyed ``seed`` sweeps replica ``r``
 on the fused engine with the Philox key ``(_replica_seed(seed, r), t)``,
@@ -46,8 +48,7 @@ import torch
 from .adaptation import da_init, da_update
 from .constants import Constants, NATURAL
 from .device import resolve_device
-from .ensemble import EnsembleState
-from .hmc import (FusedTransition, HMCState, _combine_moments, _splitmix64,
+from .hmc import (FusedTransition, _combine_moments, _splitmix64,
                   _step_generator, _synchronize, resolve_engine)
 from .ops.integrators import get_integrator
 from .ops.potentials import batched_value_and_grad
@@ -203,6 +204,9 @@ def build_pt_transition(
         first = replicas.rank * num_block
         k_w, walker_rank = rm.walkers.size, rm.walkers.rank
     block_betas = beta_eff[first:first + num_block]
+    ladder = None if fused is None else fused.ladder(block_betas, mass,
+                                                     num_dims)
+    rung_keys = {}  # seed -> the Philox keys of this block's rungs
     # for each parity: whether a pair crosses the block's lower and upper
     # edges, and the swap's plan
     last = first + num_block - 1
@@ -243,26 +247,21 @@ def build_pt_transition(
                 torch.mean(torch.exp(torch.clamp_max(-derr, 0.0)), dim=1))
 
     def fused_sweep(key, q, u, g, step_sizes):
-        """The same statistics in one launch of kernel A or B per replica,
-        on its contiguous [W, D] slice, with beta_r as the kernel's beta
-        and the momenta thermal at it."""
+        """The same statistics in one launch of kernel A or B for the
+        block's rungs, rung r keyed ``_replica_seed(seed, first + r)`` with
+        beta_r as the kernel's beta and the momenta thermal at it."""
         seed, t = key
-        offset = walker_rank * q.shape[1]
-        outs = []
-        for r in range(q.shape[0]):
-            # a fused transition reads neither p nor log_weight: q and u
-            # stand in for them, so a sweep allocates nothing beside its
-            # outputs
-            state = HMCState(
-                ensemble=EnsembleState(q=q[r], p=q[r], mass=mass,
-                                       log_weight=u[r]),
-                potential_energy=u[r], grad=g[r])
-            new, info, _ = fused((_replica_seed(seed, first + r), t), state,
-                                 step_sizes[r], num_steps=num_steps,
-                                 beta=block_betas[r], walker_offset=offset)
-            outs.append((new.ensemble.q, new.potential_energy, new.grad,
-                         torch.mean(info.accept_prob)))
-        return tuple(torch.stack(x) for x in zip(*outs))
+        if seed not in rung_keys:
+            rung_keys[seed] = [_replica_seed(seed, first + r)
+                               for r in range(num_block)]
+        q, u, g, accept_prob = fused.rungs(
+            rung_keys[seed], t, q, u, g, step_sizes, ladder,
+            num_steps=num_steps, walker_offset=walker_rank * q.shape[1])
+        # a mean a rung: on the card one torch.mean(..., dim=1) sums the
+        # rungs in another order than a mean of one rung's [W] (other bits
+        # at W = 16384, 8192 and 1024 on an H100), and the warmup's step
+        # sizes adapt on these
+        return q, u, g, torch.stack([torch.mean(a) for a in accept_prob])
 
     sweep = composed_sweep if fused is None else fused_sweep
 

@@ -1157,6 +1157,150 @@ def test_kernels_at_a_beta_and_a_scale_match_plain(dev, beta, scale, w, d):
         _assert_match(out_k, out_p, 3, 5)
 
 
+def _rung_case(dev, d, r=3, w=300, seed=0):
+    """Rungs of W = 300 walkers (no multiple of any block): q [R, W, D],
+    each rung's step size, beta, potential scale, momentum std and key."""
+    rng = np.random.default_rng(seed + d)
+    betas = rng.uniform(0.1, 1.0, r)
+    im = rng.uniform(0.5, 2.0, d)
+    q = _t(1.2 * rng.normal(size=(r, w, d)), dev)
+    kw = dict(scalars=_t(np.stack([rng.uniform(0.05, 0.2, r), betas,
+                                   rng.uniform(0.5, 1.0, r)], 1), dev),
+              p_std=_t(np.sqrt(1.0 / (im * betas[:, None])), dev),
+              inv_mass=_t(im, dev), walker_offset=17)
+    return q, [int(k) for k in rng.integers(0, 2**63, r)], kw
+
+
+@pytest.mark.parametrize("d", [2, 5, 32, 200])
+@pytest.mark.parametrize("counted", [False, True])
+def test_kernel_a_rung_launch_is_its_rungs_launches(dev, d, counted):
+    """Kernel A on q [3, 300, D], one launch: every output each rung's
+    own launch bit for bit, and each rung the plain version's within
+    ``_assert_match``; D = 200 runs the loop over dim-groups."""
+    q, seeds, kw = _rung_case(dev, d)
+    rng = np.random.default_rng(d)
+    kw.update(k_diag=_t(rng.uniform(0.5, 2.0, d), dev),
+              mean=_t(rng.normal(size=d), dev),
+              **(dict(num_steps=_count(9, dev), max_steps=12) if counted
+                 else dict(num_steps=9)))
+    rung_kw = dict(kw)
+    scalars, p_std = rung_kw.pop("scalars"), rung_kw.pop("p_std")
+    before = kernels.fused_hmc_diag_quadratic.launches
+    got = kernels.fused_hmc_diag_quadratic(seeds, 5, q, **kw)
+    assert kernels.fused_hmc_diag_quadratic.launches == before + 1
+    per_rung = kernels._stack_rungs(
+        kernels.fused_hmc_diag_quadratic(
+            key, 5, q[r], scalars=scalars[r], p_std=p_std[r], **rung_kw)
+        for r, key in enumerate(seeds))
+    plain = kernels.fused_hmc_diag_quadratic_plain(seeds, 5, q, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, per_rung, strict=True):
+        _same_bits(a, b)
+    for r, key in enumerate(seeds):
+        _assert_match({k: v[r] for k, v in zip(A_ORDER, got)},
+                      {k: v[r] for k, v in zip(A_ORDER, plain)}, key, 5)
+
+
+def _rung_forms(dev):
+    """Kernel B's forms over rungs: the mixture and the Gaussian (the
+    lane groups, the Gaussian at its tile), non-centred eight schools and
+    the funnel model (one walker a thread)."""
+    rng = np.random.default_rng(4)
+    return {"mixture D=2": pot.make_gaussian_mixture(
+                torch.tensor([[-6.0, 0.0], [6.0, 0.0]]),
+                device=dev).device_form,
+            "gaussian D=10": _forms(10, dev)[0],
+            "eight_schools_nc D=10": _schools_form(8, dev),
+            "funnel_model D=12": _funnel_form("funnel_model", 12, dev),
+            "mixture D=33": pot.make_gaussian_mixture(
+                2.0 * rng.normal(size=(3, 33)), device=dev).device_form}
+
+
+@pytest.mark.parametrize("name", ["mixture D=2", "gaussian D=10",
+                                  "eight_schools_nc D=10",
+                                  "funnel_model D=12", "mixture D=33"])
+@pytest.mark.parametrize("variant", ["fixed", "counted+proposal"])
+def test_kernel_b_rung_launch_is_its_rungs_launches(dev, name, variant):
+    """Kernel B on q [3, 300, D] in both walker layouts (the thread layout
+    for eight schools and the funnel model), one launch: every output,
+    the proposal included, each rung's own launch bit for bit, and each
+    rung the plain version's within ``_assert_match``."""
+    form = _rung_forms(dev)[name]
+    d = int(name.split("D=")[1])
+    q, seeds, kw = _rung_case(dev, d)
+    vg = kernels.device_value_and_grad(form)
+    u, g = (torch.stack(x) for x in zip(*(vg(x) for x in q)))
+    if variant == "fixed":
+        kw.update(num_steps=10)
+    else:
+        kw.update(num_steps=_count(10, dev), max_steps=16,
+                  emit_proposal=True)
+    rung_kw = dict(kw)
+    scalars, p_std = rung_kw.pop("scalars"), rung_kw.pop("p_std")
+    layout = kernels.form_layout(form, d, "B")
+    before = dict(kernels.fused_hmc_transition.launches_by_layout)
+    got = kernels.fused_hmc_transition(form, seeds, 3, q, u, g, **kw)
+    assert kernels.fused_hmc_transition.launches_by_layout[layout] == (
+        before[layout] + 1)
+    per_rung = kernels._stack_rungs(
+        kernels.fused_hmc_transition(form, key, 3, q[r], u[r], g[r],
+                                     scalars=scalars[r], p_std=p_std[r],
+                                     **rung_kw)
+        for r, key in enumerate(seeds))
+    plain = kernels.fused_hmc_transition_plain(form, seeds, 3, q, u, g, **kw)
+    torch.cuda.synchronize()
+    assert len(got) == len(per_rung) == (6 if variant == "fixed" else 8)
+    for a, b in zip(got, per_rung, strict=True):
+        _same_bits(a, b)
+    for r, key in enumerate(seeds):
+        _assert_match({k: v[r] for k, v in zip(B_ORDER, got)},
+                      {k: v[r] for k, v in zip(B_ORDER, plain)}, key, 3)
+
+
+def test_a_ladder_longer_than_a_launch_takes_blocks_of_rungs(dev):
+    """MAX_RUNGS + 2 rungs: two launches of the same kernels, counted as
+    two, every output the rungs' own launches' bits; the C entries refuse
+    a launch of more rungs than they hold keys for."""
+    r = kernels.MAX_RUNGS + 2
+    q, seeds, kw = _rung_case(dev, 2, r=r, w=70)
+    form = pot.make_gaussian_mixture(torch.tensor([[-2.0, 0.0], [2.0, 0.0]]),
+                                     device=dev).device_form
+    u, g = (torch.stack(x) for x in zip(
+        *(kernels.device_value_and_grad(form)(x) for x in q)))
+    rung_kw = dict(kw, num_steps=6)
+    scalars, p_std = rung_kw.pop("scalars"), rung_kw.pop("p_std")
+    kernels.reset_launch_counts()
+    got_b = kernels.fused_hmc_transition(form, seeds, 1, q, u, g,
+                                         num_steps=6, **kw)
+    got_a = kernels.fused_hmc_diag_quadratic(
+        seeds, 1, q, k_diag=torch.ones(2, device=dev),
+        mean=torch.zeros(2, device=dev), num_steps=6, **kw)
+    assert kernels.launch_counts()["fused_hmc_transition"] == 2
+    assert kernels.launch_counts()["fused_hmc_diag_quadratic"] == 2
+    want_b = kernels._stack_rungs(
+        kernels.fused_hmc_transition(form, key, 1, q[i], u[i], g[i],
+                                     scalars=scalars[i], p_std=p_std[i],
+                                     **rung_kw)
+        for i, key in enumerate(seeds))
+    want_a = kernels._stack_rungs(
+        kernels.fused_hmc_diag_quadratic(
+            key, 1, q[i], scalars=scalars[i], p_std=p_std[i],
+            k_diag=torch.ones(2, device=dev),
+            mean=torch.zeros(2, device=dev), **rung_kw)
+        for i, key in enumerate(seeds))
+    torch.cuda.synchronize()
+    for a, b in zip((*got_b, *got_a), (*want_b, *want_a), strict=True):
+        _same_bits(a, b)
+    from physicsbasedbayesianinference_tpu_torch.ops._build import (
+        load_library)
+    rc = load_library().pbbi_fused_hmc_diag_quadratic(
+        q.data_ptr(), *[torch.ones(2, device=dev).data_ptr()] * 4,
+        kw["scalars"].data_ptr(), *[torch.empty_like(q).data_ptr()] * 6,
+        None, 0, 70, 2, 6, 1000.0, r, kernels._key_array(seeds), 1, 0,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+
+
 @pytest.mark.parametrize("name", ["diag", "nbody"])
 def test_run_smc_mutates_in_the_fused_kernels(dev, name):
     """run_smc(kernel="auto") on CUDA: every mutation one launch of kernel
@@ -1231,7 +1375,8 @@ def test_smc_stage_and_pt_loops_never_synchronise(dev):
                 0, fn, q0, num_replicas=3, num_warmup=num_warmup,
                 num_samples=num_samples, collect="moments")
         assert res.kernel_used == "fused"
-        assert kernels.launch_counts()["fused_hmc_transition"] == 3 * (
+        # the three rungs in one launch a transition
+        assert kernels.launch_counts()["fused_hmc_transition"] == (
             num_warmup + num_samples)
         calls = {e.key: e.count for e in prof.key_averages()}
         return {k: calls.get(k, 0) for k in (
