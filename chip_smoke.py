@@ -12,9 +12,11 @@
    and times both (CUDA-graph replays timed with CUDA events). Kernel A
    also at a D off its 16-byte path (33), at D = 200 (its loop over
    dim-groups) and with a threshold that rejects every walker. Kernel B's
-   funnel (D = 10) and N-body (8 bodies, D = 24) forms run one walker a
-   thread, and the lane-group layout forced on the same input must give
-   their bits (timed beside them).
+   funnel (D = 10), N-body (8 bodies, D = 24) and mixture (K = 2, D = 2)
+   forms run one walker a thread, and the lane-group layout forced on the
+   same input must give their bits (the funnel's and N-body's timed beside
+   them); the mixture's q', u', g' must also be the plain version's
+   bits.
 3. Runs the main path, ``run_hmc(kernel="auto")`` on the bench
    configuration (32-dim standard normal, 102400 walkers, 16 leapfrog
    steps), and checks its moments, acceptance and kernel launch count.
@@ -31,7 +33,8 @@
    correlated 32-dim Gaussian at W = 102400 (walker tile 4) and at shapes
    that take the other layouts of the Gaussian form (D = 128, 32 lanes a
    walker; tile 1; D = 33 off the 16-byte path; tile 2 is phase 2's W =
-   8192, D = 32).
+   8192, D = 32). Kernel D with the mixture (W = 8192, D = 2), one walker
+   a thread: the plain version's bits and the lane groups'.
 5. Runs ``run_hmc(integrator="pallas_leapfrog")`` on the bench
    configuration: the composed engine with kernel D's trajectory, one
    launch per transition; checks moments, acceptance and the count.
@@ -88,9 +91,10 @@
 2, at the tempered shapes. Holds kernel A (W = 102400, D = 32) and kernel
    B's N-body form (W = 102400, D = 24, one walker a thread, the lane
    groups forced giving its bits) with a potential scale of 0.37 in
-   their device scalars, and B's mixture form (W = 16384, D = 2) at beta =
-   0.21 with momenta thermal at it, against their plain versions; times
-   them; and kernel B at phase 4's 10-dim Gaussian drive.
+   their device scalars, and B's mixture form (W = 16384, D = 2, one
+   walker a thread: the plain version's bits and the lane groups') at
+   beta = 0.21 with momenta thermal at it, against their plain versions;
+   times them; and kernel B at phase 4's 10-dim Gaussian drive.
 9. Runs tempered SMC, ``run_smc(kernel="auto")``, at 102400 walkers, each
    mutation one launch with the stage beta as the kernel's potential scale
    and the stage loop's condition the one host read a stage: 9a the 32-dim
@@ -108,16 +112,17 @@
    mixture with modes at (+-6, 0), 6 replicas down to beta = 0.02, 16384
    walkers a replica all started in the left mode: one launch of kernel
    B's mixture form a transition for all six replicas (the kernels' rung
-   axis), each at its beta; checks the cold replica's share of the right
-   mode, the acceptance and swap rates, and that the run's blocking calls
-   do not grow with its transitions. Then holds that rung launch, on the
-   run's final ladder and state, against six launches of one rung each
-   and against the plain version (every output their bits), timed beside
-   the six launches. 10b and 10c run the same sampler through kernel A's
-   rungs (the 2-D standard normal) and kernel B's rungs one walker a
-   thread (8b's eight schools from its posterior), 50 + 50 transitions
-   of 6 rungs, one launch each, and hold their rung launches the same
-   way.
+   axis), each at its beta, every launch one walker a thread; checks the
+   cold replica's share of the right mode, the acceptance and swap rates,
+   and that the run's blocking calls do not grow with its transitions.
+   Then holds that rung launch, on the run's final ladder and state,
+   against six launches of one rung each, the lane-group layout forced
+   and the plain version (every output their bits), timed beside the six
+   launches. 10b and 10c run the same sampler
+   through kernel A's rungs (the 2-D standard normal) and kernel B's
+   rungs one walker a thread (8b's eight schools from its posterior), 50
+   + 50 transitions of 6 rungs, one launch each, and hold their rung
+   launches the same way.
 11. Runs lockstep NUTS, ``run_nuts``, on the sampler-matrix target (the
    16-dim Gaussian with sd logspace(0, 1, 16)) at 65536 walkers: no fused
    kernel; checks moments, acceptance and mean depth, and prints the host
@@ -134,7 +139,8 @@
    to phase 8's composed runs) and a checkpointed chees resume; 12d
    checkpointed SMC resumed from a stage copied into a fresh directory
    (the same log-evidence bits, 3 launches of kernel A a stage); 12e
-   checkpointed parallel tempering (kernel B's mixture form) and NUTS,
+   checkpointed parallel tempering (kernel B's mixture form, one walker a
+   thread) and NUTS,
    resumed, bitwise; 12f stream mode into a sample file; 12g
    ``run_hmc(metric="dense")`` on phase 7's Gaussian (composed, no kernel):
    moments and the adapted covariance.
@@ -176,15 +182,16 @@
    divergence share. 14d kernel D on each new form through
    ``run_hmc(integrator="pallas_leapfrog")`` from 14c's posterior. 14b
    each new form in kernels B and D against its plain version on those
-   states, timed (the linear form bitwise; the centred eight schools, the
-   non-centred form it takes under ``auto`` and the funnel model, which
-   run one walker a thread, also against the lane-group layout forced,
-   bitwise).
+   states, timed (the linear and coin forms bitwise; the centred eight
+   schools, the non-centred form it takes under ``auto`` and the funnel
+   model, which run one walker a thread, also against the lane-group
+   layout forced, bitwise).
 15. Drives every sampler over the one-rank NCCL group of phase 13: 15a
    ``run_chees_hmc(mesh=)`` on 8a's logistic regression (456 launches of
    kernel B, 8a's bits), 15b ``run_parallel_tempering`` on a 1 x 1
-   replica mesh at phase 10's configuration (3600 launches of B, phase
-   10's bits), 15c ``run_nuts(mesh=)`` at phase 11's (its bits and host
+   replica mesh at phase 10's configuration (600 launches of B, one walker
+   a thread, phase 10's bits), 15c ``run_nuts(mesh=)`` at phase 11's (its
+   bits and host
    reads), 15d the dense metric sharded at 12g's configuration (12g's
    gates: its step folds the rank into its seed), 15e ``main.run`` with
    ``sharded=True``: SMC against 12d's log Z bit for bit, a checkpointed
@@ -263,54 +270,76 @@ def transition_bytes(w: int, d: int, cached: bool) -> int:
     return 4 * w * d * (4 if cached else 3) + w * (17 if cached else 13)
 
 
+# Instructions of the SASS sequence each transcendental function and IEEE
+# division takes with the library's flags (the path that finite, normal
+# operands take; a MUFU instruction once), read with cuobjdump -sass on an
+# NVIDIA H100 80GB HBM3 at 700.00 W (tools/kernel_sweeps.py --only sass):
+# gradient_ops counts each at this length, not as one instruction.
+SASS_EXPF = 10
+SASS_LOGF = 26
+SASS_LOG1PF = 28
+SASS_DIV = 10
+SASS_RCP = 10
+SASS_SQRTF = 10
+
+
 def gradient_ops(form, d: int) -> float:
     """Instructions per walker of one gradient of a device form, a
-    multiply-add counted once (the transcendental functions as one)."""
+    multiply-add counted once and each exponential, division, reciprocal
+    and root at the length of its SASS sequence (``SASS_*``)."""
     name, params = form
     if name == "gaussian":
         return d * d + d           # the D x D matvec and q - mu
-    if name == "diag":
+    if name in ("diag", "diag_model"):
         return 2 * d
     if name in ("funnel", "funnel_model"):
-        # sum x_j^2 (D - 1), e^-v and its negation (2), e^-v x_j (D - 1),
-        # g_0's six
-        return 2 * d + 6
+        # sum x_j^2 (D - 1), e^-v (a negation and the exponential), e^-v
+        # x_j (D - 1), g_0: 2 v, its division by 2 s^2 and four more
+        return 2 * d + 4 + SASS_EXPF + SASS_DIV
     if name == "banana":
         return 12
     if name == "mixture":
-        return params[0].shape[0] * (5 * d + 6)
+        # a component: q - mu and the sum of squares (2 D), its term log w
+        # - (iv / 2) s (one multiply-add), the max, t - m and the
+        # exponential, the sum s, num's multiply-adds on the same
+        # differences (D); a dim: iv num and its division by s
+        k = params[0].shape[0]
+        return k * (3 * d + 4 + SASS_EXPF) + d * (1 + SASS_DIV)
     if name == "logistic":
-        # z = x w + b and x^T r: N D multiply-adds each; the sigmoid and
-        # the residual about 8 a row (exponential and reciprocal as one)
+        # z = x w + b and x^T r: N D multiply-adds each; a row's sigmoid
+        # (its negation, exponential, 1 + e and reciprocal) and residual
+        # and their bookkeeping, about 6 besides the two functions
         n = params[1].shape[0]
-        return 2 * n * d + 8 * n
+        return 2 * n * d + n * (6 + SASS_EXPF + SASS_RCP)
     if name == "eight_schools_nc":
         # a school: mu + tau theta, y minus it, the two products by
         # 1 / sigma, the two sums and theta - tau e (7); the walker's
-        # exp, the mu term and the log-tau term's 7 (9)
-        return 7 * params[0].shape[0] + 9
+        # exponential, the mu term (1) and the log-tau term's division and
+        # six more
+        return 7 * params[0].shape[0] + 7 + SASS_EXPF + SASS_DIV
     if name == "linear":
         # z = x w + b and x^T r: N D multiply-adds each; the residual, its
-        # square and its scaled copy about 4 a row
+        # square and its scaled copy about 4 a row; the walker's e^-2s and
+        # e^2s
         n = params[1].shape[0]
-        return 2 * n * d + 4 * n
+        return 2 * n * d + 4 * n + 2 * SASS_EXPF
     if name == "eight_schools":
         # a school: theta - mu and y - theta, their products by e^-q1 and
         # 1 / sigma, the two sums and z e^-q1 - o / sigma (8); the walker's
-        # two exps and a negation, the mu term's 2 and the log-tau term's 8
-        # (13)
-        return 8 * params[0].shape[0] + 13
+        # two exponentials and a negation, the mu term's 2 and the log-tau
+        # term's division and seven more (10)
+        return 8 * params[0].shape[0] + 10 + 2 * SASS_EXPF + SASS_DIV
     if name == "coin":
-        return 12 * d              # two sigmoids a dim
-    if name == "diag_model":
-        return 2 * d
+        # a dim: e^-|x| (the exponential), 1 + e, the numerator's
+        # multiply-add and its select (3), and the division
+        return d * (3 + SASS_EXPF + SASS_DIV)
     # nbody, each pair once (thread_layout.cu): S differences and S
-    # multiply-adds of d2, + eps^2, the root, the reciprocal, inv^3 (2),
+    # multiply-adds of d2, + eps^2, the root and the reciprocal, inv^3 (2),
     # the two masses' products (2) and 2 S multiply-adds into the two
     # bodies' sums; then -m_i (G acc) a dim (2)
     n = params[0].shape[0]
     s = d // n
-    return n * (n - 1) // 2 * (3 * s + 7) + 2 * d
+    return n * (n - 1) // 2 * (3 * s + 5 + SASS_SQRTF + SASS_RCP) + 2 * d
 
 
 def fail(msg: str) -> None:
@@ -547,10 +576,12 @@ def main() -> None:
         return line
 
     def check_b(case, form, q, steps, step, time_it, beta=1.0, scale=1.0,
-                plain_reps=20, layouts=False):
+                plain_reps=20, layouts=False, bits=False, group_ms=True):
         """Kernel B against its plain version, as ``check_a``;
         ``layouts``: the lane-group layout forced must give the chosen
-        thread layout's bits, and is timed beside it."""
+        thread layout's bits, and with ``group_ms`` is timed beside it;
+        ``bits``: q', u', g' of every walker whose decision agrees must be
+        the plain version's bits."""
         w, d = q.shape
         vg = kernels.device_value_and_grad(form)
         u, g = vg(q)
@@ -565,6 +596,12 @@ def main() -> None:
             form, SEED, counter, q, u, g, **kw), B_ORDER)
         log_u = torch.log(philox.accept_uniforms(SEED, counter, w, dev))
         err = compare(case, out_k, out_p, log_u)
+        if bits:
+            agree = out_k["accepted"] == out_p["accepted"]
+            differ = [k for k in ("q", "u", "g")
+                      if not same_bits(out_k[k][agree], out_p[k][agree])]
+            if differ:
+                fail(f"{case}: {differ} are not the plain version's bits")
         layout = kernels.form_layout(form, d, "B")
         if layouts:
             forced = kernels.fused_hmc_transition(
@@ -577,12 +614,13 @@ def main() -> None:
                      f"thread layout's bits")
         line = {"case": case, "max_abs_err": err, "layout": layout,
                 **({"same_bits_as_group_layout": True} if layouts else {}),
+                **({"same_bits_as_plain": True} if bits else {}),
                 **bound(transition_bytes(w, d, True),
                         w * (steps + 1) * (gradient_ops(form, d) + 3 * d))}
         if time_it:
             line["ms"] = median_ms(lambda: kernels.fused_hmc_transition(
                 form, SEED, counter, q, u, g, **kw))
-            if layouts:
+            if layouts and group_ms:
                 line["group_layout_ms"] = median_ms(
                     lambda: kernels.fused_hmc_transition(
                         form, SEED, counter, q, u, g, _layout="group", **kw))
@@ -628,11 +666,13 @@ def main() -> None:
         pot.make_banana(device=dev).device_form,
         torch.stack([1.0 + 0.3 * randn(8192), 1.0 + 0.5 * randn(8192)], 1),
         16, 0.005, True)["max_abs_err"])
-    c_errs.append(check_b(
+    c_mix = check_b(
         "B mixture W=8192 D=2 K=2 L=16",
         pot.make_gaussian_mixture(torch.tensor([[-3.0, 0.0], [3.0, 0.0]]),
                                   device=dev).device_form,
-        3.0 * randn(8192, 2), 16, 0.3, True)["max_abs_err"])
+        3.0 * randn(8192, 2), 16, 0.3, True, layouts=True, bits=True,
+        group_ms=False)
+    c_errs.append(c_mix["max_abs_err"])
     # ... and the others: the funnel and N-body forms one walker a thread,
     # the lane-group layout forced beside them
     b_main = check_b("B funnel W=8192 D=10 L=16",
@@ -750,14 +790,15 @@ def main() -> None:
 
     def check_d(case, form, w, d, steps, step, inv_mass, time_it=True, *,
                 q=None, p=None, library=None, bits=False, plain_timing=None,
-                check_steps=None, layouts=False):
+                check_steps=None, layouts=False, group_ms=True):
         """Kernel D against its plain version on ``q``, ``p`` (random
         unless given), and a second launch's bits; ``bits``: every output
         must be the plain version's bits; ``plain_timing``: median_ms's
         arguments for the plain version (for the slow ones);
         ``check_steps``: the comparison runs this many steps, the timing
         ``steps``; ``layouts``: the lane-group layout forced must give the
-        chosen thread layout's bits, and is timed beside it."""
+        chosen thread layout's bits, and with ``group_ms`` is timed beside
+        it."""
         if q is None:
             q, p = randn2(w, d), randn2(w, d)
         kw = dict(step_size=torch.tensor([step], device=dev),
@@ -795,7 +836,7 @@ def main() -> None:
         if time_it:
             line["ms"] = median_ms(lambda: kernels.leapfrog_trajectory(
                 form, q, p, **kw))
-            if layouts:
+            if layouts and group_ms:
                 line["group_layout_ms"] = median_ms(
                     lambda: kernels.leapfrog_trajectory(form, q, p,
                                                         _layout="group", **kw))
@@ -823,6 +864,17 @@ def main() -> None:
     d_corr = check_d(
         "D correlated gaussian W=102400 D=32 L=16", corr32, 102400, 32, 16,
         0.1, (0.5 + 1.5 * torch.rand(32, generator=gen2)).to(dev))
+    # kernel D with phase 2's mixture, one walker a thread: the plain
+    # version's bits and the lane groups' (its own generators, so that the
+    # later checks draw what they drew before it)
+    d_mix = check_d(
+        "D mixture W=8192 D=2 K=2 L=16",
+        pot.make_gaussian_mixture(torch.tensor([[-3.0, 0.0], [3.0, 0.0]]),
+                                  device=dev).device_form, 8192, 2, 16, 0.3,
+        torch.ones(2, device=dev),
+        q=3.0 * torch.randn(8192, 2, generator=seeded(21), device=dev),
+        p=torch.randn(8192, 2, generator=seeded(22), device=dev),
+        bits=True, layouts=True, group_ms=False)
     d_errs = [d_main["max_abs_err"], d_corr["max_abs_err"]]
     # kernel B at the same shape and form, for D's time beside B's
     b_corr = check_b("B correlated gaussian W=102400 D=32 L=16", corr32,
@@ -1578,7 +1630,7 @@ def main() -> None:
     b_mixture = check_b(
         "B mixture K=2 W=16384 D=2 L=10 beta=0.21 scale=1",
         bimodal.device_form, 6.0 * randn(16384, 2), 10, 0.5, True,
-        beta=0.21)
+        beta=0.21, layouts=True, bits=True, group_ms=False)
     # kernel B at the target and shape of phase 4's 10-dim drive, whose
     # launches the funnel's row above does not make
     b_gauss10 = check_b(
@@ -1737,6 +1789,7 @@ def main() -> None:
     seconds10 = time.perf_counter() - t0
     counts10 = kernels.launch_counts()
     launched_10 = counts10["fused_hmc_transition"]
+    layout10 = dict(kernels.fused_hmc_transition.launches_by_layout)
     right = (res10.samples[:, :, 0] > 0).float().mean().item()
     min_acc = res10.accept_rate.min().item()
     max_swap = res10.swap_rate.max().item()
@@ -1765,7 +1818,7 @@ def main() -> None:
                  f"R={r10} beta_min=0.02 W={w10} L=10 warmup={n_warm10} "
                  f"samples={n_samp10} kernel=auto",
         "kernel_used": res10.kernel_used, "launches": launched_10,
-        "right_mode_share": right,
+        "launches_by_layout": layout10, "right_mode_share": right,
         "accept_rate": res10.accept_rate.tolist(),
         "swap_rate": res10.swap_rate.tolist(),
         "step_sizes": res10.step_sizes.tolist(),
@@ -1779,25 +1832,29 @@ def main() -> None:
     # the r10 rungs in one launch a transition
     if not (res10.kernel_used == "fused"
             and launched_10 == n_warm10 + n_samp10
+            and layout10["thread"] == launched_10
             and sum(counts10.values()) == launched_10
             and 0.35 <= right <= 0.65 and min_acc > 0.5 and max_swap > 0.05
             and blocking_short == blocking_long):
         fail(f"phase 10 off: ran {res10.kernel_used} with {launched_10} "
-             f"launches (want {n_warm10 + n_samp10}), right-mode "
+             f"launches (want {n_warm10 + n_samp10}, by layout {layout10}: "
+             f"want every one one walker a thread), right-mode "
              f"share {right} (limits 0.35-0.65), min accept {min_acc}, max "
              f"swap rate {max_swap}, blocking calls {blocking_short} and "
              f"{blocking_long}")
 
     # ---- 2, at the rung axis: a ladder's rungs in one launch ------------
     def check_rungs(case, form, q, steps, step_sizes, betas, seeds, u=None,
-                    g=None, plain_bits=True):
+                    g=None, plain_bits=True, layouts=False):
         """A launch of kernel A (``form`` None: the standard normal) or B
         on the R rungs of ``q`` [R, W, D] at a ladder's step sizes and betas
         (mass 1, momenta thermal at each beta): every output the bits of R
         launches of one rung each and, with ``plain_bits``, of the plain
         version (without: within ``compare``'s limits of it, as a launch of
         one rung of that form is); timed beside those R launches
-        (``before_ms``), as the sweep ran before the rung axis."""
+        (``before_ms``), as the sweep ran before the rung axis. ``layouts``:
+        kernel B in the lane-group layout forced gives the chosen thread
+        layout's bits."""
         r, w, d = q.shape
         counter = 600
         kw = dict(scalars=torch.stack((step_sizes, betas,
@@ -1816,15 +1873,16 @@ def main() -> None:
                              kernels.fused_hmc_transition_plain)
             order = B_ORDER
 
-        def call(fn, i=None):
+        def call(fn, i=None, **extra):
             """``fn`` on every rung, or on rung ``i`` alone"""
             pick = (lambda x: x) if i is None else (lambda x: x[i])
             args = {k: pick(v) if k in ("scalars", "p_std") else v
                     for k, v in kw.items()}
             keys = seeds if i is None else seeds[i]
             if form is None:
-                return fn(keys, counter, pick(q), **args)
-            return fn(form, keys, counter, pick(q), pick(u), pick(g), **args)
+                return fn(keys, counter, pick(q), **args, **extra)
+            return fn(form, keys, counter, pick(q), pick(u), pick(g), **args,
+                      **extra)
 
         before = kernel.launches
         out = call(kernel)
@@ -1832,10 +1890,15 @@ def main() -> None:
             fail(f"{case}: {kernel.launches - before} launches, want 1")
         each = kernels._stack_rungs(call(kernel, i) for i in range(r))
         want = call(plain)
+        group = call(kernel, _layout="group") if layouts else None
         torch.cuda.synchronize()
         held = ((each, "its rungs' own launches"),
                 (want, "the plain version"))
-        for other, label in held[:2 if plain_bits else 1]:
+        if layouts:
+            if kernels.form_layout(form, d, "B") != "thread":
+                fail(f"{case}: not a thread-layout shape")
+            held += ((group, "the lane-group layout"),)
+        for other, label in held if plain_bits else held[:1] + held[2:]:
             differ = [k for k, a, b in zip(order, out, other)
                       if not same_bits(a, b)]
             if differ:
@@ -1850,6 +1913,7 @@ def main() -> None:
         line = {"case": case, "max_abs_err": err,
                 "same_bits_as_plain": plain_bits,
                 "same_bits_as_rung_launches": True,
+                **({"same_bits_as_group_layout": True} if layouts else {}),
                 **bound(r * transition_bytes(w, d, form is not None),
                         r * ops),
                 "ms": median_ms(lambda: call(kernel)),
@@ -1868,7 +1932,7 @@ def main() -> None:
         f"B mixture K=2 R={r10} W={w10} D=2 L=10, phase 10's ladder and "
         f"state", bimodal.device_form, res10.q, 10, res10.step_sizes,
         res10.betas, [_replica_seed(SEED + 14, i) for i in range(r10)],
-        res10.u, res10.g)
+        res10.u, res10.g, layouts=True)
 
     # 10b, 10c: parallel tempering through kernel A's rungs (the 2-D
     # standard normal) and kernel B's one walker a thread (8b's eight
@@ -2276,6 +2340,7 @@ def main() -> None:
             s_ea, _ = cli_run(RunConfig(num_samples=n_s, checkpoint_dir=str(
                 tmp / f"e_{sampler}_a"), **base))
             counts = kernels.launch_counts()
+            by_layout = dict(kernels.fused_hmc_transition.launches_by_layout)
             s_eb, _ = cli_run(RunConfig(num_samples=n_s, checkpoint_dir=str(
                 tmp / f"e_{sampler}_b"), **base))
             inputs = cli.prepare(RunConfig(num_samples=n_s, **base))
@@ -2287,7 +2352,9 @@ def main() -> None:
                 state, ref_q, shape = ({"q": ref.q, "u": ref.u, "g": ref.g},
                                        ref.q, (6,))
                 launched_12e = counts["fused_hmc_transition"]
+                layout12e = by_layout
                 launches_ok = (launched_12e == n_w + n_s
+                               and layout12e["thread"] == launched_12e
                                and others_zero(counts,
                                                "fused_hmc_transition"))
             else:
@@ -2310,6 +2377,8 @@ def main() -> None:
                          f"{extra['model']} W={extra['num_walkers']}: "
                          f"resumed to {n_s}; fresh; the run_* call",
                 "final_q_bitwise": True, "launches": counts,
+                **({"launches_by_layout": layout12e} if sampler == "pt"
+                   else {}),
                 "accept_rate": s_ea["accept_rate"]}))
 
         # 12f: stream mode into a sample file
@@ -3180,13 +3249,13 @@ def main() -> None:
     # the inverse of the posterior variance) and half 14c's step, timed
     # with CUDA graphs at L=16; B also with the count on the device and the
     # proposal at W=8192 (n=40 clipped to 16). The linear form's outputs
-    # must be the plain version's bits, as the logistic form's. The two
-    # centred models are compared over 2 steps (n=5 clipped to 2), timed
-    # at 16: in their necks a float32 trajectory amplifies a last-bit
-    # difference between kernel and plain version past compare()'s
-    # tolerance within 16 steps (the centred eight schools' energy error
-    # by 7.3e-4 on an H100 80GB HBM3), which says nothing of the form's
-    # arithmetic.
+    # and the coin's must be the plain version's bits, as the logistic
+    # form's. The two centred models are compared over 2 steps (n=5
+    # clipped to 2), timed at 16: in their necks a float32 trajectory
+    # amplifies a last-bit difference between kernel and plain version
+    # past compare()'s tolerance within 16 steps (the centred eight
+    # schools' energy error by 7.3e-4 on an H100 80GB HBM3), which says
+    # nothing of the form's arithmetic.
     x_lin_dev, y_lin_dev, c_lin = mp_lin.potential.device_form[1]
 
     def linear_library(q, steps_):
@@ -3215,6 +3284,8 @@ def main() -> None:
             q14, var14 = near_posterior(label, nd)
             step14 = 0.5 * summaries14[label]["step_size"]
         lin = form14[0] == "linear"
+        # the linear and the coin forms: the plain version's bits
+        exact = lin or form14[0] == "coin"
         threads = {k: kernels.form_layout(form14, nd, k) == "thread"
                    for k in ("B", "D")}
         short = label in ("eight_schools", "funnel")
@@ -3222,7 +3293,7 @@ def main() -> None:
         tag += " (compared over 2 steps)" if short else ""
         b14[label] = check_b8(
             f"B {form14[0]} ({label}) W={w} D={nd} L=16 {tag}".strip(),
-            form14, q14, 16, step14, True, mass=1.0 / var14, bits=lin,
+            form14, q14, 16, step14, True, mass=1.0 / var14, bits=exact,
             library=linear_library if lin else None,
             check_steps=2 if short else None, layouts=threads["B"],
             **(dict(plain_timing=slow) if lin else dict(plain_reps=2)))
@@ -3231,13 +3302,14 @@ def main() -> None:
             f"B {form14[0]} ({label}) counted+proposal W=8192 D={nd} "
             f"n={n_max[0]} max={n_max[1]}", form14, q14[:8192].contiguous(),
             n_max[0], step14, False, counted=n_max[1], proposal=True,
-            mass=1.0 / var14, bits=lin, layouts=threads["B"])["max_abs_err"]]
+            mass=1.0 / var14, bits=exact,
+            layouts=threads["B"])["max_abs_err"]]
         if label in new_forms14:
             d14[label] = check_d(
                 f"D {form14[0]} ({label}) W={w} D={nd} L=16 {tag}".strip(),
                 form14, w, nd, 16, step14, var14.contiguous(),
                 q=q14, p=randn14(w, nd) / var14.sqrt(),
-                library=linear_library if lin else None, bits=lin,
+                library=linear_library if lin else None, bits=exact,
                 check_steps=2 if short else None, layouts=threads["D"],
                 plain_timing=slow if lin else dict(reps=2, rounds=3))
 
@@ -3323,6 +3395,7 @@ def main() -> None:
         collect="samples", mesh=rm15, **kw15b))
     counts15b = kernels.launch_counts()
     launched_15b = counts15b["fused_hmc_transition"]
+    layout15b = dict(kernels.fused_hmc_transition.launches_by_layout)
     right15 = (res15b.samples[:, :, 0] > 0).float().mean().item()
     bits15b = all(same(a, b) for a, b in (
         (res15b.samples, res10.samples), (res15b.q, res10.q),
@@ -3336,6 +3409,7 @@ def main() -> None:
         "phase": f"15b run_parallel_tempering(mesh=) 1 x 1 replica mesh, "
                  f"phase 10's mixture R={r10} W={w10}",
         "kernel_used": res15b.kernel_used, "launches": launched_15b,
+        "launches_by_layout": layout15b,
         "same_bits_as_phase_10": bits15b, "right_mode_share": right15,
         "right_mode_share_10": right,
         "ms_per_transition": 1e3 * wall15b / (n_warm10 + n_samp10),
@@ -3344,12 +3418,14 @@ def main() -> None:
         "sampling_ms_10": 1e3 * res10.sampling_seconds / n_samp10,
         **coll15b, "card": card}))
     if not (bits15b and launched_15b == n_warm10 + n_samp10
+            and layout15b["thread"] == launched_15b
             and sum(counts15b.values()) == launched_15b
             and coll15b["collectives_per_warmup_transition"] == 1
             and coll15b["collectives_per_sampling_transition"] == 0
             and coll15b["host_copies_per_sampling_transition"] == 0):
         fail(f"phase 15b off: phase 10's bits {bits15b}, launches "
-             f"{counts15b}, right-mode share {right15}, per transition "
+             f"{counts15b} ({layout15b}), right-mode share {right15}, per "
+             f"transition "
              f"{coll15b}")
 
     # 15c: lockstep NUTS at phase 11's configuration
@@ -3632,9 +3708,14 @@ def main() -> None:
         entry("leapfrog_trajectory", f"{CSRC}/forms.cuh", 140, launched_9c,
               [d_nbody["max_abs_err"]], d_nbody),
         # the launch of one rung at a rung's beta, which no driven path
-        # makes since PT's rungs are one launch
+        # makes since PT's rungs are one launch, and phase 2's mixture in B
+        # and D, which no driven path runs
         entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576, 0,
               [b_mixture["max_abs_err"]], b_mixture),
+        entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 576, 0,
+              [c_mix["max_abs_err"]], c_mix),
+        entry("leapfrog_trajectory", f"{CSRC}/forms.cuh", 140, 0,
+              [d_mix["max_abs_err"]], d_mix),
         # PT's rungs in one launch: B's mixture form (10), A (10b), B one
         # walker a thread (10c)
         entry("fused_hmc_transition", SOURCE, 576, launched_10,

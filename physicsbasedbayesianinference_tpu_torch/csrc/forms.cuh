@@ -1,7 +1,7 @@
 // Device forms of the potentials, shared by kernel B (fused_hmc.cu) and
 // kernel D (leapfrog.cu), and the warp layout they run in (the lane-group
-// layout; the eight-schools, funnel and N-body forms also run one walker a
-// thread, thread_layout.cu).
+// layout; the eight-schools, funnel, N-body and mixture forms also run one
+// walker a thread, thread_layout.cu).
 //
 // Layout: a walker's dims are split into dim-groups of four. T =
 // min(32, next_pow2(ceil(D / 4))) consecutive lanes of a warp form a lane
@@ -80,6 +80,20 @@ inline bool misaligned16(const void* ptr) {
 __device__ __forceinline__ float segment_sum(float v, int width) {
   for (int off = width >> 1; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// A 16-byte load from shared memory at p that stays where it is written
+// (asm volatile). A form's parameters do not change within a
+// trajectory, and the compiler, free to hoist their loads out of the
+// loop, holds every one of them in registers: the mixture's KP N means
+// one walker a thread spilled 500-870 bytes a thread at KP = 8 (nvcc
+// -Xptxas -v, tools/kernel_sweeps.py --only registers).
+__device__ __forceinline__ float4 shared_load4(const float* p) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"((unsigned)__cvta_generic_to_shared(p)));
   return v;
 }
 
@@ -425,6 +439,15 @@ struct BananaForm {
 // Isotropic Gaussian mixture of K components:
 // U = -logsumexp_c (log w_c - inv_var |q - mu_c|^2 / 2). The gradient is
 // inv_var sum_c r_c (q - mu_c) with r = softmax of the component terms.
+//
+// Two layouts with the same arithmetic, so that both and the plain version
+// (ops/kernels.py _mixture_vg) round alike: the terms t_c = log w_c -
+// (inv_var / 2) s_c with s_c = sum_j (q_j - mu_cj)^2 in j order, m = fmaxf
+// over c in order, s = sum_c e^(t_c - m) and num_j = sum_c e^(t_c - m)
+// (q_j - mu_cj) in c order, then g_j = (inv_var num_j) / s and U = -(m +
+// log s). T lanes a walker (this struct: grad, value), every lane reading
+// the walker from its buffer row; one walker a thread (MixtureThreadForm,
+// thread_layout.cu).
 struct MixtureForm {
   const float* means;    // [K, D]
   const float* log_w;    // [K]
@@ -492,6 +515,122 @@ struct MixtureForm {
     float m, s;
     reduce(qv, lane, d, sh, buf, &m, &s, nullptr);
     return -(m + logf(s));
+  }
+};
+
+// Components the mixture's thread layout takes (thread_layout.cu): every
+// driven mixture has two (parallel tempering's bimodal target), so only
+// KP = 2 is built; a mixture of more components runs in the lane groups.
+// A larger KP is one more case in thread_layout.cu's with_thread_form
+// (KP = 4 and 8 were built and swept: PERF.md).
+constexpr int kMaxMixture = 2;
+
+// The mixture one walker a thread (thread_layout.cu, up to kMaxMixture
+// components and D = 16: ops/kernels.py walker_layout), with the K
+// components padded to KP, a number fixed at compile time, so
+// that the KP terms live in registers and every loop is unrolled: the
+// walker's q stays in its registers, the terms are taken once a gradient
+// (the lane groups take each twice, once for the max and once for the
+// exponentials), and the means are 16-byte broadcasts from shared memory.
+// A padding component has log w = -inf and a mean of zeros, so its term is
+// -inf, its e^(t - m) exactly 0, and it adds exactly 0 to s and +-0 to
+// num_j (which is never -0): a padded K keeps the bits of K. Dims past D
+// (the N - D of the registers) are skipped, and g there is 0.
+//
+// Shared memory: the means as KP rows of N = 4 ceil(D / 4) floats (zeros
+// past D and past K), then the KP log weights, then inv_var.
+template <int KP>
+struct MixtureThreadForm : MixtureForm {
+  __host__ __device__ static int stride(int d) { return (d + 3) / 4 * 4; }
+
+  __host__ __device__ int shared_floats(int d, int) const {
+    return KP * stride(d) + KP + 1;
+  }
+
+  __device__ void stage(float* sh, int d, int) const {
+    const int n = stride(d);
+    for (int i = threadIdx.x; i < KP * n; i += blockDim.x) {
+      const int c = i / n, j = i - c * n;
+      sh[i] = (c < k && j < d) ? means[c * d + j] : 0.0f;
+    }
+    for (int c = threadIdx.x; c < KP; c += blockDim.x)
+      sh[KP * n + c] = c < k ? log_w[c] : -INFINITY;
+    if (threadIdx.x == 0) sh[KP * n + KP] = inv_var[0];
+  }
+
+  // Component c's mean, dims 4 m .. 4 m + 3: one 16-byte broadcast, read
+  // where it is used (shared_load4).
+  template <int N>
+  __device__ __forceinline__ static float4 mean4(const float* sh, int c,
+                                                 int m) {
+    return shared_load4(sh + c * N + 4 * m);
+  }
+
+  // The KP component terms into t, and their max.
+  template <int N>
+  __device__ __forceinline__ float terms(const float q[N], int d,
+                                         const float* sh, float t[KP]) const {
+    const float half_iv = 0.5f * sh[KP * N + KP];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < KP; ++c) {
+      float s = 0.0f;
+#pragma unroll
+      for (int m = 0; m < N / 4; ++m) {
+        const float4 mu = mean4<N>(sh, c, m);
+        const float mv[4] = {mu.x, mu.y, mu.z, mu.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (in_dims<N>(4 * m + e, d)) {
+            const float diff = q[4 * m + e] - mv[e];
+            s += diff * diff;
+          }
+        }
+      }
+      t[c] = sh[KP * N + c] - half_iv * s;
+      mx = fmaxf(mx, t[c]);
+    }
+    return mx;
+  }
+
+  template <int N>
+  __device__ __forceinline__ void grad_thread(const float q[N], float g[N],
+                                              int d, const float* sh) const {
+    float t[KP];
+    const float mx = terms<N>(q, d, sh, t);
+    float s = 0.0f;
+#pragma unroll
+    for (int e = 0; e < N; ++e) g[e] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < KP; ++c) {
+      const float ex = expf(t[c] - mx);
+      s += ex;
+#pragma unroll
+      for (int m = 0; m < N / 4; ++m) {
+        const float4 mu = mean4<N>(sh, c, m);
+        const float mv[4] = {mu.x, mu.y, mu.z, mu.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 4 * m + e;
+          if (in_dims<N>(j, d)) g[j] += ex * (q[j] - mv[e]);
+        }
+      }
+    }
+    const float iv = sh[KP * N + KP];
+#pragma unroll
+    for (int e = 0; e < N; ++e)
+      if (in_dims<N>(e, d)) g[e] = (iv * g[e]) / s;
+  }
+
+  template <int N>
+  __device__ __forceinline__ float value_thread(const float q[N], int d,
+                                                const float* sh) const {
+    float t[KP];
+    const float mx = terms<N>(q, d, sh, t);
+    float s = 0.0f;
+#pragma unroll
+    for (int c = 0; c < KP; ++c) s += expf(t[c] - mx);
+    return -(mx + logf(s));
   }
 };
 
@@ -1380,10 +1519,6 @@ struct EightSchoolsCentredForm {
   }
 };
 
-__device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
-}
-
 // Independent coins on the logit scale, D = K: the potential of
 // models/examples.py coin_toss (p_k ~ Uniform(0, 1) through p = sigmoid(x)
 // with its Jacobian, Bernoulli observations reduced on the host to heads
@@ -1391,8 +1526,18 @@ __device__ __forceinline__ float softplus(float x) {
 //   U = sum_k a_k softplus(-x_k) + b_k softplus(x_k),  a = heads + 1,
 //   b = tails + 1,
 // whose normalising constant is 0; gradient b_k sigmoid(x_k) - a_k
-// sigmoid(-x_k). Separable, so no walker buffer; the value's terms are
-// summed lane by lane, then a butterfly.
+// sigmoid(-x_k). A dim takes one exponential, e = e^-|x|, for both: the
+// gradient is (b - a e) / (1 + e) for x >= 0 and (b e - a) / (1 + e) for
+// x < 0 (one IEEE division), the term (a + b) log1p(e) + a max(-x, 0) + b
+// max(x, 0), both finite for any finite x (e underflows to 0 past |x| of
+// 103, leaving b, -a and the linear terms). The plain version
+// (ops/kernels.py _coin_vg) takes the same operations.
+//
+// Separable, so no walker buffer: a lane takes its four dims, a dim past D
+// none of this arithmetic (a branch on dim < d), the value's terms summed
+// lane by lane, then a butterfly. The pairs (a_k, b_k) are staged
+// interleaved, one 8-byte broadcast a dim. The lane groups stay its layout:
+// one walker a thread was 2-41% slower at D = 2, 8 and 16 (PERF.md).
 struct CoinForm {
   const float* a;  // [D]
   const float* b;  // [D]
@@ -1404,34 +1549,44 @@ struct CoinForm {
 
   __device__ void stage(float* sh, int d, int) const {
     for (int i = threadIdx.x; i < d; i += blockDim.x) {
-      sh[i] = a[i];
-      sh[d + i] = b[i];
+      sh[2 * i] = a[i];
+      sh[2 * i + 1] = b[i];
     }
+  }
+
+  // dU/dx of one coin, ab = (a, b)
+  __device__ __forceinline__ static float grad1(float x, float2 ab) {
+    const float e = expf(-fabsf(x));
+    const float num = x >= 0.0f ? ab.y - ab.x * e : ab.y * e - ab.x;
+    return num / (1.0f + e);
+  }
+
+  // a softplus(-x) + b softplus(x) of one coin
+  __device__ __forceinline__ static float term(float x, float2 ab) {
+    const float e = expf(-fabsf(x));
+    return ((ab.x + ab.y) * log1pf(e) + ab.x * fmaxf(-x, 0.0f)) +
+           ab.y * fmaxf(x, 0.0f);
   }
 
   __device__ void grad(const float qv[4], float gv[4], int lane, int, int d,
                        const float* sh, float*) const {
+    const float2* ab = reinterpret_cast<const float2*>(sh);
     const int base = 4 * lane;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int dim = base + e;
-      const float x = qv[e];
-      gv[e] = dim < d ? sh[d + dim] * (1.0f / (1.0f + expf(-x))) -
-                            sh[dim] * (1.0f / (1.0f + expf(x)))
-                      : 0.0f;
+      gv[e] = 0.0f;
+      if (base + e < d) gv[e] = grad1(qv[e], ab[base + e]);
     }
   }
 
   __device__ float value(const float qv[4], const float[4], int lane,
                          int tpw, int d, const float* sh, float*) const {
+    const float2* ab = reinterpret_cast<const float2*>(sh);
     const int base = 4 * lane;
     float part = 0.0f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int dim = base + e;
-      if (dim < d)
-        part += sh[dim] * softplus(-qv[e]) + sh[d + dim] * softplus(qv[e]);
-    }
+    for (int e = 0; e < 4; ++e)
+      if (base + e < d) part += term(qv[e], ab[base + e]);
     return segment_sum(part, tpw);
   }
 };

@@ -12,9 +12,10 @@
 // :140), for the forms whose gradient couples a walker's dims (forms.cuh):
 // the two eight-schools forms and the two funnel forms up to D = 16, the
 // N-body form in 2 or 3 space dims up to D = 24 (kMaxDims,
-// kMaxNbodyDims), where
-// ops/kernels.py walker_layout chooses it (THREAD_LAYOUT_DIMS). Above that
-// the forms run in the lane-group layout of fused_hmc.cu and leapfrog.cu.
+// kMaxNbodyDims) and the Gaussian mixture of up to kMaxMixture components
+// up to D = 16, where ops/kernels.py walker_layout chooses it
+// (THREAD_LAYOUT_DIMS). Above that the forms run in the lane-group layout
+// of fused_hmc.cu and leapfrog.cu.
 //
 // Why a layout of its own: the lane-group layout gives a walker T =
 // next_pow2(ceil(D / 4)) lanes, four dims a lane, and its sums over dims
@@ -23,7 +24,10 @@
 // N-body force to every other body), each of the T lanes shared the
 // walker through a buffer row under a warp barrier and ran the whole
 // coupling sum alone (at D = 10 lane 3 owned no dim at all; at 8 bodies in
-// 3-D lanes 6 and 7 idled and each pair's distance was taken 6 times).
+// 3-D lanes 6 and 7 idled and each pair's distance was taken 6 times; the
+// mixture at D = 2 had one lane, which still wrote its walker to the
+// buffer, waited at the barrier and took each component's term twice from
+// loops whose counts it learned at run time).
 // Here one thread holds one walker's N = 4 ceil(D / 4) dims (q, p, g in
 // registers, zeros past D) and runs the sum once a gradient, the N-body
 // pairs once each: no shared walker buffer, no warp barrier, no shuffle in
@@ -51,9 +55,15 @@
 // What bounds it: the arithmetic. Rows are read and written once a
 // transition against 17 gradients of some 7-8 J + 9-13 (eight schools),
 // 2 D + 6 (funnel) or N (N - 1) / 2 (3 S + 7) + 2 D (N-body) operations
-// each, so at D = 10 and 16 the bytes and the operations are of one size
-// (0.005-0.008 ms at W = 102400, PERF.md) and at 8 bodies the operations
-// lead. At W = 102400 the launch is 800 blocks of 128 threads, 6.1 a SM.
+// each, plus each exponential, division and root at the length of its
+// instruction sequence (chip_smoke.py gradient_ops), so at D = 10 and 16
+// the bytes and the operations are of one size (0.005-0.008 ms at W =
+// 102400, PERF.md) and at 8 bodies the operations lead. At W = 102400 the
+// launch is 800 blocks of 128 threads, 6.1 a SM. A parallel-tempering
+// sweep of the mixture (6 rungs of 16384 walkers at D = 2) is 768 blocks,
+// and each walker's chain of 10 steps of exponentials and divisions is
+// long against what the card has to do: its time is that chain's latency
+// unless every block is resident at once (thread_min_blocks).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -79,7 +89,8 @@ constexpr int kThreadBlock = PBBI_THREAD_BLOCK;
 #ifndef PBBI_THREAD_MIN_BLOCKS
 #define PBBI_THREAD_MIN_BLOCKS 0
 #endif
-// Dims the eight-schools and funnel forms take here, and the N-body form.
+// Dims the eight-schools, funnel and mixture forms take here, and the
+// N-body form.
 constexpr int kMaxDims = 16;
 constexpr int kMaxNbodyDims = 24;
 
@@ -94,7 +105,11 @@ constexpr int kMaxNbodyDims = 24;
 // N-body B at 8 bodies in 3-D 24% less than uncapped at 152-154 registers
 // and 9% less than under 64; within 6% of the fastest cap at every shape
 // swept but B at 12 bodies in 2-D, where 64 registers take 12% less with
-// the count fixed and 20% more with the proposal outputs).
+// the count fixed and 20% more with the proposal outputs). The mixture
+// (KP = 2): 8 blocks (64 registers) up to N = 8, 4 (128) above (at N = 16
+// the cap of 64 took 12% more time than 128 in B, 15% in D; at N = 4 and 8
+// every cap from 1 to 8 blocks was within 3% of the others, the
+// parallel-tempering sweep within 1.1%).
 template <class Form, int N>
 constexpr int thread_min_blocks() {
   if constexpr (PBBI_THREAD_MIN_BLOCKS > 0) {
@@ -102,6 +117,8 @@ constexpr int thread_min_blocks() {
   } else if constexpr (std::is_same_v<Form, EightSchoolsForm> ||
                        std::is_same_v<Form, EightSchoolsCentredForm>) {
     return N <= 12 ? 8 : 1;
+  } else if constexpr (std::is_same_v<Form, MixtureThreadForm<kMaxMixture>>) {
+    return N <= 8 ? 8 : 4;
   } else {
     return 4;
   }
@@ -411,8 +428,10 @@ int with_dims(const Form& form, int num_dims, Body body) {
 
 // Run `body(form, std::integral_constant<int, N>)` for the forms of this
 // layout (forms.cuh with_form's numbering): 7 and 9 at D = count + 2 <=
-// kMaxDims, 1 and 11 at D <= kMaxDims, 4 at D = count S <= kMaxNbodyDims
-// with S = 2 or 3; cudaErrorInvalidValue for any other form or shape.
+// kMaxDims, 1 and 11 at D <= kMaxDims, 3 at D <= kMaxDims with count = K
+// <= kMaxMixture (padded to KP = kMaxMixture), 4 at D = count S <=
+// kMaxNbodyDims with S = 2 or 3; cudaErrorInvalidValue for any other form
+// or shape.
 template <class Body>
 int with_thread_form(int form, const float* param0, const float* param1,
                      const float* param2, int count, int num_dims,
@@ -422,6 +441,12 @@ int with_thread_form(int form, const float* param0, const float* param1,
       return with_dims<kMaxDims>(FunnelForm{param0}, num_dims, body);
     case 11:
       return with_dims<kMaxDims>(FunnelForm{param0, param1}, num_dims, body);
+    case 3: {
+      const MixtureForm mix{param0, param1, param2, count};
+      if (count <= 0 || count > kMaxMixture) break;
+      return with_dims<kMaxDims>(MixtureThreadForm<kMaxMixture>{mix},
+                                 num_dims, body);
+    }
     case 4:
       if (count <= 0 || num_dims % count != 0) break;
       if (num_dims / count == 2)

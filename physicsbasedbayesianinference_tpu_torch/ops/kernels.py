@@ -7,9 +7,9 @@
     E  nbody_accelerations_tiled  csrc/nbody.cu      N-body accelerations
 
 B and D run the two eight-schools forms (the centred form in D up to
-D = 12) and the two funnel forms one walker a thread up to D = 16, and the
-N-body form in 2 or 3 space dims up to D = 24, in csrc/thread_layout.cu
-(:func:`walker_layout`).
+D = 12), the two funnel forms and the Gaussian mixture of up to 2
+components one walker a thread up to D = 16, and the N-body form in 2 or 3
+space dims up to D = 24, in csrc/thread_layout.cu (:func:`walker_layout`).
 
 Each wrapper takes the plain version for tensors on the CPU and launches
 the kernel for CUDA tensors; any other device, a bad dtype, shape or
@@ -85,17 +85,22 @@ LOGISTIC_ROWS = 4
 # eight-schools form's kernel D stops at 12: at D = 16 it took 0.0710 ms
 # against the lane groups' 0.0655 (H100 80GB HBM3 at 700 W,
 # tools/kernel_sweeps.py, PERF.md). The N-body form takes the thread layout
-# in NBODY_THREAD_SPACE_DIMS space dims only. "thread" and "group" name the
-# two layouts.
+# in NBODY_THREAD_SPACE_DIMS space dims only, the mixture with up to
+# MIXTURE_THREAD_COMPONENTS components (csrc/forms.cuh kMaxMixture). The
+# coin form, separable, stays in the lane groups: one walker a thread was
+# 2-41% slower at D = 2, 8 and 16. "thread" and "group" name the two
+# layouts.
 THREAD_FORMS = ("eight_schools_nc", "eight_schools", "funnel",
-                "funnel_model", "nbody")
+                "funnel_model", "nbody", "mixture")
 THREAD_LAYOUT_DIMS = {("eight_schools_nc", "B"): 16,
                       ("eight_schools_nc", "D"): 16,
                       ("eight_schools", "B"): 16, ("eight_schools", "D"): 12,
                       ("funnel", "B"): 16, ("funnel", "D"): 16,
                       ("funnel_model", "B"): 16, ("funnel_model", "D"): 16,
-                      ("nbody", "B"): 24, ("nbody", "D"): 24}
+                      ("nbody", "B"): 24, ("nbody", "D"): 24,
+                      ("mixture", "B"): 16, ("mixture", "D"): 16}
 NBODY_THREAD_SPACE_DIMS = (2, 3)
+MIXTURE_THREAD_COMPONENTS = 2
 LAYOUTS = ("thread", "group")
 # All the shared memory a block may have on an H100 (227 KiB).
 MAX_SHARED_BYTES = 232448
@@ -566,15 +571,17 @@ def logistic_tile(num_walkers: int, num_rows: int, num_dims: int) -> int:
 
 
 def walker_layout(form_name: str, num_dims: int, kernel: str,
-                  space_dims: Optional[int] = None) -> str:
+                  space_dims: Optional[int] = None,
+                  components: Optional[int] = None) -> str:
     """The layout kernel ``kernel`` ("B" or "D") runs the form
     ``form_name`` in at ``num_dims``, decided from these alone before any
     launch: "thread" (one walker a thread, csrc/thread_layout.cu) for the
     forms of ``THREAD_FORMS`` up to ``THREAD_LAYOUT_DIMS[form_name,
     kernel]`` dims (the N-body form in ``NBODY_THREAD_SPACE_DIMS`` space
-    dims only, ``space_dims`` = D / bodies, which it needs), "group" (T
-    lanes a walker, :func:`threads_per_walker`) for every other form and
-    shape."""
+    dims only, ``space_dims`` = D / bodies, which it needs; the mixture
+    with at most ``MIXTURE_THREAD_COMPONENTS`` components, ``components``,
+    which it needs), "group" (T lanes a walker,
+    :func:`threads_per_walker`) for every other form and shape."""
     limit = THREAD_LAYOUT_DIMS.get((form_name, kernel), 0)
     if form_name == "nbody":
         if space_dims is None:
@@ -582,15 +589,23 @@ def walker_layout(form_name: str, num_dims: int, kernel: str,
                              "dims: pass space_dims")
         if space_dims not in NBODY_THREAD_SPACE_DIMS:
             limit = 0
+    if form_name == "mixture":
+        if components is None:
+            raise ValueError("the mixture form's layout depends on its "
+                             "components: pass components")
+        if not 1 <= components <= MIXTURE_THREAD_COMPONENTS:
+            limit = 0
     return "thread" if 1 <= num_dims <= limit else "group"
 
 
 def form_layout(device_form, num_dims: int, kernel: str) -> str:
     """:func:`walker_layout` of a device form at ``num_dims`` (the N-body
-    form's space dims from its masses)."""
+    form's space dims from its masses, the mixture's components from its
+    means)."""
     name, params = device_form
     space = (num_dims // params[0].shape[0] if name == "nbody" else None)
-    return walker_layout(name, num_dims, kernel, space)
+    components = params[0].shape[0] if name == "mixture" else None
+    return walker_layout(name, num_dims, kernel, space, components)
 
 
 def _layout_for(device_form, num_dims: int, kernel: str,
@@ -768,13 +783,14 @@ def _nbody_vg(mass, consts):
 
 def _segment_sum(lanes: Tensor) -> Tensor:
     """The kernels' sum over a walker's T lanes, ``lanes`` ``[W, T]`` (T a
-    power of two): an xor butterfly, offsets T/2 .. 1."""
+    power of two): an xor butterfly, offsets T/2 .. 1. Contiguous, as the
+    kernels take a cached u."""
     idx = torch.arange(lanes.shape[1], device=lanes.device)
     off = lanes.shape[1] >> 1
     while off:
         lanes = lanes + lanes[:, idx ^ off]
         off >>= 1
-    return lanes[:, 0]
+    return lanes[:, 0].contiguous()
 
 
 def _lane_partials(terms: Tensor, t: int) -> Tensor:
@@ -940,19 +956,18 @@ def _eight_schools_centred_vg(y, sigma, consts):
     return vg
 
 
-def _softplus(x: Tensor) -> Tensor:
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
-
-
 def _coin_vg(a, b):
     """Independent coins with flat priors on logit scale, ``U = sum_k a_k
     softplus(-x_k) + b_k softplus(x_k)`` with a = heads + 1, b = tails +
-    1 (csrc/forms.cuh CoinForm), the terms summed as the lanes take
-    them."""
+    1, as kernels B and D take it (csrc/forms.cuh CoinForm): one ``e =
+    exp(-|x|)`` a dim, the gradient ``(b - a e) / (1 + e)`` for x >= 0 and
+    ``(b e - a) / (1 + e)`` below, the term ``(a + b) log1p(e) + a max(-x,
+    0) + b max(x, 0)``, the terms summed as the lanes take them."""
     def vg(q):
-        terms = a * _softplus(-q) + b * _softplus(q)
-        g = (b * (1.0 / (1.0 + torch.exp(-q)))
-             - a * (1.0 / (1.0 + torch.exp(q))))
+        e = torch.exp(-torch.abs(q))
+        g = torch.where(q >= 0.0, b - a * e, b * e - a) / (1.0 + e)
+        terms = (((a + b) * torch.log1p(e) + a * torch.clamp_min(-q, 0.0))
+                 + b * torch.clamp_min(q, 0.0))
         return _dim_sum(terms, threads_per_walker(q.shape[1])), g
     return vg
 

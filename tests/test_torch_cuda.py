@@ -984,13 +984,119 @@ def test_nbody_form_matches_plain_bitwise_in_both_layouts(dev, w, n, s, eps):
     _check_thread_layout(dev, form, w, d, spread=2.0, bits=True)
 
 
+def _mixture_form(k, d, dev):
+    rng = np.random.default_rng(10 * k + d)
+    return pot.make_gaussian_mixture(2.0 * rng.normal(size=(k, d)), 1.2,
+                                     rng.normal(size=k),
+                                     device=dev).device_form
+
+
+def _coin_form(d, dev):
+    rng = np.random.default_rng(d)
+    return ("coin", (_t(rng.uniform(1.0, 50.0, d), dev),
+                     _t(rng.uniform(1.0, 50.0, d), dev)))
+
+
+@pytest.mark.parametrize("w,k,d", [(1, 2, 2), (1000, 2, 2), (300, 1, 3),
+                                   (257, 3, 5), (129, 2, 16), (100, 1, 12),
+                                   (75, 2, 9), (37, 2, 17), (64, 8, 3)])
+def test_mixture_form_matches_plain_bitwise_in_both_layouts(dev, w, k, d):
+    """The mixture in kernels B and D at D and K on both sides of the
+    thread layout's limits (D = 16, 2 components; K padded to 2 there)
+    and W off its block of 128: both layouts and the plain version
+    take every term, max, exponential, sum and division in the same
+    order, so B's q', u', g' and proposal and all of D's outputs are the
+    plain version's bits, and the lane groups forced give the thread
+    layout's (``_check_thread_layout`` with ``bits``)."""
+    form = _mixture_form(k, d, dev)
+    for kernel in ("B", "D"):
+        assert kernels.form_layout(form, d, kernel) == (
+            "thread" if d <= 16 and k <= 2 else "group")
+    _check_thread_layout(dev, form, w, d, spread=2.0, bits=True)
+
+
+@pytest.mark.parametrize("w,d", [(1, 1), (1000, 2), (300, 7), (129, 16),
+                                 (64, 12), (37, 17)])
+def test_coin_form_matches_plain_bitwise(dev, w, d):
+    """The coin form in kernels B and D, in the lane groups at every D:
+    one exponential and one division a dim in the kernels and the plain
+    version, so B's q', u', g' and proposal and D's outputs are the plain
+    version's bits, and a forced thread layout raises
+    (``_check_thread_layout`` with ``bits``)."""
+    form = _coin_form(d, dev)
+    for kernel in ("B", "D"):
+        assert kernels.form_layout(form, d, kernel) == "group"
+    _check_thread_layout(dev, form, w, d, spread=2.0, bits=True)
+
+
+def test_coin_form_is_finite_in_the_tails_on_the_card(dev):
+    """|x| up to 100 with the example's counts and with a = b = 1: kernel
+    D's gradient and value (with no step it evaluates them at q) are finite
+    and the plain version's bits."""
+    x = torch.tensor([100.0, -100.0, 60.0, -60.0, 17.0, -17.0, 0.5, 0.0])
+    q = torch.stack(torch.meshgrid(x, x, indexing="ij"), -1).reshape(
+        -1, 2).to(dev)
+    for a, b in (([76.0, 33.0], [26.0, 69.0]), ([1.0, 1.0], [1.0, 1.0])):
+        form = ("coin", (_t(a, dev), _t(b, dev)))
+        lk = dict(step_size=_t([0.1], dev), num_steps=0,
+                  inv_mass=torch.ones(2, device=dev))
+        out = kernels.leapfrog_trajectory(form, q, q, **lk)
+        want = kernels.leapfrog_trajectory_plain(form, q, q, **lk)
+        torch.cuda.synchronize()
+        for got, ref in zip(out[2:], want[2:]):
+            assert bool(torch.isfinite(got).all())
+            _same_bits(got, ref)
+
+
+@pytest.mark.parametrize("k,d", [(2, 2), (1, 7)])
+@pytest.mark.parametrize("variant", ["fixed", "counted+proposal"])
+def test_mixture_rung_launch_in_the_thread_layout_is_the_lane_groups(
+        dev, k, d, variant):
+    """Kernel B on q [3, 300, D] of the mixture, one launch in the thread
+    layout: every output the lane groups' (forced) bits, and q', u', g'
+    where the decisions agree and the proposal the plain version's bits;
+    each rung within ``_assert_match``."""
+    form = _mixture_form(k, d, dev)
+    assert kernels.form_layout(form, d, "B") == "thread"
+    q, seeds, kw = _rung_case(dev, d)
+    vg = kernels.device_value_and_grad(form)
+    u, g = (torch.stack(x) for x in zip(*(vg(x) for x in q)))
+    if variant == "fixed":
+        kw.update(num_steps=10)
+    else:
+        kw.update(num_steps=_count(10, dev), max_steps=16,
+                  emit_proposal=True)
+    before = dict(kernels.fused_hmc_transition.launches_by_layout)
+    got = kernels.fused_hmc_transition(form, seeds, 3, q, u, g, **kw)
+    group = kernels.fused_hmc_transition(form, seeds, 3, q, u, g,
+                                         _layout="group", **kw)
+    plain = kernels.fused_hmc_transition_plain(form, seeds, 3, q, u, g, **kw)
+    torch.cuda.synchronize()
+    after = kernels.fused_hmc_transition.launches_by_layout
+    assert (after["thread"], after["group"]) == (before["thread"] + 1,
+                                                 before["group"] + 1)
+    for a, b in zip(got, group, strict=True):
+        _same_bits(a, b)
+    agree = got[4] == plain[4]
+    for a, b in zip(got[:3], plain[:3]):
+        _same_bits(a, b, agree)
+    for a, b in zip(got[6:], plain[6:]):
+        _same_bits(a, b)
+    for r, key in enumerate(seeds):
+        _assert_match({k: v[r] for k, v in zip(B_ORDER, got)},
+                      {k: v[r] for k, v in zip(B_ORDER, plain)}, key, 3)
+
+
 @pytest.mark.parametrize("name", ["eight_schools_nc", "eight_schools",
-                                  "funnel", "funnel_model", "nbody"])
+                                  "funnel", "funnel_model", "nbody",
+                                  "mixture"])
 def test_thread_layout_offset_halves_join_to_the_whole_launch(dev, name):
     """Kernel B in the thread layout on two blocks of walkers at their
     global offsets gives the whole launch's bits, in each variant."""
     if name == "nbody":
         form, d = _nbody_form(8, 3, 0.3, dev), 24
+    elif name == "mixture":
+        form, d = _mixture_form(1, 5, dev), 5
     elif name.startswith("funnel"):
         form, d = _funnel_form(name, 16, dev), 16
     else:

@@ -361,18 +361,20 @@ THREAD_LIMITS = {("eight_schools_nc", "B"): 16, ("eight_schools_nc", "D"): 16,
                  ("eight_schools", "B"): 16, ("eight_schools", "D"): 12,
                  ("funnel", "B"): 16, ("funnel", "D"): 16,
                  ("funnel_model", "B"): 16, ("funnel_model", "D"): 16,
-                 ("nbody", "B"): 24, ("nbody", "D"): 24}
+                 ("nbody", "B"): 24, ("nbody", "D"): 24,
+                 ("mixture", "B"): 16, ("mixture", "D"): 16}
 
 
 @pytest.mark.parametrize("name", sorted(tk.FORM_IDS))
 def test_walker_layout_is_chosen_from_the_form_and_d_alone(name):
     """The thread layout for the eight-schools and funnel forms up to D =
-    16 (the centred eight schools' kernel D up to 12) and the N-body form
-    in 2 or 3 space dims up to D = 24, the lane-group layout above it and
-    for every other form: a choice from the form, D and the kernel alone
-    (the N-body form's space dims are D over its bodies). A forced layout
-    is checked before any launch (CPU tensors: the plain version runs, and
-    no kernel is counted)."""
+    16 (the centred eight schools' kernel D up to 12), the mixture of up
+    to 2 components up to D = 16 and the N-body form in 2 or 3 space dims
+    up to D = 24, the lane-group layout above it and for every other form:
+    a choice from the form, D and the kernel alone (the N-body form's space
+    dims are D over its bodies, the mixture's components the rows of its
+    means). A forced layout is checked before any launch (CPU tensors: the
+    plain version runs, and no kernel is counted)."""
     thread = name in tk.THREAD_FORMS
     assert thread == any(form == name for form, _ in THREAD_LIMITS)
     for kernel in ("B", "D"):
@@ -384,10 +386,17 @@ def test_walker_layout_is_chosen_from_the_form_and_d_alone(name):
                 for space in (1, 2, 3, 4):
                     assert tk.walker_layout(name, d, kernel, space) == (
                         want if space in (2, 3) else "group"), (kernel, d)
+            elif name == "mixture":
+                for k in (1, 2, 3, 5, 8, 9, 16):
+                    assert tk.walker_layout(name, d, kernel,
+                                            components=k) == (
+                        want if k <= 2 else "group"), (kernel, d, k)
             else:
                 assert tk.walker_layout(name, d, kernel) == want, (kernel, d)
-        # ten dims: 5 bodies in 2-D
-        form = (name, (torch.ones(5),)) if name == "nbody" else (name, ())
+        # ten dims: 5 bodies in 2-D, a mixture of 2 components
+        form = ((name, (torch.ones(5),)) if name == "nbody"
+                else (name, (torch.zeros(2, 10),)) if name == "mixture"
+                else (name, ()))
         assert tk._layout_for(form, 10, kernel, None) == (
             "thread" if thread else "group")
         assert tk.form_layout(form, 10, kernel) == (
@@ -405,6 +414,12 @@ def test_walker_layout_is_chosen_from_the_form_and_d_alone(name):
             tk.walker_layout(name, 24, "B")
         # ten bodies on a line: one space dim, the lane groups
         assert tk.form_layout((name, (torch.ones(10),)), 10, "B") == "group"
+    if name == "mixture":
+        with pytest.raises(ValueError, match="components"):
+            tk.walker_layout(name, 2, "B")
+        # three components: the lane groups
+        assert tk.form_layout((name, (torch.zeros(3, 2),)), 2,
+                              "B") == "group"
 
 
 @pytest.mark.parametrize("name", sorted(SCHOOLS_MODELS))

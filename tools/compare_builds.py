@@ -23,7 +23,12 @@ same Philox draws:
   and the N-body rows (8 bodies in 3-D, D = 24: phase 9b's kernel B at
   W = 102400, L = 8 and potential scale 0.37, kernel D at L = 16, and
   kernel B at W = 8192) wherever those forms round otherwise (the thread
-  layout keeps the lane groups' bits);
+  layout keeps the lane groups' bits); the mixture rows (kernel B at W =
+  8192, K = 2, D = 2 and at K = 3, D = 10, kernel D at W = 8192, and
+  parallel tempering's launch of phase 10's six rungs of 16384 walkers at
+  their betas) wherever the mixture forms do, and the coin rows (kernels
+  B and D at W = 102400, D = 2, on ``examples/coin_toss.data.json``'s
+  counts) wherever the coin forms do;
 * times both in the order other, this, this, other (CUDA-graph replays
   timed with CUDA events, ``chip_smoke.median_ms``), since two cards or
   two calls differ by more than most changes.
@@ -51,11 +56,13 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import math
 import statistics
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -184,6 +191,12 @@ def compare_samplers(other_pkg, dev) -> None:
         print(json.dumps(line))
 
 
+def _coin_data() -> dict:
+    """``examples/coin_toss.data.json``'s two coins (float32 numpy)."""
+    raw = json.loads((ROOT / "examples" / "coin_toss.data.json").read_text())
+    return {k: np.asarray(raw[k], np.float32) for k in ("c1", "c2")}
+
+
 def main() -> None:
     if len(sys.argv) not in (2, 3) or sys.argv[2:] not in ([],
                                                            ["--samplers"]):
@@ -239,6 +252,24 @@ def main() -> None:
                lambda: other.fused_hmc_transition(form, SEED, 11, q, u, g,
                                                   **kw))
 
+    def row_rungs(row, form, q, betas, steps):
+        """Kernel B on the rungs of q [R, W, D] in one launch, each at its
+        beta (mass 1, momenta thermal at it, step 0.5 / sqrt(beta))."""
+        r, _, d = q.shape
+        vg = this.device_value_and_grad(form)
+        u, g = (torch.stack(x) for x in zip(*(vg(x) for x in q)))
+        kw = dict(scalars=torch.stack((0.5 / betas.sqrt(), betas,
+                                       torch.ones_like(betas)), 1),
+                  p_std=torch.sqrt(1.0 / betas)[:, None].expand(
+                      r, d).contiguous(),
+                  inv_mass=torch.ones(d, device=dev), num_steps=steps)
+        seeds = [SEED + i for i in range(r)]
+        report(row,
+               lambda: this.fused_hmc_transition(form, seeds, 11, q, u, g,
+                                                 **kw),
+               lambda: other.fused_hmc_transition(form, seeds, 11, q, u, g,
+                                                  **kw))
+
     def row_d(row, form, w, d, step, q=None):
         q = randn(w, d) if q is None else q
         p = randn(w, d)
@@ -270,9 +301,9 @@ def main() -> None:
         device=dev).device_form, 2.0 * randn(w, 24), 0.05)
     row_b("B banana W=8192 D=2 L=16", pot.make_banana(device=dev).device_form,
           torch.stack([1.0 + 0.3 * randn(w), 1.0 + 0.5 * randn(w)], 1), 0.005)
-    row_b("B mixture W=8192 D=2 K=2 L=16", pot.make_gaussian_mixture(
-        torch.tensor([[-3.0, 0.0], [3.0, 0.0]]), device=dev).device_form,
-        3.0 * randn(w, 2), 0.3)
+    mixture = pot.make_gaussian_mixture(
+        torch.tensor([[-3.0, 0.0], [3.0, 0.0]]), device=dev).device_form
+    row_b("B mixture W=8192 D=2 K=2 L=16", mixture, 3.0 * randn(w, 2), 0.3)
     row_b("B funnel W=1000 D=33 L=16 (scalar accesses)",
           pot.make_funnel(33, device=dev).device_form, 0.5 * randn(1000, 33),
           0.05)
@@ -324,6 +355,23 @@ def main() -> None:
           0.3, steps=8, scale=0.37)
     row_d("D nbody N=8 eps=0.3 W=102400 D=24 L=16", nbody8, 102400, 24,
           0.05, q=q)
+    # the mixture and the coin forms (drawn after every earlier row, so
+    # that those rows keep their inputs)
+    row_b("B mixture W=8192 D=10 K=3 L=16", pot.make_gaussian_mixture(
+        2.0 * randn(3, 10), device=dev).device_form, 2.0 * randn(w, 10),
+        0.2)
+    row_d("D mixture W=8192 D=2 K=2 L=16", mixture, w, 2, 0.3,
+          q=3.0 * randn(w, 2))
+    row_rungs("B mixture K=2 R=6 W=16384 D=2 L=10 (phase 10's rung launch)",
+              pot.make_gaussian_mixture(
+                  torch.tensor([[-6.0, 0.0], [6.0, 0.0]]),
+                  device=dev).device_form, 6.0 * randn(6, 16384, 2),
+              torch.logspace(0.0, math.log10(0.02), 6).to(dev), 10)
+    coin = models.make_model_potential(
+        models.coin_toss, (), _coin_data(), device=dev).potential.device_form
+    q = 0.5 * randn(102400, 2) + torch.tensor([1.1, -0.7], device=dev)
+    row_b("B coin W=102400 D=2 L=16", coin, q, 0.3)
+    row_d("D coin W=102400 D=2 L=16", coin, 102400, 2, 0.3, q=q)
 
 
 if __name__ == "__main__":

@@ -2,8 +2,10 @@
 """The measured sweeps behind the design constants of kernels E and A and
 of the Gaussian and logistic forms' register tiles in kernels B and D.
 
-    python3 tools/kernel_sweeps.py [--only e|a|gaussian|logistic|threads|tail|registers]
+    python3 tools/kernel_sweeps.py [--only e|a|gaussian|logistic|threads|tail|registers|sass]
                                    [--source thread_layout.cu]
+                                   [--forms mixture,nbody] [--other DIR]
+                                   [--out DIR]
 
 from the repository root, on a GPU (every sweep unless ``--only`` names one).
 
@@ -55,12 +57,17 @@ build is hashed by its flags, ``ops/_build.py``) and times, as
   (W = 8192 and 102400) and D = 16, the funnel model (D = 16, W =
   102400), both about the funnel's own spread; the N-body form (unit
   masses, softening 0.3, positions 2 N(0, 1)) at 8 bodies in 3-D (D = 24,
-  W = 102400 and 8192), 12 in 2-D (D = 24) and 5 in 3-D (D = 15). In the
+  W = 102400 and 8192), 12 in 2-D (D = 24) and 5 in 3-D (D = 15); the
+  Gaussian mixture (means 3 N(0, 1), sigma 1, positions 3 N(0, 1)) at
+  the thread layout's K (``kernels.MIXTURE_THREAD_COMPONENTS``) and D = 2,
+  8, 16, W = 102400, and at parallel tempering's sweep
+  of phase 10 (the mixture at (+-6, 0), 6 rungs of 16384 walkers a launch,
+  betas 1 down to 0.02, L = 10, kernel B with the count fixed). In the
   default build (each form's register policy, thread_min_blocks) and with
   ``PBBI_THREAD_MIN_BLOCKS`` (one register cap for every form: 1, 2, 4, 6,
   8, 10 blocks of 128 threads) and ``PBBI_THREAD_BLOCK`` (threads a block:
   64, 256) varied, beside the lane-group layout forced on the default
-  build;
+  build (``--forms`` names the forms to time: all unless given);
 * the launch's last wave: kernel B with the logistic form (N = 256, D =
   32, L = 16) in the lane groups at W = 101376 (792 blocks of tile 4, 3
   whole waves of 2 blocks an SM on 132 SMs) and W = 102400 (800 blocks,
@@ -70,7 +77,20 @@ build is hashed by its flags, ``ops/_build.py``) and times, as
   (``nvcc -Xptxas -v``, the library's flags without ``-split-compile``,
   whose parallel ptxas runs interleave their reports), one line each with
   the form, the walker tile and the variant, and the seconds each source
-  took (``--source`` names one of the three sources).
+  took (``--source`` names one of the three sources);
+* the SASS (``cuobjdump -sass``) of the functions whose instruction
+  sequences ``chip_smoke.gradient_ops`` counts: ``expf``, ``logf``,
+  ``log1pf``, the IEEE division and reciprocal and ``sqrtf``, each alone in
+  a probe kernel built with the library's flags, beside a probe that only
+  copies and one that adds (one line each: the instructions a thread
+  executes on the path of finite, normal operands, ``sequence`` those
+  over the copy's (the division: over the sum's, plus the addition it
+  replaces), the MUFU instructions, the listing); and of every
+  kernel of the built library (with ``--other DIR``, also of the
+  checkout at DIR) whose name holds ``SASS_KERNELS`` (the mixture's and
+  the coin's), written to ``--out`` (``_build/sass`` unless given) with
+  one line each: its instructions, its MUFU, branch and call
+  instructions and how many carry a predicate.
 
 Prints the card, then one JSON line per measurement.
 """
@@ -79,6 +99,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -128,6 +149,22 @@ T_VARIANTS = ((), ("-DPBBI_THREAD_MIN_BLOCKS=1",),
 
 # the sources whose kernels sweep_registers reports
 REGISTER_SOURCES = ["fused_hmc.cu", "leapfrog.cu", "thread_layout.cu"]
+# the forms sweep_threads times (all unless --forms names some)
+THREAD_SWEEP_FORMS = ["eight_schools_nc", "eight_schools", "funnel",
+                      "funnel_model", "nbody", "mixture"]
+# sweep_sass: each function alone in a probe kernel (x in, y out), and
+# the library's kernels whose SASS it writes out
+SASS_PROBES = {"copy": "y[i] = x[i];", "sum": "y[i] = x[i] + x[i + n];",
+               "expf": "y[i] = expf(x[i]);",
+               "logf": "y[i] = logf(x[i]);",
+               "log1pf": "y[i] = log1pf(x[i]);",
+               "division": "y[i] = x[i] / x[i + n];",
+               "reciprocal": "y[i] = 1.0f / x[i];",
+               "sqrtf": "y[i] = sqrtf(x[i]);"}
+# each probe's baseline: the copy, or for the division the sum, whose one
+# addition the division replaces
+SASS_BASELINES = {"division": ("sum", 1)}
+SASS_KERNELS = re.compile(r"MixtureForm|MixtureThreadForm|CoinForm")
 
 
 def use(flags=()):
@@ -145,12 +182,22 @@ def bodies(n, dtype, gen, dev):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=("e", "a", "gaussian", "logistic",
-                                           "threads", "tail", "registers"))
+                                           "threads", "tail", "registers",
+                                           "sass"))
     parser.add_argument("--source", choices=REGISTER_SOURCES)
+    parser.add_argument("--forms", help="comma-separated forms of the "
+                        "thread-layout sweep")
+    parser.add_argument("--other", help="another checkout whose kernels' "
+                        "SASS the sass sweep writes out too")
+    parser.add_argument("--out", default=str(_build.BUILD_DIR / "sass"),
+                        help="where the sass sweep writes the kernels' SASS")
     args = parser.parse_args()
     only = args.only
     if args.source:
         REGISTER_SOURCES[:] = [args.source]
+    if args.forms:
+        THREAD_SWEEP_FORMS[:] = args.forms.split(",")
+    SASS_OPTIONS.update(other=args.other, out=Path(args.out))
     if not torch.cuda.is_available():
         raise SystemExit("tools/kernel_sweeps.py needs a CUDA device")
     print(subprocess.run(
@@ -164,7 +211,8 @@ def main() -> None:
                         ("logistic", sweep_logistic),
                         ("threads", sweep_threads),
                         ("tail", sweep_tail),
-                        ("registers", sweep_registers)):
+                        ("registers", sweep_registers),
+                        ("sass", sweep_sass)):
         if only in (None, name):
             sweep(gen, dev)
     kernels.load_library = _build.load_library
@@ -410,6 +458,11 @@ def sweep_threads(gen, dev) -> None:
                                         device=dev).device_form
         return form, 2.0 * torch.randn(w, n * s, generator=gen)
 
+    def mixture(w, k, d):
+        form = pot.make_gaussian_mixture(
+            3.0 * torch.randn(k, d, generator=gen), device=dev).device_form
+        return form, 3.0 * torch.randn(w, d, generator=gen)
+
     # (form, W, D, label) -> (form, q on the card)
     cases = {}
     for name in ("eight_schools_nc", "eight_schools"):
@@ -421,6 +474,11 @@ def sweep_threads(gen, dev) -> None:
     for w, n, s in ((102400, 8, 3), (8192, 8, 3), (102400, 12, 2),
                     (102400, 5, 3)):
         cases["nbody", w, n * s, f"N={n} S={s}"] = nbody(w, n, s)
+    for k in (kernels.MIXTURE_THREAD_COMPONENTS,):
+        for d in (2, 8, 16):
+            cases["mixture", 102400, d, f"K={k}"] = mixture(102400, k, d)
+    cases = {key: v for key, v in cases.items()
+             if key[0] in THREAD_SWEEP_FORMS}
     scalars = torch.tensor([0.05, 1.0, 1.0], device=dev)
     step = torch.tensor([0.05], device=dev)
     state = {}
@@ -429,6 +487,27 @@ def sweep_threads(gen, dev) -> None:
         u, g = kernels.device_value_and_grad(form)(q)
         state[key] = (form, q, torch.randn(q.shape, generator=gen).to(dev),
                       u, g)
+    # parallel tempering's sweep of phase 10: 6 rungs in one launch
+    rung_case = None
+    if "mixture" in THREAD_SWEEP_FORMS:
+        r, w = 6, 16384
+        betas = torch.logspace(0.0, math.log10(0.02), r).to(dev)
+        form = pot.make_gaussian_mixture(
+            torch.tensor([[-6.0, 0.0], [6.0, 0.0]]), device=dev).device_form
+        q = (6.0 * torch.randn(r, w, 2, generator=gen)).to(dev)
+        vg = kernels.device_value_and_grad(form)
+        u, g = (torch.stack(x) for x in zip(*(vg(x) for x in q)))
+        rung_case = (form, q, u, g, dict(
+            scalars=torch.stack((0.5 / betas.sqrt(), betas,
+                                 torch.ones_like(betas)), 1),
+            p_std=torch.sqrt(1.0 / betas)[:, None].expand(r, 2).contiguous(),
+            inv_mass=torch.ones(2, device=dev), num_steps=10),
+            [SEED + i for i in range(r)])
+
+    def rung_ms(forced=None):
+        form, q, u, g, kw, seeds = rung_case
+        return median_ms(lambda: kernels.fused_hmc_transition(
+            form, seeds, 7, q, u, g, _layout=forced, **kw))
 
     def times(key, forced=None):
         form, q, p, u, g = state[key]
@@ -458,6 +537,14 @@ def sweep_threads(gen, dev) -> None:
                     "chosen": times(key)}
             if not flags:
                 line["group"] = times(key, "group")
+            print(json.dumps(line))
+        if rung_case is not None:
+            line = {"kernel": "B, thread layout, parallel tempering's sweep",
+                    "flags": list(flags), "form": "mixture", "R": 6,
+                    "W": 16384, "D": 2, "shape": "K=2", "L": 10,
+                    "chosen_ms": rung_ms()}
+            if not flags:
+                line["group_ms"] = rung_ms("group")
             print(json.dumps(line))
     use()
 
@@ -534,6 +621,118 @@ def sweep_registers(gen, dev) -> None:
                               "spill_store_bytes": st,
                               "spill_load_bytes": ld}))
     shutil.rmtree(out_dir)
+
+
+# sweep_sass's options (main sets them from the command line)
+SASS_OPTIONS = {"other": None, "out": _build.BUILD_DIR / "sass"}
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+
+
+def _sass(binary: Path) -> dict:
+    """``cuobjdump -sass`` of ``binary``: each function's instructions (no
+    NOPs) as (address, text), by mangled name."""
+    cuobjdump = str(Path(_build.nvcc_path()).parent / "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(binary)],
+                          capture_output=True, text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = _SASS_LINE.search(line)
+        if m and name and not m.group(2).startswith("NOP"):
+            funcs[name].append((int(m.group(1), 16), m.group(2)))
+    return funcs
+
+
+def _fast_path(body) -> int:
+    """Instructions a thread executes from the start to the unpredicated
+    EXIT when every forward conditional branch is taken: the path of
+    finite, normal operands, on which the division, reciprocal and root
+    branch past the call of their slow path and log1pf past its special
+    cases (a predicated EXIT falls through)."""
+    at = {a: i for i, (a, _) in enumerate(body)}
+    i = n = 0
+    while True:
+        addr, ins = body[i]
+        n += 1
+        op = _opcode(ins)
+        if op == "EXIT" and not ins.startswith("@"):
+            return n
+        if op == "BRA":
+            target = int(re.findall(r"0x[0-9a-f]+", ins)[-1], 16)
+            if not ins.startswith("@") or target > addr:
+                i = at[target]
+                continue
+        i += 1
+
+
+def _opcode(ins: str) -> str:
+    return ins.split()[1] if ins.startswith("@") else ins.split()[0]
+
+
+def _sass_stats(body) -> dict:
+    text = [ins for _, ins in body]
+    ops = [_opcode(i) for i in text]
+    return {"instructions": len(body),
+            "mufu": {o: ops.count(o) for o in sorted(set(ops))
+                     if o.startswith("MUFU")},
+            "branches": sum(o == "BRA" for o in ops),
+            "calls": sum(o.startswith("CALL") for o in ops),
+            "predicated": sum(i.startswith("@") for i in text)}
+
+
+def sweep_sass(gen, dev) -> None:
+    del gen, dev
+    out = SASS_OPTIONS["out"]
+    out.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-split-compile", "0")]
+    src = out / "probes.cu"
+    src.write_text("".join(
+        f'extern "C" __global__ void probe_{name}(const float* __restrict__ '
+        f"x, float* __restrict__ y, int n) {{\n"
+        f"  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
+        f"  if (i < n) {{ {body} }}\n}}\n"
+        for name, body in SASS_PROBES.items()))
+    cubin = out / "probes.cubin"
+    subprocess.run([_build.nvcc_path(), *flags, "-cubin", "-o", str(cubin),
+                    str(src)], check=True)
+    funcs = _sass(cubin)
+    path = {name: _fast_path(funcs[f"probe_{name}"]) for name in SASS_PROBES}
+    for name in SASS_PROBES:
+        body = funcs[f"probe_{name}"]
+        base, extra = SASS_BASELINES.get(name, ("copy", 0))
+        print(json.dumps({"probe": name, "fast_path": path[name],
+                          "baseline": base,
+                          "sequence": path[name] - path[base] + extra,
+                          **_sass_stats(body),
+                          "listing": [ins for _, ins in body]}))
+    libs = {"this": _build.build()}
+    if SASS_OPTIONS["other"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        from compare_builds import load_other
+        load_other(Path(SASS_OPTIONS["other"]).resolve())
+        import other_pbbi.ops._build as other_build
+        libs["other"] = other_build.build()
+    demangle = shutil.which("cu++filt") or str(
+        Path(_build.nvcc_path()).parent / "cu++filt")
+    for tag, lib in libs.items():
+        funcs = _sass(lib)
+        mangled = list(funcs)
+        names = subprocess.run([demangle], input="\n".join(mangled),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+        (out / tag).mkdir(exist_ok=True)
+        for i, (m, name) in enumerate(zip(mangled, names)):
+            if not SASS_KERNELS.search(name):
+                continue
+            path = out / tag / f"{i:03d}.sass"
+            path.write_text(name + "\n" + "".join(
+                f"/*{a:04x}*/ {ins}\n" for a, ins in funcs[m]))
+            print(json.dumps({"library": tag, "kernel": name,
+                              "file": str(path), **_sass_stats(funcs[m])}))
 
 
 if __name__ == "__main__":
