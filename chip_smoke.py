@@ -34,7 +34,11 @@
    that take the other layouts of the Gaussian form (D = 128, 32 lanes a
    walker; tile 1; D = 33 off the 16-byte path; tile 2 is phase 2's W =
    8192, D = 32). Kernel D with the mixture (W = 8192, D = 2), one walker
-   a thread: the plain version's bits and the lane groups'.
+   a thread: the plain version's bits and the lane groups'. Kernels B and
+   D with the diagonal forms at W = 102400, timed: the funnel model under
+   ``reparam="auto"`` (form 12, D = 16, phase 14c's) and form 5 (D = 32),
+   every output the plain version's bits (B's where the decisions agree),
+   as kernel D's standard normal at the bench shape.
 5. Runs ``run_hmc(integrator="pallas_leapfrog")`` on the bench
    configuration: the composed engine with kernel D's trajectory, one
    launch per transition; checks moments, acceptance and the count.
@@ -204,12 +208,16 @@
    sharded one adds. With two or more cards 15a and 15e's SMC also run
    with two processes (``--sharded-rank-15 PATH``).
 
-The line before the last is a JSON object with one entry per kernel, with
-its time beside its bound (``bound_ms``: the larger of the bytes it must
-move over ``HBM_BYTES_PER_S`` and its operations over the card's rate for
-their type, from this run's shapes); the last line is ``{"ok": true, "device": {...}}``. Any failure raises, and the
-script exits non-zero; without a CUDA device it exits non-zero at once.
-It imports nothing of JAX.
+Each phase prints its wall seconds on a line of its own
+(``phase_wall_seconds``) when the next one starts. The line before the
+last is a JSON object with one entry per kernel, with its time beside its
+bound (``bound_ms``: the larger of the bytes it must move over
+``HBM_BYTES_PER_S`` and its operations over the card's rate for their
+type, from this run's shapes; for kernels A and B the whole transition,
+the momentum and Metropolis draws and both energies with the trajectory,
+``a_ops`` and ``b_ops``); the last line is ``{"ok": true, "device":
+{...}}``. Any failure raises, and the script exits non-zero; without a
+CUDA device it exits non-zero at once. It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -342,6 +350,66 @@ def gradient_ops(form, d: int) -> float:
     return n * (n - 1) // 2 * (3 * s + 5 + SASS_SQRTF + SASS_RCP) + 2 * d
 
 
+# The SASS lengths of what every fused transition draws, beside SASS_LOGF,
+# SASS_SQRTF and SASS_EXPF (tools/kernel_sweeps.py --only sass, NVIDIA H100
+# 80GB HBM3 at 700.00 W): a Philox4x32-10 block with its key and three
+# counter words known at run time only; sincosf on the path that arguments
+# in (0, 2 pi] take; the Metropolis draw, a Philox block, the uniform of
+# its first word and its logf, as the compiler joins them (76, where the
+# three apart count 59 + 4 + 26). A Box-Muller pair probed whole is the 80
+# that draw_ops counts for it.
+SASS_PHILOX = 59
+SASS_SINCOSF = 32
+SASS_ACCEPT = 76
+# a uniform in (0, 1] from a word: a shift, a conversion, a multiply, an add
+UNIFORM_OPS = 4
+
+
+def draw_ops(d: int) -> float:
+    """Instructions per walker of what every fused transition draws and
+    decides, counted once a walker whatever the layout repeats: the
+    momentum, ceil(D / 4) Philox blocks of two Box-Muller pairs each (a
+    pair: two uniforms, -2 log u1 and its root, 2 pi u2 and its sine and
+    cosine, the two products) and p = sd n a dim; the Metropolis draw
+    (``SASS_ACCEPT``); and the test, beta (H1 - H0), the finite and
+    divergence tests, the comparison and exp(min(0, -dH)) (6 and the
+    exponential)."""
+    pair = 2 * UNIFORM_OPS + SASS_LOGF + SASS_SQRTF + SASS_SINCOSF + 4
+    return (-(-d // 4) * (SASS_PHILOX + 2 * pair) + d
+            + SASS_ACCEPT + 6 + SASS_EXPF)
+
+
+def a_ops(w: int, d: int, steps: int) -> float:
+    """Kernel A's instructions over W walkers: per dim 4 a leapfrog step
+    (drift, q - mu, times k, kick) and some 10 for the two energies and
+    the half kicks, and the draws (``draw_ops``)."""
+    return w * (d * (4 * steps + 10) + draw_ops(d))
+
+
+def b_ops(w: int, d: int, steps: int, form) -> float:
+    """Kernel B's instructions over W walkers: steps + 1 evaluations of the
+    form and 3 D more a step (drift and kick), both energies' kinetic
+    terms (p^2 / m a dim: a multiply and a multiply-add, twice) and the
+    scaling of their sums (4), and the draws (``draw_ops``)."""
+    return w * ((steps + 1) * (gradient_ops(form, d) + 3 * d) + 4 * d + 4
+                + draw_ops(d))
+
+
+class PhaseClock:
+    """Each phase's wall seconds, printed as a JSON line of its own when
+    the next phase starts, and for the last when ``start(None)`` ends it."""
+
+    def __init__(self):
+        self.name, self.t0 = None, time.perf_counter()
+
+    def start(self, name) -> None:
+        now = time.perf_counter()
+        if self.name is not None:
+            print(json.dumps({"phase_wall_seconds": self.name,
+                              "seconds": now - self.t0}), flush=True)
+        self.name, self.t0 = name, now
+
+
 def fail(msg: str) -> None:
     raise RuntimeError(f"chip_smoke: {msg}")
 
@@ -457,7 +525,9 @@ def main() -> None:
     from physicsbasedbayesianinference_tpu_torch.ops import potentials as pot
     from physicsbasedbayesianinference_tpu_torch.utils import convert
 
+    clock = PhaseClock()
     # ---- 1. device and build ----------------------------------------------
+    clock.start('1. device and build')
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -473,6 +543,7 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.2f} s ({lib.name})")
 
     # ---- 1, continued: constructors default to the card --------------------
+    clock.start('1, continued: constructors default to the card')
     made = {
         "new_ensemble": new_ensemble(4, 3).q,
         "physics.new_system": physics.new_system(
@@ -515,6 +586,7 @@ def main() -> None:
                             device=dev)
 
     # ---- 2. kernels against their plain versions ---------------------------
+    clock.start('2. kernels against their plain versions')
     def check_a(case, w, d, steps, step, random_metric, time_it,
                 threshold=1000.0, beta=1.0, scale=1.0, trajectory_dtype=None,
                 q=None):
@@ -555,11 +627,8 @@ def main() -> None:
                 and torch.equal(out_k["g"], k * (q - mu))):
             fail(f"{case}: a rejected walker's q' is not q bit for bit, or "
                  f"its g' not k (q - mu)")
-        # per dim: 4 instructions a step (drift, q - mu, times k, kick) and
-        # some 10 for the two energies and the half kicks
         line = {"case": case, "max_abs_err": err,
-                **bound(transition_bytes(w, d, False),
-                        w * d * (4 * steps + 10))}
+                **bound(transition_bytes(w, d, False), a_ops(w, d, steps))}
         if time_it:
             line["ms"] = median_ms(lambda: kernels.fused_hmc_diag_quadratic(
                 SEED, counter, q, **kw))
@@ -616,7 +685,7 @@ def main() -> None:
                 **({"same_bits_as_group_layout": True} if layouts else {}),
                 **({"same_bits_as_plain": True} if bits else {}),
                 **bound(transition_bytes(w, d, True),
-                        w * (steps + 1) * (gradient_ops(form, d) + 3 * d))}
+                        b_ops(w, d, steps, form))}
         if time_it:
             line["ms"] = median_ms(lambda: kernels.fused_hmc_transition(
                 form, SEED, counter, q, u, g, **kw))
@@ -687,6 +756,7 @@ def main() -> None:
     b_errs.append(b_nbody8k["max_abs_err"])
 
     # ---- 3. main path at full width ----------------------------------------
+    clock.start('3. main path at full width')
     kernels.reset_launch_counts()
     w, d, steps, n_warm, n_samp = 102400, 32, 16, 200, 256
     q0 = torch.randn(w, d, generator=seeded(0), device=dev)
@@ -718,6 +788,7 @@ def main() -> None:
         "kernel_ms": a_main["ms"]}))
 
     # ---- 4. verify drive: correlated 2-D Gaussian --------------------------
+    clock.start('4. verify drive: correlated 2-D Gaussian')
     target = pot.make_gaussian(torch.tensor([2.0, -1.0]),
                                cov=torch.tensor([[1.0, 0.8], [0.8, 2.0]]),
                                device=dev)
@@ -779,6 +850,7 @@ def main() -> None:
         "walker_transitions_per_s": w * n_samp / res3.sampling_seconds}))
 
     # ---- 2, continued: kernels D and E against their plain versions ------
+    clock.start('2, continued: kernels D and E against their plain versions')
     # (after phases 3 and 4, with a generator of their own, so that the
     # earlier phases draw what they drew before these checks existed)
 
@@ -856,7 +928,8 @@ def main() -> None:
     d_main = check_d("D std_normal (diag form) W=102400 D=32 L=16",
                      ("diag", (torch.ones(32, device=dev),
                                torch.zeros(32, device=dev))),
-                     102400, 32, 16, 0.3, torch.ones(32, device=dev))
+                     102400, 32, 16, 0.3, torch.ones(32, device=dev),
+                     bits=True)
     a32 = torch.randn(32, 32, generator=gen2) / 32**0.5
     corr32 = pot.make_gaussian(torch.randn(32, generator=gen2),
                                cov=a32 @ a32.T + 0.5 * torch.eye(32),
@@ -876,6 +949,35 @@ def main() -> None:
         p=torch.randn(8192, 2, generator=seeded(22), device=dev),
         bits=True, layouts=True, group_ms=False)
     d_errs = [d_main["max_abs_err"], d_corr["max_abs_err"]]
+    # the diagonal forms in kernels B and D at W = 102400: phase 14c's
+    # funnel model under reparam="auto" (form 12, D = 16) and form 5 at D =
+    # 32 with a random k and mean, every output the plain version's bits
+    # (B's where the decisions agree); their inputs from generators of
+    # their own and gen's state kept, so that later checks draw what they
+    # drew before these rows
+    kept = gen.get_state()
+    funnel_auto = models.make_model_potential(
+        models.funnel, (), {}, reparam="auto",
+        device=dev).potential.device_form
+    diag32 = ("diag", ((0.5 + 1.5 * torch.rand(
+        32, generator=seeded(24), device=dev)), torch.randn(
+            32, generator=seeded(25), device=dev)))
+    diag_rows = {}
+    for key, form, d_ in (("diag_model", funnel_auto, 16),
+                          ("diag", diag32, 32)):
+        q_ = torch.randn(102400, d_, generator=seeded(26), device=dev)
+        diag_rows["B " + key] = check_b(
+            f"B {key} W=102400 D={d_} L=16", form, q_, 16, 0.2, True,
+            bits=True, plain_reps=2)
+        diag_rows["D " + key] = check_d(
+            f"D {key} W=102400 D={d_} L=16", form, 102400, d_, 16, 0.2,
+            (0.5 + 1.5 * torch.rand(d_, generator=seeded(27),
+                                    device=dev)),
+            q=q_, p=torch.randn(102400, d_, generator=seeded(28),
+                                device=dev), bits=True)
+    gen.set_state(kept)
+    d_errs += [diag_rows[k]["max_abs_err"] for k in ("D diag_model",
+                                                      "D diag")]
     # kernel B at the same shape and form, for D's time beside B's
     b_corr = check_b("B correlated gaussian W=102400 D=32 L=16", corr32,
                      randn2(102400, 32), 16, 0.1, True)
@@ -968,6 +1070,7 @@ def main() -> None:
                           0.05, True)["max_abs_err"])
 
     # ---- 5. run_hmc(integrator="pallas_leapfrog") on the bench config ------
+    clock.start('5. run_hmc(integrator="pallas_leapfrog") on the bench config')
     q0 = torch.randn(w, d, generator=seeded(0), device=dev)
     kernels.reset_launch_counts()
     res5 = run_hmc(SEED, pot.make_standard_normal(d), q0,
@@ -994,6 +1097,7 @@ def main() -> None:
         "kernel_ms": d_main["ms"]}))
 
     # ---- 6. physics at full size: 16384-body Plummer sphere -----------------
+    clock.start('6. physics at full size: 16384-body Plummer sphere')
     n_body, dt, n_steps = plummer.num_bodies, 5e-4, 2000
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -1075,6 +1179,7 @@ def main() -> None:
             "seconds": seconds}))
 
     # ---- 7. the correlated Gaussian at full width ---------------------------
+    clock.start('7. the correlated Gaussian at full width')
     # mean and cov = a a^T + 0.5 I with a = randn(32, 32) / sqrt(32), from a
     # generator of the phase's own; 7a through the generic fused kernel (B),
     # 7b through the composed engine around the leapfrog kernel (D).
@@ -1130,6 +1235,7 @@ def main() -> None:
             "kernel_ms": kernel_ms}))
 
     # ---- 8. ChEES-HMC on models of the DSL ----------------------------------
+    clock.start('8. ChEES-HMC on models of the DSL')
     # 8a and 8b: warmup and sampling inside kernel B through the model's
     # device form, at the bench width. The reference is the composed engine
     # on the same model (autograd through the DSL, its own random stream) at
@@ -1345,6 +1451,7 @@ def main() -> None:
         "walker_transitions_per_s": w * n_samp8e / res8e.sampling_seconds}))
 
     # ---- 2, once more: the count on the device, the proposal, the forms ---
+    clock.start('2, once more: the count on the device, the proposal, the forms')
     gen8 = torch.Generator(device="cpu").manual_seed(SEED + 8)
 
     def count(n):
@@ -1430,7 +1537,7 @@ def main() -> None:
                 **({"same_bits_as_group_layout": True} if layouts else {}),
                 **bound(transition_bytes(w_, d_, True)
                         + (8 * w_ * d_ if proposal else 0),
-                        w_ * (ran + 1) * (gradient_ops(form, d_) + 3 * d_))}
+                        b_ops(w_, d_, ran, form))}
         if time_it:
             line["ms"] = median_ms(run)
             if layouts:
@@ -1491,8 +1598,7 @@ def main() -> None:
         "max_abs_err": compare(
             "A counted", named(a_dev, A_ORDER), named(a_plain, A_ORDER),
             torch.log(philox.accept_uniforms(SEED, 7, 102400, dev))),
-        **bound(transition_bytes(102400, 32, False),
-                102400 * 32 * (4 * 16 + 10)),
+        **bound(transition_bytes(102400, 32, False), a_ops(102400, 32, 16)),
         "ms": median_ms(lambda: kernels.fused_hmc_diag_quadratic(
             SEED, 7, q_a, num_steps=count16, max_steps=16, **kw_a)),
         "plain_ms": median_ms(
@@ -1614,6 +1720,7 @@ def main() -> None:
         "ms_per_transition": 1e3 * res8f.sampling_seconds / 20}))
 
     # ---- 2, at the tempered shapes: a potential scale and a beta ----------
+    clock.start('2, at the tempered shapes: a potential scale and a beta')
     # the shapes phases 9 and 10 give kernels A and B, with SMC's stage beta
     # as the potential scale (9a, 9b) and a tempering rung's beta with its
     # thermal momenta (10); drawn after every earlier phase's draws
@@ -1640,6 +1747,7 @@ def main() -> None:
     b_errs.append(b_gauss10["max_abs_err"])
 
     # ---- 9. tempered SMC, mutating in kernels A and B -----------------------
+    clock.start('9. tempered SMC, mutating in kernels A and B')
     def smc_phase(sub, title, target, q0, wanted, **kw):
         """run_smc(kernel="auto") with every mutation one launch of
         ``wanted`` at the stage beta as the kernel's potential scale, one
@@ -1774,6 +1882,7 @@ def main() -> None:
                       plain_timing=dict(reps=2, rounds=3))
 
     # ---- 10. parallel tempering on the bimodal mixture ----------------------
+    clock.start('10. parallel tempering on the bimodal mixture')
     # modes at (+-6, 0), sigma 1; every walker starts in the left one
     r10, w10, n_warm10, n_samp10 = 6, 16384, 200, 400
     q10 = torch.tensor([-6.0, 0.0], device=dev) + 0.3 * torch.randn(
@@ -1844,6 +1953,7 @@ def main() -> None:
              f"{blocking_long}")
 
     # ---- 2, at the rung axis: a ladder's rungs in one launch ------------
+    clock.start("2, at the rung axis: a ladder's rungs in one launch")
     def check_rungs(case, form, q, steps, step_sizes, betas, seeds, u=None,
                     g=None, plain_bits=True, layouts=False):
         """A launch of kernel A (``form`` None: the standard normal) or B
@@ -1908,8 +2018,8 @@ def main() -> None:
             named([x[i] for x in want], order),
             torch.log(philox.accept_uniforms(seeds[i], counter, w, dev)))
             for i in range(r))
-        ops = w * d * (4 * steps + 10) if form is None else w * (
-            steps + 1) * (gradient_ops(form, d) + 3 * d)
+        ops = (a_ops(w, d, steps) if form is None
+               else b_ops(w, d, steps, form))
         line = {"case": case, "max_abs_err": err,
                 "same_bits_as_plain": plain_bits,
                 "same_bits_as_rung_launches": True,
@@ -1989,6 +2099,7 @@ def main() -> None:
         res10c.u, res10c.g, plain_bits=False)
 
     # ---- 11. lockstep NUTS on the sampler-matrix target ---------------------
+    clock.start('11. lockstep NUTS on the sampler-matrix target')
     # the ill-conditioned 16-dim Gaussian, sd logspace(0, 1, 16); NUTS has
     # no fused kernel: the Gaussian's batched value and gradient on the card
     w11, d11, n_warm11, n_samp11 = 65536, 16, 300, 300
@@ -2032,6 +2143,7 @@ def main() -> None:
              f"{depth} (2-8), launches {kernels.launch_counts()}")
 
     # ---- 12. the command-line driver on the card ----------------------------
+    clock.start('12. the command-line driver on the card')
     from physicsbasedbayesianinference_tpu_torch import main as cli
     from physicsbasedbayesianinference_tpu_torch import native
     from physicsbasedbayesianinference_tpu_torch.checkpoint import (
@@ -2438,6 +2550,7 @@ def main() -> None:
              f"{accept}")
 
     # ---- 13. the sharded paths (parallel/) on the card ----------------------
+    clock.start('13. the sharded paths (parallel/) on the card')
     # One card: the sharded paths run in a one-rank NCCL group in this
     # process (13b, 13c, 13e) and through torchrun with one process (13d).
     # What a K-rank run needs of the kernels is held at the kernel level
@@ -2490,7 +2603,7 @@ def main() -> None:
             SEED, 13, q13[rows], k_diag=ones, mean=zeros,
             walker_offset=off, **kw13),
         A_ORDER, transition_bytes(w // 2, d, False),
-        w // 2 * d * (4 * steps + 10))
+        a_ops(w // 2, d, steps))
     form7 = pot.make_gaussian(mean7, cov=cov7, device=dev).device_form
     u13, g13 = kernels.device_value_and_grad(form7)(q13)
     im13 = (0.5 + 1.5 * torch.rand(d, generator=gen13)).to(dev)
@@ -2506,7 +2619,7 @@ def main() -> None:
             form7, SEED, 13, q13[rows], u13[rows], g13[rows],
             walker_offset=off, **kw13b),
         B_ORDER, transition_bytes(w // 2, d, True),
-        w // 2 * (steps + 1) * (gradient_ops(form7, d) + 3 * d))
+        b_ops(w // 2, d, steps, form7))
 
     # kernel E: the sources a separate array. As their own sources the
     # bodies give the one-set launch's bits; over two blocks of sources,
@@ -2567,6 +2680,7 @@ def main() -> None:
     print(json.dumps(e_tile))
 
     # ---- 13b. sharded_run_hmc in a one-rank NCCL group ----------------------
+    clock.start('13b. sharded_run_hmc in a one-rank NCCL group')
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1)
     mesh = par.make_walker_mesh()
@@ -2781,6 +2895,7 @@ def main() -> None:
         "phase_7a_sampling_ms": corr_ms["7a"], "card": card}))
 
     # ---- 13c. sharded SMC, one rank, on phase 9a's target and start ----------
+    clock.start("13c. sharded SMC, one rank, on phase 9a's target and start")
     kw9 = dict(num_mutation_steps=3, num_leapfrog_steps=10,
                init_step_size=0.8, beta0=beta0, max_stages=40)
     kernels.reset_launch_counts()
@@ -2832,6 +2947,7 @@ def main() -> None:
         "ms_per_stage_9a": line9a["ms_per_stage"], "card": card}))
 
     # ---- 13d. the CLI, sharded, through torchrun ------------------------------
+    clock.start('13d. the CLI, sharded, through torchrun')
     def torchrun(k, args):
         """``python -m torch.distributed.run --nproc_per_node=k args`` from
         the checkout: (its summary, rank 0's launches, seconds)."""
@@ -2907,6 +3023,7 @@ def main() -> None:
         "runs": cli13, "card": card}))
 
     # ---- 13e. ring_simulate, one rank, on phase 6's Plummer sphere ------------
+    clock.start("13e. ring_simulate, one rank, on phase 6's Plummer sphere")
     # The K = 1 ring is phase 6's velocity Verlet with one launch of kernel
     # E's source-block form a step (and one to start). Tolerance on the
     # final positions against physics.simulate: a per-step difference of
@@ -2948,6 +3065,7 @@ def main() -> None:
         "card": card}))
 
     # ---- 14. this slice: kernel A's bf16 trajectory, every example model ---
+    clock.start("14. this slice: kernel A's bf16 trajectory, every example model")
     # 14a: kernel A with trajectory_dtype=bfloat16, the TPU kernel's option
     # (pallas_kernels.py:900). Held against its plain version at the bench
     # shape and at a D off the 16-byte path: kernel and plain version round
@@ -3248,9 +3366,9 @@ def main() -> None:
     # the bench width, on the states of 14d under their metric (the mass
     # the inverse of the posterior variance) and half 14c's step, timed
     # with CUDA graphs at L=16; B also with the count on the device and the
-    # proposal at W=8192 (n=40 clipped to 16). The linear form's outputs
-    # and the coin's must be the plain version's bits, as the logistic
-    # form's. The two centred models are compared over 2 steps (n=5
+    # proposal at W=8192 (n=40 clipped to 16). The linear form's outputs,
+    # the coin's and the diagonal form's must be the plain version's bits,
+    # as the logistic form's. The two centred models are compared over 2 steps (n=5
     # clipped to 2), timed at 16: in their necks a float32 trajectory
     # amplifies a last-bit difference between kernel and plain version
     # past compare()'s tolerance within 16 steps (the centred eight
@@ -3284,8 +3402,8 @@ def main() -> None:
             q14, var14 = near_posterior(label, nd)
             step14 = 0.5 * summaries14[label]["step_size"]
         lin = form14[0] == "linear"
-        # the linear and the coin forms: the plain version's bits
-        exact = lin or form14[0] == "coin"
+        # the linear, coin and diagonal forms: the plain version's bits
+        exact = lin or form14[0] in ("coin", "diag_model")
         threads = {k: kernels.form_layout(form14, nd, k) == "thread"
                    for k in ("B", "D")}
         short = label in ("eight_schools", "funnel")
@@ -3314,6 +3432,7 @@ def main() -> None:
                 plain_timing=slow if lin else dict(reps=2, rounds=3))
 
     # ---- 15. every sampler over the walker group of phase 13 -----------------
+    clock.start('15. every sampler over the walker group of phase 13')
     # The one-rank NCCL group of phase 13, at full width. A group of one
     # reduces in one order and a fused step at walker offset 0 draws the
     # whole launch's bits, so 15a-15c and 15e's runs must be the unsharded
@@ -3653,6 +3772,7 @@ def main() -> None:
                 **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")}}
 
+    clock.start(None)
     print(json.dumps({"kernels": [
         entry("fused_hmc_diag_quadratic", SOURCE, 893, launched_a, a_errs,
               a_main),
@@ -3666,6 +3786,12 @@ def main() -> None:
               c_main),
         entry("leapfrog_trajectory", f"{CSRC}/leapfrog.cu", 140, launched_d,
               d_errs, d_main),
+        # the diagonal form (form 5) in kernel B, which no driven path runs
+        # (the funnel model's form 12 is 14b's row)
+        entry("fused_hmc_transition", f"{CSRC}/forms.cuh", 373, 0,
+              [diag_rows[k]["max_abs_err"] for k in ("B diag",
+                                                     "B diag_model")],
+              diag_rows["B diag"]),
         # B and D once more, at the correlated Gaussian of phase 7
         entry("fused_hmc_transition", SOURCE, 373, corr_launches["7a"],
               b_errs, b_corr),

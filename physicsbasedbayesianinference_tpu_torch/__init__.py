@@ -29,7 +29,7 @@ from .checkpoint import CheckpointManager
 from .chees import ChEESRunResult, run_chees_hmc
 from .config import RunConfig
 from .constants import NATURAL, SI, Constants, solar_system_units
-from .device import default_device
+from .device import default_device, set_default_device
 from .ensemble import (
     EnsembleState,
     kinetic_energy,
@@ -64,6 +64,7 @@ __all__ = [
     "SI",
     "solar_system_units",
     "default_device",
+    "set_default_device",
     "EnsembleState",
     "new_ensemble",
     "sample_positions",

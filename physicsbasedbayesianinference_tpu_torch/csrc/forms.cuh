@@ -145,48 +145,107 @@ __device__ __forceinline__ void share_walker(const float qv[4], int lane,
 // c is a model's normalising constant, the funnel model's under
 // reparam="auto"); gradient k_d (q_d - mu_d), separable, so no walker
 // buffer.
+//
+// A lane's k and mu never change within a trajectory, so it holds its
+// four of each and c in registers (hold, once, after the block staged
+// them padded with zeros to 4 T floats, as two 16-byte loads): a step is
+// then four subtractions and four multiplies a lane, with no shared load
+// and no bound test. Past D, k = mu = 0 and the lane's q is 0 in both
+// kernels (zero momentum, zero inverse mass), so a padded dim's gradient
+// is 0 and its term of the value +0: the sum keeps the bits of the sum
+// over the dims that exist, the lane's four in order, then the butterfly
+// (ops/kernels.py _diag_vg, _diag_model_vg).
 struct DiagQuadraticForm {
   const float* k;                 // [D]
   const float* mean;              // [D]
   const float* consts = nullptr;  // [1]: c, or null for 0
+  float4 k4{}, mu4{};             // the lane's four (hold)
+  float c = 0.0f;
   static constexpr bool kTiled = false;
   static constexpr int kBufPad = 1;
 
-  __host__ __device__ int shared_floats(int d, int) const {
-    return 2 * d + 1;
+  __host__ __device__ int shared_floats(int, int tpw) const {
+    return 8 * tpw + 4;  // k, mu, c and 3 floats that keep 16-byte rows
   }
 
-  __device__ void stage(float* sh, int d, int) const {
-    for (int i = threadIdx.x; i < d; i += blockDim.x) {
-      sh[i] = k[i];
-      sh[d + i] = mean[i];
+  __device__ void stage(float* sh, int d, int tpw) const {
+    const int padded = 4 * tpw;
+    for (int i = threadIdx.x; i < padded; i += blockDim.x) {
+      const bool in = i < d;
+      sh[i] = in ? k[i] : 0.0f;
+      sh[padded + i] = in ? mean[i] : 0.0f;
     }
-    if (threadIdx.x == 0) sh[2 * d] = consts != nullptr ? consts[0] : 0.0f;
+    if (threadIdx.x == 0)
+      sh[2 * padded] = consts != nullptr ? consts[0] : 0.0f;
   }
 
-  __device__ void grad(const float qv[4], float gv[4], int lane, int,
-                       int d, const float* sh, float*) const {
-    const int base = 4 * lane;
+  __device__ void hold(const float* sh, int lane, int tpw) {
+    k4 = reinterpret_cast<const float4*>(sh)[lane];
+    mu4 = reinterpret_cast<const float4*>(sh)[tpw + lane];
+    c = sh[8 * tpw];
+  }
+
+  __device__ void grad(const float qv[4], float gv[4], int, int, int,
+                       const float*, float*) const {
+    const float kv[4] = {k4.x, k4.y, k4.z, k4.w};
+    const float mv[4] = {mu4.x, mu4.y, mu4.z, mu4.w};
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      gv[e] = (base + e < d)
-                  ? sh[base + e] * (qv[e] - sh[d + base + e])
-                  : 0.0f;
+    for (int e = 0; e < 4; ++e) gv[e] = kv[e] * (qv[e] - mv[e]);
   }
 
-  __device__ float value(const float qv[4], const float[4], int lane,
-                         int tpw, int d, const float* sh, float*) const {
-    const int base = 4 * lane;
+  __device__ float value(const float qv[4], const float[4], int, int tpw,
+                         int, const float*, float*) const {
+    const float kv[4] = {k4.x, k4.y, k4.z, k4.w};
+    const float mv[4] = {mu4.x, mu4.y, mu4.z, mu4.w};
     float part = 0.0f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (base + e < d) {
-        const float qc = qv[e] - sh[d + base + e];
-        part += sh[base + e] * qc * qc;
-      }
-    return 0.5f * segment_sum(part, tpw) + sh[2 * d];
+    for (int e = 0; e < 4; ++e) {
+      const float qc = qv[e] - mv[e];
+      part += kv[e] * qc * qc;
+    }
+    return 0.5f * segment_sum(part, tpw) + c;
   }
 };
+
+// A form that holds a lane's share of its parameters in registers for a
+// trajectory has hold(sh, lane, tpw) (DiagQuadraticForm); the kernels call
+// it on their own copy of the form once the block has staged them.
+template <class Form, class = void>
+struct holds_lane : std::false_type {};
+template <class Form>
+struct holds_lane<Form, std::void_t<decltype(&Form::hold)>>
+    : std::true_type {};
+
+template <class Form>
+__device__ __forceinline__ Form lane_form(const Form& form, const float* sh,
+                                          int lane, int tpw) {
+  Form f = form;
+  if constexpr (holds_lane<Form>::value) f.hold(sh, lane, tpw);
+  return f;
+}
+
+// Blocks of kernels B and D in the lane groups an SM must hold, by form
+// (__launch_bounds__): kMinBlocks, or the diagonal form's own, 4 in B (at
+// most 64 registers: uncapped it took 69, 3 blocks an SM, and was 6% slower
+// at W = 102400, D = 16 and 32) and 6 in D (40 registers, from 48: 4-15%
+// faster; tools/kernel_sweeps.py --only diag on an H100 80GB HBM3 at
+// 700 W, PERF.md). PBBI_DIAG_MIN_BLOCKS (the sweep's) sets both. Walker
+// tiles of 2 and 4 were 5-27% slower (PERF.md): the form takes R = 1.
+#ifdef PBBI_DIAG_MIN_BLOCKS
+constexpr int kDiagMinBlocksB = PBBI_DIAG_MIN_BLOCKS;
+constexpr int kDiagMinBlocksD = PBBI_DIAG_MIN_BLOCKS;
+#else
+constexpr int kDiagMinBlocksB = 4;
+constexpr int kDiagMinBlocksD = 6;
+#endif
+template <class Form, bool kKernelB>
+constexpr int lane_min_blocks() {
+  if constexpr (std::is_same_v<Form, DiagQuadraticForm>) {
+    return kKernelB ? kDiagMinBlocksB : kDiagMinBlocksD;
+  } else {
+    return kMinBlocks;
+  }
+}
 
 // U = 0.5 (q - mu)^T P (q - mu); gradient (q - mu) @ P, accumulated over
 // rows of P in index order, each step one fused multiply-add (named, since

@@ -410,10 +410,31 @@ __global__ void __launch_bounds__(kBlock) diag_quadratic_loop_kernel(
 // otherwise scalar accesses with a bound test. The Philox counter names
 // (transition, walker, dim-group), so the draws depend on neither R nor
 // kVec.
+//
+// The block's first threads draw the Metropolis uniforms, one walker each,
+// into shared memory before the block's barrier, as kernel A does, and each
+// lane reads its walker's at the decision: drawn on every lane, the draw (a
+// Philox block and a logf, some 80 instructions) was issued T times a
+// walker. At T = 1, where a lane is its walker and staging saves nothing,
+// the lane's own draw at the decision (as before) and after the barrier
+// were both measured, against this, in one call: no faster at T = 1, and
+// the tiled forms 1-5% slower. (Drawn after the barrier, with a second
+// barrier before the decisions, B with the diagonal forms was 8% slower;
+// the metric staged beside the draws put a second load before the barrier,
+// and the short launches at T = 1 were 3-14% slower than with each lane's
+// own loads of it, kept here. PERF.md.)
 // ---------------------------------------------------------------------------
 
+// Floats of kernel B's own part of a block's shared memory, before the
+// form's: the log uniform of each of the block's kBlock / T * R walkers, a
+// multiple of 4, so the form's part stays 16-byte aligned.
+__host__ __device__ constexpr int transition_floats(int tpw, int tile) {
+  return (kBlock / tpw * tile + 3) / 4 * 4;
+}
+
 template <class Form, int R, bool kVec, bool kDyn, bool kProp>
-__global__ void __launch_bounds__(kBlock, kMinBlocks) generic_kernel(
+__global__ void __launch_bounds__(kBlock, lane_min_blocks<Form, true>())
+generic_kernel(
     Form form, const float* __restrict__ q, const float* __restrict__ u,
     const float* __restrict__ g, const float* __restrict__ inv_mass,
     const float* __restrict__ p_std, const float* __restrict__ scalars,
@@ -430,13 +451,19 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) generic_kernel(
   p_std += rung.index * num_dims;
   scalars += 3 * rung.index;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  float* log_u = reinterpret_cast<float*>(smem4);  // the block's walkers'
+  float* smem = log_u + transition_floats(tpw, R);  // the form's
+  const int groups = kBlock / tpw;
+  const int wpb = groups * R;  // the block's walkers
   form.stage(smem, num_dims, tpw);
+  for (int j = threadIdx.x; j < wpb; j += kBlock)
+    log_u[j] = logf(pbbi::accept_uniform(
+        t, w0 + (uint32_t)((long long)blockIdx.x * wpb + j), k0, k1));
   __syncthreads();
 
   const int lane = threadIdx.x % tpw;
   const int slot = threadIdx.x / tpw;
-  const int groups = kBlock / tpw;
+  const Form lform = lane_form(form, smem, lane, tpw);
   // walker r of the lane group has the buffer row r * groups + slot: the
   // rows that a warp reads together are neighbours; a row's kBufPad keeps
   // neighbouring rows in different banks
@@ -488,7 +515,8 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) generic_kernel(
     for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int e = 0; e < 4; ++e) qv[r][e] += pv[r][e] * dtim[e];
-    grad_walkers<R>(form, qv, gv, lane, tpw, num_dims, smem, buf, row_step);
+    grad_walkers<R>(lform, qv, gv, lane, tpw, num_dims, smem, buf,
+                    row_step);
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
@@ -496,8 +524,8 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) generic_kernel(
   }
   float u1[R];
   if (num_steps > 0) {
-    value_walkers<R>(form, qv, gv, lane, tpw, num_dims, smem, buf, row_step,
-                     u1);
+    value_walkers<R>(lform, qv, gv, lane, tpw, num_dims, smem, buf,
+                     row_step, u1);
   } else {
 #pragma unroll
     for (int r = 0; r < R; ++r) u1[r] = u0[r];
@@ -513,8 +541,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) generic_kernel(
     }
     const float h1 = 0.5f * segment_sum(kin1, tpw) + scale * u1[r];
     const Decision dec =
-        metropolis(h0[r], h1, beta, threshold,
-                   logf(pbbi::accept_uniform(t, w0 + (uint32_t)w, k0, k1)));
+        metropolis(h0[r], h1, beta, threshold, log_u[slot * R + r]);
     if (w >= num_walkers) continue;
     const long long at = (rung.row + w) * num_dims + base;
     if (kProp) {  // the endpoint (q1, -p1), whatever the decision
@@ -579,7 +606,8 @@ int launch_generic(Form form, const float* q, const float* u, const float* g,
     // (warmup) or without (sampling)
     const auto kernel =
         pick_variant<Form, R>(vec, dyn, prop);
-    const size_t smem = shared_bytes(form, num_dims, tpw, R);
+    const size_t smem = shared_bytes(form, num_dims, tpw, R) +
+                        sizeof(float) * transition_floats(tpw, R);
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;

@@ -50,7 +50,8 @@
 namespace {
 
 template <class Form, int R, bool kVec>
-__global__ void __launch_bounds__(kBlock, kMinBlocks) leapfrog_kernel(
+__global__ void __launch_bounds__(kBlock, lane_min_blocks<Form, false>())
+leapfrog_kernel(
     Form form, const float* __restrict__ q, const float* __restrict__ p,
     const float* __restrict__ u, const float* __restrict__ g,
     const float* __restrict__ inv_mass, const float* __restrict__ step,
@@ -64,6 +65,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) leapfrog_kernel(
 
   const int lane = threadIdx.x % tpw;
   const int slot = threadIdx.x / tpw;
+  const Form lform = lane_form(form, smem, lane, tpw);
   const int groups = kBlock / tpw;
   // buffer rows as in kernel B: walker r of the lane group has row
   // r * groups + slot
@@ -97,7 +99,8 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) leapfrog_kernel(
     load_group<kVec>(g, at, cached ? left[r] : 0, gv[r]);
   }
   if (!cached)
-    grad_walkers<R>(form, qv, gv, lane, tpw, num_dims, smem, buf, row_step);
+    grad_walkers<R>(lform, qv, gv, lane, tpw, num_dims, smem, buf,
+                    row_step);
 
   for (int s = 0; s < num_steps; ++s) {
 #pragma unroll
@@ -107,7 +110,8 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) leapfrog_kernel(
         pv[r][e] -= half * gv[r][e];
         qv[r][e] += (dt * pv[r][e]) * imv[e];
       }
-    grad_walkers<R>(form, qv, gv, lane, tpw, num_dims, smem, buf, row_step);
+    grad_walkers<R>(lform, qv, gv, lane, tpw, num_dims, smem, buf,
+                    row_step);
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
@@ -119,8 +123,8 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) leapfrog_kernel(
     for (int r = 0; r < R; ++r)
       u1[r] = first + r < num_walkers ? u[first + r] : 0.0f;
   } else {
-    value_walkers<R>(form, qv, gv, lane, tpw, num_dims, smem, buf, row_step,
-                     u1);
+    value_walkers<R>(lform, qv, gv, lane, tpw, num_dims, smem, buf,
+                     row_step, u1);
   }
 #pragma unroll
   for (int r = 0; r < R; ++r) {

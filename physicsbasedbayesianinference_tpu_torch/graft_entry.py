@@ -78,14 +78,22 @@ def _dry_rank(rank: int, n: int, directory: str, device: str) -> None:
         dist.destroy_process_group()
 
 
-def dryrun_multichip(n: int) -> None:
+def dryrun_multichip(n: int, device=None) -> None:
     """One sharded transition through the composed and the fused kernel
     (``parallel.build_sharded_hmc_step``) over an ``n``-rank group of
     processes, on tiny shapes (8 walkers a rank, 4 dims, 3 steps): NCCL
-    over ``n`` cards where the host has them, else gloo on CPU processes.
-    Each rank checks the group's accept rate and the block and gathered
-    shapes; a failing rank raises here."""
-    device = "cuda" if torch.cuda.device_count() >= n else "cpu"
+    over ``n`` cards, or gloo on CPU processes with ``device="cpu"``
+    (``device.default_device()``'s type unless given; a host with fewer
+    than ``n`` cards raises). Each rank checks the group's accept rate and
+    the block and gathered shapes; a failing rank raises here."""
+    from physicsbasedbayesianinference_tpu_torch.device import resolve_device
+
+    device = resolve_device(device).type
+    if device == "cuda" and torch.cuda.device_count() < n:
+        raise RuntimeError(
+            f"a dry run over {n} cards, but this host has "
+            f"{torch.cuda.device_count()}; pass device='cpu' for {n} CPU "
+            f"processes")
     with tempfile.TemporaryDirectory(prefix="pbbi_dryrun_") as directory:
         torch.multiprocessing.start_processes(
             _dry_rank, args=(n, directory, device), nprocs=n, join=True,

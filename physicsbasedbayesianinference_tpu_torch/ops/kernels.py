@@ -459,10 +459,13 @@ def _param_shapes(device_form, d: int):
 
 def logistic_shared_bytes(num_rows: int, num_dims: int,
                           tile: int = 1) -> int:
-    """Dynamic shared memory of a block of kernels B and D with the
-    logistic or the linear form at walker tile ``tile`` (csrc/forms.cuh
-    LogisticForm, LinearForm): x with its column of ones, padded to a
-    multiple of a chunk of ``LOGISTIC_ROWS`` T rows of 4 T + 4 floats, y,
+    """Dynamic shared memory of a block of kernel B with the logistic or
+    the linear form at walker tile ``tile`` (csrc/forms.cuh LogisticForm,
+    LinearForm; kernel D's block takes the same less kernel B's own part):
+    kernel B's own part (csrc/fused_hmc.cu transition_floats: the log
+    uniform of each of the block's walkers, rounded up to whole 16 bytes),
+    x with its column of ones, padded to a multiple of a chunk of
+    ``LOGISTIC_ROWS`` T rows of 4 T + 4 floats, y,
     a buffer row of 4 T + 4 floats for each of the block's walkers, and
     each lane group's residual tile of a chunk's rows times ``tile``
     walkers, plus 4 floats."""
@@ -471,7 +474,8 @@ def logistic_shared_bytes(num_rows: int, num_dims: int,
     rows = -(-num_rows // chunk) * chunk
     form = -(-rows * (4 * t + 5) // 4) * 4
     groups = _BLOCK_THREADS // t
-    return 4 * (form + groups * tile * (4 * t + 4)
+    own = -(-groups * tile // 4) * 4
+    return 4 * (own + form + groups * tile * (4 * t + 4)
                 + groups * (chunk * tile + 4))
 
 
@@ -651,9 +655,12 @@ def _tile_for(device_form, num_walkers: int, num_dims: int,
 
 
 def _diag_vg(k_diag, mean):
+    """``U = 0.5 sum_d k_d (q_d - mu_d)^2``, the value's sum over dims as
+    kernels B and D's lanes take it (csrc/forms.cuh DiagQuadraticForm)."""
     def vg(q):
         qc = q - mean
-        return 0.5 * torch.sum(k_diag * qc * qc, dim=1), k_diag * qc
+        u = 0.5 * _dim_sum(k_diag * qc * qc, threads_per_walker(q.shape[1]))
+        return u, k_diag * qc
     return vg
 
 
@@ -984,12 +991,12 @@ def _funnel_model_vg(fp, consts):
 
 def _diag_model_vg(k_diag, mean, consts):
     """The diagonal form plus a constant (the funnel model under
-    reparam="auto"); the value's sum over dims as kernel B's lanes take
-    it."""
+    reparam="auto")."""
+    diag = _diag_vg(k_diag, mean)
+
     def vg(q):
-        qc = q - mean
-        u = 0.5 * _dim_sum(k_diag * qc * qc, threads_per_walker(q.shape[1]))
-        return u + consts[0], k_diag * qc
+        u, g = diag(q)
+        return u + consts[0], g
     return vg
 
 

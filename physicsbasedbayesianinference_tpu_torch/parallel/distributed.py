@@ -19,6 +19,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from ..device import default_device
+
 
 def rank_device(group=None) -> torch.device:
     """The device of this process's shard: the current CUDA device under
@@ -54,8 +56,9 @@ def initialize_distributed(
     ``init_method`` URL such as ``file:///path``); without it the
     environment's ``MASTER_ADDR``/``MASTER_PORT``. ``num_processes``,
     ``process_id``: the world size and this rank, else ``WORLD_SIZE`` and
-    ``RANK``. ``device``: ``"cuda"`` or ``"cpu"``; by default the card when
-    there is one. The rank's device is ``cuda:LOCAL_RANK`` (``LOCAL_RANK``,
+    ``RANK``. ``device``: ``"cuda"`` or ``"cpu"``; by default the type of
+    ``device.default_device()`` (the card; without one it raises unless
+    the CPU was asked for). The rank's device is ``cuda:LOCAL_RANK`` (``LOCAL_RANK``,
     else the rank), made the current device.
     """
     if dist.is_initialized():
@@ -66,7 +69,7 @@ def initialize_distributed(
     if coordinator_address is None and world <= 1:
         return _summary()
     rank = process_id if process_id is not None else int(env.get("RANK", "0"))
-    kind = device or ("cuda" if torch.cuda.is_available() else "cpu")
+    kind = device or default_device().type
     if kind == "cuda":
         local = int(env.get("LOCAL_RANK", rank))
         if local >= torch.cuda.device_count():

@@ -11,6 +11,7 @@ import torch
 
 from physicsbasedbayesianinference_tpu import adaptation as ja
 from physicsbasedbayesianinference_tpu_torch import adaptation as ta
+from _torch_cpu import cpu_requested  # noqa: F401  (the CPU, asked for)
 
 
 def test_dual_averaging_sequence():

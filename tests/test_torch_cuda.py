@@ -1796,3 +1796,100 @@ def _coin_data():
               / "coin_toss.data.json") as f:
         return {k: np.asarray(v, np.float32) for k, v in json.load(f).items()
                 if k in ("c1", "c2")}
+
+
+@pytest.mark.parametrize("w,d", [(1, 1), (300, 3), (129, 5), (1000, 16),
+                                 (257, 32), (77, 33), (64, 128)])
+@pytest.mark.parametrize("name", ["diag", "diag_model"])
+def test_diag_forms_match_plain_bitwise(dev, name, w, d):
+    """The diagonal forms (form 5, and form 12 with its constant: the
+    funnel model under reparam="auto") in kernels B and D, lane-group
+    layout: each lane holds its four k and mu in registers and sums the
+    value's terms in the plain version's order (a padded dim adds +0), so
+    B's q', u', g' where the decisions agree and its proposal, in its four
+    variants, and all of D's outputs are the plain version's bits
+    (``_check_thread_layout`` with ``bits``)."""
+    rng = np.random.default_rng(d)
+    k, mu = _t(rng.uniform(0.5, 2.0, d), dev), _t(rng.normal(size=d), dev)
+    form = (("diag", (k, mu)) if name == "diag" else
+            ("diag_model", (k, mu, _t([-0.37 * d], dev))))
+    assert kernels.form_layout(form, d, "B") == "group"
+    _check_thread_layout(dev, form, w, d, spread=1.0, bits=True)
+
+
+def _lane_group_cases(dev):
+    """(label, form, D, tile) for every form in kernel B's lane groups, at
+    1, 2, 8 and 32 lanes a walker and each walker tile a tiled form
+    takes."""
+    cases = []
+    for d, tile in ((2, 4), (32, 4), (32, 2), (33, 1), (128, 2)):
+        cases.append((f"gaussian D={d} tile {tile}",
+                      _forms(d, dev)[0], d, tile))
+    for n, d, tile in ((256, 32, 4), (7, 6, 2), (40, 33, 1)):
+        cases.append((f"logistic N={n} D={d} tile {tile}",
+                      _logistic_form(n, d, dev), d, tile))
+    from physicsbasedbayesianinference_tpu_torch import models
+    x, y = models.linear_regression_data(40, 30)
+    cases.append(("linear N=40 D=32 tile 4", models.make_model_potential(
+        models.linear_regression, (x, y), {},
+        device=dev).potential.device_form, 32, 4))
+    for d in (2, 16):
+        cases.append((f"coin D={d}", _coin_form(d, dev), d, None))
+    cases.append(("mixture K=3 D=10", _forms(10, dev)[2], 10, None))
+    cases.append(("banana", _forms(2, dev)[2], 2, None))
+    cases.append(("funnel D=33", _forms(33, dev)[1], 33, None))
+    cases.append(("nbody N=12 D=36", _forms(36, dev)[-1], 36, None))
+    cases.append(("eight_schools_nc J=20", _schools_form(20, dev), 22,
+                  None))
+    cases.append(("eight_schools J=20",
+                  _schools_form(20, dev, "eight_schools"), 22, None))
+    for d in (16, 128):
+        rng = np.random.default_rng(d)
+        cases.append((f"diag_model D={d}", (
+            "diag_model", (_t(rng.uniform(0.5, 2.0, d), dev),
+                           _t(rng.normal(size=d), dev), _t([1.5], dev))),
+            d, None))
+    return cases
+
+
+@pytest.mark.parametrize("variant", ["fixed", "counted+proposal"])
+def test_lane_group_decisions_take_each_walkers_own_draw(dev, variant):
+    """Kernel B in the lane groups draws each walker's Metropolis uniform
+    once, on the block's first threads, and each lane reads its walker's at
+    the decision: for every form there, at T = 1 to 32 lanes a walker and
+    walker tiles 1, 2 and 4, over W = 3000 walkers (several blocks, the
+    last one partial), a walker is accepted exactly when log u_w < -dH_w
+    and dH_w is not divergent, with u_w its own draw
+    (``philox.accept_uniforms``) and dH_w its own energy error. H0 takes
+    the cached u and the trajectory does not, so a second launch with u
+    raised by the first launch's dH_w plus z_w ~ N(0, 1) has dH_w close to
+    -z_w: the acceptance is then near one half whatever the form, and a
+    walker reading another's draw would be caught. Its accept probability
+    is exp(min(0, -dH_w))."""
+    seed, counter, w = 21, 9, 3000
+    z = _t(np.random.default_rng(5).normal(size=w), dev)
+    for label, form, d, tile in _lane_group_cases(dev):
+        assert kernels.form_layout(form, d, "B") == "group", label
+        q, u, g, kw = _b_case(form, w, d, dev, spread=0.5, step=0.05)
+        extra = (dict(num_steps=8) if variant == "fixed" else
+                 dict(num_steps=_count(8, dev), max_steps=8,
+                      emit_proposal=True))
+
+        def run(u_cached):
+            return kernels.fused_hmc_transition(
+                form, seed, counter, q, u_cached, g, tile=tile, **kw,
+                **extra)
+
+        first = run(u)[5]
+        out = run(u + torch.where(torch.isfinite(first), first, 0.0) + z)
+        torch.cuda.synchronize()
+        derr, taken, acc = out[5], out[4], out[3]
+        log_u = torch.log(philox.accept_uniforms(seed, counter, w, dev))
+        want = (log_u < -derr) & ~(derr > 1000.0)
+        assert torch.equal(taken, want), (label, (taken != want).sum())
+        torch.testing.assert_close(
+            acc, torch.where(derr > 1000.0, 0.0,
+                             torch.exp(torch.clamp_max(-derr, 0.0))),
+            rtol=1e-6, atol=0.0, msg=label)
+        share = taken.float().mean().item()
+        assert 0.1 < share < 0.9, (label, share)

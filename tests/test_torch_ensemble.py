@@ -10,6 +10,7 @@ from physicsbasedbayesianinference_tpu import constants as jc
 from physicsbasedbayesianinference_tpu import ensemble as je
 from physicsbasedbayesianinference_tpu_torch import constants as tc
 from physicsbasedbayesianinference_tpu_torch import ensemble as te
+from _torch_cpu import cpu_requested  # noqa: F401  (the CPU, asked for)
 
 
 def test_constants_match():

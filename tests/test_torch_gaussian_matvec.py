@@ -23,6 +23,7 @@ from physicsbasedbayesianinference_tpu.ops import pallas_kernels as jk
 from physicsbasedbayesianinference_tpu.ops import potentials as jp
 from physicsbasedbayesianinference_tpu_torch.ops import kernels as tk
 from physicsbasedbayesianinference_tpu_torch.ops import potentials as tp
+from _torch_cpu import cpu_requested  # noqa: F401  (the CPU, asked for)
 
 pytestmark = pytest.mark.skipif(
     jax.default_backend() == "tpu",

@@ -21,6 +21,7 @@ import physicsbasedbayesianinference_tpu_torch as pt
 from physicsbasedbayesianinference_tpu_torch import hmc as th
 from physicsbasedbayesianinference_tpu_torch.ops import potentials as tp
 from physicsbasedbayesianinference_tpu_torch.utils import convert
+from _torch_cpu import cpu, cpu_requested  # noqa: F401  (the CPU, asked for)
 
 W, L, WARM, SAMP = 2048, 8, 150, 100
 MU4 = np.float32([1.0, -2.0, 0.5, 0.0])
@@ -226,7 +227,11 @@ def _entry_points():
     }
 
 
-@pytest.mark.parametrize("name", sorted(_entry_points()))
+with cpu():  # the parameters' names, built while collecting
+    _ENTRY_POINT_NAMES = sorted(_entry_points())
+
+
+@pytest.mark.parametrize("name", _ENTRY_POINT_NAMES)
 def test_entry_points_put_numpy_init_q_on_the_default_device(monkeypatch,
                                                              name):
     """A numpy ``init_q`` goes to ``device.default_device()`` (the card

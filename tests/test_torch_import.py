@@ -29,6 +29,7 @@ def test_port_imports_and_samples_without_jax():
     proc = _run(
         "import torch\n"
         "import physicsbasedbayesianinference_tpu_torch as pt\n"
+        "pt.device.set_default_device('cpu')\n"
         "from physicsbasedbayesianinference_tpu_torch import (adaptation,\n"
         "    constants, diagnostics, ensemble, hmc)\n"
         "from physicsbasedbayesianinference_tpu_torch.ops import (kernels,\n"

@@ -11,6 +11,7 @@ from physicsbasedbayesianinference_tpu.ops import integrators as ji
 from physicsbasedbayesianinference_tpu.ops import potentials as jp
 from physicsbasedbayesianinference_tpu_torch.ops import integrators as ti
 from physicsbasedbayesianinference_tpu_torch.ops import potentials as tp
+from _torch_cpu import cpu_requested  # noqa: F401  (the CPU, asked for)
 
 NAMES = ["leapfrog", "velocity_verlet", "position_verlet", "mclachlan",
          "yoshida4", "stormer_verlet"]

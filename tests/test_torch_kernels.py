@@ -19,6 +19,7 @@ import physicsbasedbayesianinference_tpu_torch as pt
 from physicsbasedbayesianinference_tpu_torch.ops import kernels as tk
 from physicsbasedbayesianinference_tpu_torch.ops import potentials as tp
 from physicsbasedbayesianinference_tpu_torch.utils import convert
+from _torch_cpu import cpu_requested  # noqa: F401  (the CPU, asked for)
 
 pytestmark = pytest.mark.skipif(
     jax.default_backend() == "tpu",

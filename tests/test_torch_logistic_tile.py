@@ -49,17 +49,19 @@ def test_logistic_tile_values(w, n, d, want):
 def test_logistic_shared_bytes_follow_the_layout():
     # D = 32: 8 lanes a walker, chunks of 4 x 8 = 32 rows, rows of 36 + 1
     # floats (x and y), 32 lane groups a block, a buffer row of 36 floats
-    # per walker and a residual tile of 32 rows x R walkers + 4 a group
+    # per walker and a residual tile of 32 rows x R walkers + 4 a group;
+    # before them kernel B's own part, a log uniform for each of the
+    # block's 32 R walkers
     for tile in tk.WALKER_TILES:
         assert tk.logistic_shared_bytes(256, 32, tile) == 4 * (
-            256 * 37 + 32 * tile * 36 + 32 * (32 * tile + 4))
+            32 * tile + 256 * 37 + 32 * tile * 36 + 32 * (32 * tile + 4))
     # N = 257 pads to 288 rows (257 * 37 floats would not do)
     assert tk.logistic_shared_bytes(257, 32, 4) == 4 * (
-        288 * 37 + 32 * 4 * 36 + 32 * (128 + 4))
+        128 + 288 * 37 + 32 * 4 * 36 + 32 * (128 + 4))
     # D = 6: 2 lanes a walker, chunks of 8 rows, 7 rows pad to 8; x and y
-    # round up to whole 16 bytes
+    # round up to whole 16 bytes; kernel B's own part is 128 x 2 walkers
     assert tk.logistic_shared_bytes(7, 6, 2) == 4 * (
-        (8 * 13 + 3) // 4 * 4 + 128 * 2 * 12 + 128 * (8 * 2 + 4))
+        256 + (8 * 13 + 3) // 4 * 4 + 128 * 2 * 12 + 128 * (8 * 2 + 4))
 
 
 def test_refusals_come_before_any_launch():

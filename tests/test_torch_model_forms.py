@@ -250,11 +250,12 @@ def test_form_limits_are_decided_before_any_launch():
     # block's buffers pass the card's shared memory
     wide = ("logistic", (torch.zeros(8000, 1), torch.zeros(8000)))
     assert "shared memory" in tk.generic_unsupported(wide, 2)
-    # x and y (256 rows of 36 + 1 floats), the 32 lane groups' buffer rows
-    # (36 floats a walker) and residual tiles (a chunk of 4 x 8 rows a
-    # walker, plus 4), at walker tile 1
+    # kernel B's own part (a log uniform for each of the 32 walkers), x and
+    # y (256 rows of 36 + 1 floats), the 32 lane groups' buffer rows (36
+    # floats a walker) and residual tiles (a chunk of 4 x 8 rows a walker,
+    # plus 4), at walker tile 1
     assert tk.logistic_shared_bytes(256, 32) == 4 * (
-        256 * 37 + 32 * 36 + 32 * (32 + 4))
+        32 + 256 * 37 + 32 * 36 + 32 * (32 + 4))
     ok = ("logistic", (torch.zeros(256, 31), torch.zeros(256)))
     assert tk.generic_unsupported(ok, 32) is None
     assert "parameters" in tk.generic_unsupported(("logistic", (y8,)), 3)

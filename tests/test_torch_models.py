@@ -23,6 +23,7 @@ from physicsbasedbayesianinference_tpu_torch.models import distributions as td
 from physicsbasedbayesianinference_tpu_torch.models import transforms as tt
 from physicsbasedbayesianinference_tpu_torch.ops import potentials as tp
 from physicsbasedbayesianinference_tpu_torch.utils import convert
+from _torch_cpu import cpu_requested  # noqa: F401  (the CPU, asked for)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 

@@ -27,6 +27,7 @@ from physicsbasedbayesianinference_tpu_torch.constants import (
 from physicsbasedbayesianinference_tpu_torch.ops import kernels
 from physicsbasedbayesianinference_tpu_torch.ops import potentials as tp
 from physicsbasedbayesianinference_tpu_torch.utils import convert
+from _torch_cpu import cpu_requested  # noqa: F401  (the CPU, asked for)
 
 TOL = dict(rtol=1e-12, atol=1e-14)
 PL100 = os.path.join(os.path.dirname(__file__), "..", "examples", "nbody",

@@ -13,6 +13,7 @@ from physicsbasedbayesianinference_tpu.ops import potentials as jp
 from physicsbasedbayesianinference_tpu_torch.ops import kernels
 from physicsbasedbayesianinference_tpu_torch.ops import potentials as tp
 from physicsbasedbayesianinference_tpu_torch.utils import convert
+from _torch_cpu import cpu, cpu_requested  # noqa: F401  (the CPU, asked for)
 
 RNG = np.random.default_rng(42)
 MEAN5 = RNG.normal(size=5).astype(np.float32)
@@ -44,7 +45,11 @@ def _pairs():
     }
 
 
-@pytest.mark.parametrize("name", sorted(_pairs()))
+with cpu():  # the parameters' names, built while collecting
+    _NAMES = sorted(_pairs())
+
+
+@pytest.mark.parametrize("name", _NAMES)
 def test_value_and_grad_match_jax(name):
     jfn, tfn, d = _pairs()[name]
     q = np.random.default_rng(d).normal(size=(16, d)).astype(np.float32)

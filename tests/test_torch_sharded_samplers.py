@@ -50,6 +50,7 @@ from physicsbasedbayesianinference_tpu_torch.config import RunConfig  # noqa
 from physicsbasedbayesianinference_tpu_torch.ops import (  # noqa: E402
     potentials as tpot)
 from test_torch_parallel import leave_group, spawn_ranks  # noqa: E402
+from _torch_cpu import cpu_requested  # noqa: E402,F401  (the CPU, asked for)
 
 W, D = 64, 3      # the exact cases
 W_MC = 1024       # the Monte-Carlo cases

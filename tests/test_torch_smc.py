@@ -24,6 +24,7 @@ from physicsbasedbayesianinference_tpu_torch.hmc import FusedTransition
 from physicsbasedbayesianinference_tpu_torch.ops import philox
 from physicsbasedbayesianinference_tpu_torch.ops import potentials as tp
 from physicsbasedbayesianinference_tpu_torch.utils import convert
+from _torch_cpu import cpu_requested  # noqa: F401  (the CPU, asked for)
 
 
 def _log_w(seed, n=512, scale=2.0):

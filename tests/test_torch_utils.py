@@ -180,6 +180,7 @@ def test_graft_entry_runs_the_flagship_transition():
 
 
 def test_dryrun_multichip_over_two_cpu_processes():
-    """Two gloo processes: each rank's checks of the composed and the
-    fused transition pass (a failing rank raises here)."""
-    graft_entry.dryrun_multichip(2)
+    """Two gloo processes, the CPU asked for: each rank's checks of the
+    composed and the fused transition pass (a failing rank raises
+    here)."""
+    graft_entry.dryrun_multichip(2, device="cpu")

@@ -26,9 +26,11 @@ same Philox draws:
   layout keeps the lane groups' bits); the mixture rows (kernel B at W =
   8192, K = 2, D = 2 and at K = 3, D = 10, kernel D at W = 8192, and
   parallel tempering's launch of phase 10's six rungs of 16384 walkers at
-  their betas) wherever the mixture forms do, and the coin rows (kernels
+  their betas) wherever the mixture forms do, the coin rows (kernels
   B and D at W = 102400, D = 2, on ``examples/coin_toss.data.json``'s
-  counts) wherever the coin forms do;
+  counts) wherever the coin forms do, and the diagonal rows (kernels B and
+  D with the funnel model under ``reparam="auto"``, D = 16, and with form
+  5 at D = 32, W = 102400) wherever the diagonal forms do;
 * times both in the order other, this, this, other (CUDA-graph replays
   timed with CUDA events, ``chip_smoke.median_ms``), since two cards or
   two calls differ by more than most changes.
@@ -372,6 +374,20 @@ def main() -> None:
     q = 0.5 * randn(102400, 2) + torch.tensor([1.1, -0.7], device=dev)
     row_b("B coin W=102400 D=2 L=16", coin, q, 0.3)
     row_d("D coin W=102400 D=2 L=16", coin, 102400, 2, 0.3, q=q)
+    # the diagonal forms (drawn after every earlier row)
+    funnel_auto = models.make_model_potential(
+        models.funnel, (), {}, reparam="auto",
+        device=dev).potential.device_form
+    q = randn(102400, 16)
+    row_b("B diag_model (funnel reparam=auto) W=102400 D=16 L=16",
+          funnel_auto, q, 0.2)
+    row_d("D diag_model (funnel reparam=auto) W=102400 D=16 L=16",
+          funnel_auto, 102400, 16, 0.2, q=q)
+    diag32 = ("diag", ((0.5 + 1.5 * torch.rand(32, generator=gen)).to(dev),
+                       randn(32)))
+    q = randn(102400, 32)
+    row_b("B diag W=102400 D=32 L=16", diag32, q, 0.2)
+    row_d("D diag W=102400 D=32 L=16", diag32, 102400, 32, 0.2, q=q)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 """The measured sweeps behind the design constants of kernels E and A and
 of the Gaussian and logistic forms' register tiles in kernels B and D.
 
-    python3 tools/kernel_sweeps.py [--only e|a|gaussian|logistic|threads|tail|registers|sass]
+    python3 tools/kernel_sweeps.py [--only e|a|gaussian|logistic|threads|diag|tail|registers|sass]
                                    [--source thread_layout.cu]
                                    [--forms mixture,nbody] [--other DIR]
                                    [--out DIR]
@@ -68,6 +68,14 @@ build is hashed by its flags, ``ops/_build.py``) and times, as
   8, 10 blocks of 128 threads) and ``PBBI_THREAD_BLOCK`` (threads a block:
   64, 256) varied, beside the lane-group layout forced on the default
   build (``--forms`` names the forms to time: all unless given);
+* kernels B and D with the diagonal forms in the lane groups (the funnel
+  model under ``reparam="auto"``, form 12, D = 16, and form 5 at D = 32,
+  W = 102400, L = 16; B with the count fixed, and on the device with the
+  proposal outputs; D with the cached pair) over ``DIAG_VARIANTS``:
+  ``PBBI_DIAG_MIN_BLOCKS`` (the form's register cap in both kernels)
+  and ``PBBI_BLOCK``, each line
+  with the kernels' registers (``cuobjdump -res-usage``), the launch's
+  blocks and whether its outputs are the default build's bits;
 * the launch's last wave: kernel B with the logistic form (N = 256, D =
   32, L = 16) in the lane groups at W = 101376 (792 blocks of tile 4, 3
   whole waves of 2 blocks an SM on 132 SMs) and W = 102400 (800 blocks,
@@ -80,15 +88,19 @@ build is hashed by its flags, ``ops/_build.py``) and times, as
   took (``--source`` names one of the three sources);
 * the SASS (``cuobjdump -sass``) of the functions whose instruction
   sequences ``chip_smoke.gradient_ops`` counts: ``expf``, ``logf``,
-  ``log1pf``, the IEEE division and reciprocal and ``sqrtf``, each alone in
+  ``log1pf``, the IEEE division and reciprocal and ``sqrtf``, and what
+  every fused transition draws (a Philox4x32-10 block, ``sincosf`` of 2 pi
+  u, a Box-Muller pair, the Metropolis draw with its ``logf``; the
+  ``SASS_PHILOX``, ``SASS_SINCOSF`` and ``SASS_ACCEPT`` of
+  ``chip_smoke.draw_ops``), each alone in
   a probe kernel built with the library's flags, beside a probe that only
   copies and one that adds (one line each: the instructions a thread
   executes on the path of finite, normal operands, ``sequence`` those
   over the copy's (the division: over the sum's, plus the addition it
   replaces), the MUFU instructions, the listing); and of every
   kernel of the built library (with ``--other DIR``, also of the
-  checkout at DIR) whose name holds ``SASS_KERNELS`` (the mixture's and
-  the coin's), written to ``--out`` (``_build/sass`` unless given) with
+  checkout at DIR) whose name holds ``SASS_KERNELS`` (the mixture's, the
+  coin's and the diagonal form's), written to ``--out`` (``_build/sass`` unless given) with
   one line each: its instructions, its MUFU, branch and call
   instructions and how many carry a predicate.
 
@@ -147,6 +159,17 @@ T_VARIANTS = ((), ("-DPBBI_THREAD_MIN_BLOCKS=1",),
               ("-DPBBI_THREAD_BLOCK=256",))
 
 
+# extra nvcc flags of the diagonal form's sweep (kernels B and D in the
+# lane groups), the default first (B at most 64 registers, D 40): the
+# form's register cap in both kernels (blocks of 256 threads an SM: 8, at
+# most 32 registers; 6, 40; 4, 64; 2, 128) and the block size (every
+# form's)
+DIAG_VARIANTS = ((), ("-DPBBI_DIAG_MIN_BLOCKS=8",),
+                 ("-DPBBI_DIAG_MIN_BLOCKS=6",),
+                 ("-DPBBI_DIAG_MIN_BLOCKS=4",),
+                 ("-DPBBI_DIAG_MIN_BLOCKS=2",), ("-DPBBI_BLOCK=128",),
+                 ("-DPBBI_BLOCK=512", "-DPBBI_BD_MIN_BLOCKS=1",
+                  "-DPBBI_DIAG_MIN_BLOCKS=1"))
 # the sources whose kernels sweep_registers reports
 REGISTER_SOURCES = ["fused_hmc.cu", "leapfrog.cu", "thread_layout.cu"]
 # the forms sweep_threads times (all unless --forms names some)
@@ -160,11 +183,37 @@ SASS_PROBES = {"copy": "y[i] = x[i];", "sum": "y[i] = x[i] + x[i + n];",
                "log1pf": "y[i] = log1pf(x[i]);",
                "division": "y[i] = x[i] / x[i + n];",
                "reciprocal": "y[i] = 1.0f / x[i];",
-               "sqrtf": "y[i] = sqrtf(x[i]);"}
-# each probe's baseline: the copy, or for the division the sum, whose one
-# addition the division replaces
-SASS_BASELINES = {"division": ("sum", 1)}
-SASS_KERNELS = re.compile(r"MixtureForm|MixtureThreadForm|CoinForm")
+               "sqrtf": "y[i] = sqrtf(x[i]);",
+               # a Philox4x32-10 block as the kernels draw one: three
+               # counter words and both key words known at run time only
+               "philox": "const unsigned a = __float_as_uint(x[i]), "
+                         "b = __float_as_uint(x[i + n]); "
+                         "const pbbi::Philox4 r = pbbi::philox4x32_10("
+                         "a, i, b, 1u, b ^ 0x1234u, a + 7u); "
+                         "y[i] = __uint_as_float(r.w0 ^ r.w1 ^ r.w2 ^ r.w3);",
+               # Box-Muller's sine and cosine of 2 pi u, u in (0, 1]
+               "sincosf": "float s, c; "
+                          "sincosf(6.283185307179586f * x[i], &s, &c); "
+                          "y[i] = s + c;",
+               # the whole pair of normals and the Metropolis draw
+               "box_muller": "float a, b; pbbi::box_muller("
+                             "__float_as_uint(x[i]), "
+                             "__float_as_uint(x[i + n]), &a, &b); "
+                             "y[i] = a + b;",
+               "accept": "y[i] = logf(pbbi::accept_uniform("
+                         "__float_as_uint(x[i]), i, "
+                         "__float_as_uint(x[i + n]), 7u));"}
+# each probe's baseline and what to add to its path less the baseline's:
+# the copy, or the sum (two loads, one addition) for the division, whose
+# one addition it replaces, for Philox (its key's two instructions and the
+# two xors of its words replace the addition: -3), the pair of normals (+0)
+# and the Metropolis draw (+1); sincosf less the copy, its 2 pi product
+# and the addition of its two results (-2)
+SASS_BASELINES = {"division": ("sum", 1), "philox": ("sum", -3),
+                  "sincosf": ("copy", -2), "box_muller": ("sum", 0),
+                  "accept": ("sum", 1)}
+SASS_KERNELS = re.compile(r"MixtureForm|MixtureThreadForm|CoinForm|"
+                          r"DiagQuadraticForm")
 
 
 def use(flags=()):
@@ -182,8 +231,8 @@ def bodies(n, dtype, gen, dev):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=("e", "a", "gaussian", "logistic",
-                                           "threads", "tail", "registers",
-                                           "sass"))
+                                           "threads", "diag", "tail",
+                                           "registers", "sass"))
     parser.add_argument("--source", choices=REGISTER_SOURCES)
     parser.add_argument("--forms", help="comma-separated forms of the "
                         "thread-layout sweep")
@@ -210,6 +259,7 @@ def main() -> None:
                         ("gaussian", sweep_gaussian),
                         ("logistic", sweep_logistic),
                         ("threads", sweep_threads),
+                        ("diag", sweep_diag),
                         ("tail", sweep_tail),
                         ("registers", sweep_registers),
                         ("sass", sweep_sass)):
@@ -549,6 +599,94 @@ def sweep_threads(gen, dev) -> None:
     use()
 
 
+def _flag(flags, name, default):
+    """The value of ``-Dname=value`` in ``flags``, else ``default``."""
+    for f in flags:
+        if f.startswith(f"-D{name}="):
+            return int(f.split("=", 1)[1])
+    return default
+
+
+def _registers(lib: Path, pattern: str) -> dict:
+    """Registers of each kernel of the built library whose demangled name
+    holds ``pattern`` (``cuobjdump -res-usage``), by demangled name."""
+    bin_dir = Path(_build.nvcc_path()).parent
+    text = subprocess.run([str(bin_dir / "cuobjdump"), "-res-usage",
+                           str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    found = re.findall(r"Function (\S+):\s*\n?\s*REG:(\d+)", text)
+    names = subprocess.run([str(bin_dir / "cu++filt")], input="\n".join(
+        m for m, _ in found), capture_output=True, text=True,
+        check=True).stdout.splitlines()
+    out = {}
+    for name, (_, regs) in zip(names, found):
+        if pattern in name:  # kernel<Form, R, kVec, ...>: by kernel and flags
+            m = re.match(r"(?:void )?(?:<unnamed>::|\(anonymous "
+                         r"namespace\)::)?(\w+)<[^,]*, ([^>]*)>", name)
+            out[f"{m.group(1)}<{m.group(2)}>" if m else name] = int(regs)
+    return out
+
+
+def sweep_diag(gen, dev) -> None:
+    """Kernels B and D with the diagonal forms in the lane groups: the
+    funnel model under reparam="auto" (form 12, W = 102400, D = 16, L =
+    16: phase 14c's shape) and form 5 (W = 102400, D = 32), over
+    ``DIAG_VARIANTS``, each line with the kernels' registers, the blocks
+    of a launch and whether its outputs are the default build's bits."""
+    steps, w = 16, 102400
+    model = models.make_model_potential(models.funnel, (), {},
+                                        reparam="auto", device=dev)
+    d16 = model.num_dims
+    form16 = model.potential.device_form
+    form32 = ("diag", ((0.5 + 1.5 * torch.rand(32, generator=gen)).to(dev),
+                       torch.randn(32, generator=gen).to(dev)))
+    cases = {}
+    for label, form, d in (("diag_model (funnel reparam=auto)", form16, d16),
+                           ("diag", form32, 32)):
+        q = torch.randn(w, d, generator=gen).to(dev)
+        u, g = kernels.device_value_and_grad(form)(q)
+        im = (0.5 + 1.5 * torch.rand(d, generator=gen)).to(dev)
+        cases[label] = (form, d, q, torch.randn(w, d, generator=gen).to(dev),
+                        u, g, im)
+    count = torch.tensor([steps], dtype=torch.int32, device=dev)
+    scalars = torch.tensor([0.2, 1.0, 1.0], device=dev)
+    step = torch.tensor([0.2], device=dev)
+    default = {}
+    for flags in DIAG_VARIANTS:
+        use(flags)
+        lib = _build.build((*_build.NVCC_FLAGS, *flags))
+        regs = _registers(lib, "DiagQuadraticForm")
+        block = _flag(flags, "PBBI_BLOCK", 256)
+        for label, (form, d, q, p, u, g, im) in cases.items():
+            b = dict(scalars=scalars, p_std=torch.sqrt(1.0 / im),
+                     inv_mass=im)
+            calls = {
+                "B_fixed": lambda: kernels.fused_hmc_transition(
+                    form, SEED, 7, q, u, g, num_steps=steps, **b),
+                "B_counted_proposal": lambda: kernels.fused_hmc_transition(
+                    form, SEED, 7, q, u, g, num_steps=count,
+                    max_steps=steps, emit_proposal=True, **b),
+                "D": lambda: kernels.leapfrog_trajectory(
+                    form, q, p, step_size=step, num_steps=steps,
+                    inv_mass=im, grad=g, potential_energy=u)}
+            outs = {k: fn() for k, fn in calls.items()}
+            torch.cuda.synchronize()
+            if not flags:
+                default[label] = outs
+            same = all(torch.equal(a, b_) for k in outs
+                       for a, b_ in zip(outs[k], default[label][k]))
+            walkers = block // kernels.threads_per_walker(d)
+            print(json.dumps({
+                "kernel": "B and D, diagonal form, lane groups",
+                "flags": list(flags), "form": label, "W": w, "D": d,
+                "L": steps, "threads_per_block": block,
+                "walkers_per_block": walkers, "blocks": -(-w // walkers),
+                "same_bits_as_default": same,
+                **{f"{k}_ms": median_ms(fn) for k, fn in calls.items()},
+                "registers": regs}))
+    use()
+
+
 def sweep_tail(gen, dev) -> None:
     x, y = models.logistic_regression_data(256, 31)
     form = ("logistic", (torch.as_tensor(x).to(dev),
@@ -647,12 +785,15 @@ def _sass(binary: Path) -> dict:
     return funcs
 
 
-def _fast_path(body) -> int:
+def _fast_path(body, taken=True) -> int:
     """Instructions a thread executes from the start to the unpredicated
     EXIT when every forward conditional branch is taken: the path of
     finite, normal operands, on which the division, reciprocal and root
     branch past the call of their slow path and log1pf past its special
-    cases (a predicated EXIT falls through)."""
+    cases (a predicated EXIT falls through). With ``taken`` false every
+    conditional branch falls through instead (sincosf's reduction of a
+    small argument, ahead of the branch to its large-argument path; the
+    listing says which path is which)."""
     at = {a: i for i, (a, _) in enumerate(body)}
     i = n = 0
     while True:
@@ -663,7 +804,7 @@ def _fast_path(body) -> int:
             return n
         if op == "BRA":
             target = int(re.findall(r"0x[0-9a-f]+", ins)[-1], 16)
-            if not ins.startswith("@") or target > addr:
+            if not ins.startswith("@") or (taken and target > addr):
                 i = at[target]
                 continue
         i += 1
@@ -690,7 +831,7 @@ def sweep_sass(gen, dev) -> None:
     out.mkdir(parents=True, exist_ok=True)
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-split-compile", "0")]
     src = out / "probes.cu"
-    src.write_text("".join(
+    src.write_text(f'#include "{_build.CSRC / "philox.cuh"}"\n' + "".join(
         f'extern "C" __global__ void probe_{name}(const float* __restrict__ '
         f"x, float* __restrict__ y, int n) {{\n"
         f"  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
@@ -701,12 +842,17 @@ def sweep_sass(gen, dev) -> None:
                     str(src)], check=True)
     funcs = _sass(cubin)
     path = {name: _fast_path(funcs[f"probe_{name}"]) for name in SASS_PROBES}
+    through = {name: _fast_path(funcs[f"probe_{name}"], taken=False)
+               for name in SASS_PROBES}
     for name in SASS_PROBES:
         body = funcs[f"probe_{name}"]
         base, extra = SASS_BASELINES.get(name, ("copy", 0))
         print(json.dumps({"probe": name, "fast_path": path[name],
                           "baseline": base,
                           "sequence": path[name] - path[base] + extra,
+                          "falling_through": through[name],
+                          "sequence_falling_through":
+                              through[name] - through[base] + extra,
                           **_sass_stats(body),
                           "listing": [ins for _, ins in body]}))
     libs = {"this": _build.build()}
